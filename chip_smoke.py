@@ -3,16 +3,23 @@
 
     python3 chip_smoke.py [--report PATH]   # on a machine with a CUDA card
 
-Builds the CUDA kernels from `src/repro_torch/csrc/` and drives the port on
-one CUDA card, with no JAX:
+Builds the CUDA kernels from `src/repro_torch/csrc/` (both sources, one
+nvcc each, in parallel) and drives the port on one CUDA card, with no JAX:
 
- 1. kernels   B1-B4 against their plain PyTorch versions on the card, at the
-              shapes the main paths give them plus ragged, empty-window,
-              all-invalid, tie and flush-to-zero probes; all bit-identical.
-              Times (CUDA events, median of 60 after warm-up): the kernel,
-              the plain version, and the bipolar `torch.matmul` score
-              product alone (a partial yardstick: it computes only the
-              kernel's product).
+ 1. kernels   B1-B4 and B7a (`acam_match.cu`) against their plain PyTorch
+              versions on the card, at the shapes the main paths give them
+              plus ragged, empty-window, all-invalid, tie and flush-to-zero
+              probes; all bit-identical. B5, B6 and B7b
+              (`acam_similarity.cu`) likewise, on binary and dyadic windows
+              at alpha 1.0 and 0.37 (bit-identical), at two B6 chunks, and
+              on one non-dyadic real-window case (S and margin within
+              rtol 1e-5, atol 1e-6; pred equal where the top-two gap
+              exceeds 1e-5). Times (CUDA events, median of 60 after
+              warm-up): the kernel, the plain version, and a library
+              yardstick where one exists (B1-B4: the bipolar `torch.matmul`
+              score product alone, partial; B7a: `torch.addmm` of the
+              bipolar operands, the whole count; B5, B6, B7b: none, no
+              PyTorch call computes Eq. 9-11).
  2. paths     each main path driven through the entry points a user calls,
               with the launch counts set to 0 just before and read just
               after: `HybridClassifier.predict` (B1) at paper width (the
@@ -23,7 +30,13 @@ one CUDA card, with no JAX:
               `MatchEngine.classify_features` on a bank past
               `MAX_FUSED_ROWS` (B2). The served answers must equal the
               compose tick's and those of the same service on the CPU,
-              where each kernel runs its plain version.
+              where each kernel runs its plain version. The similarity
+              method (Eq. 9-11): `predict` with a similarity head (B5), the
+              similarity service booted from a spec file through the port's
+              launcher `repro_torch.launch.serve.main` (B6; launches equal
+              dispatches, answers equal the CPU run's), a similarity
+              `classify_features_margin` past `MAX_FUSED_ROWS` (B6), and
+              `ACAMHead.scores` for both methods (B7a, B7b).
  3. report    the card's name and power limit, metrics and the energy
               split, one ``{"kernels": [...]}`` line, and as the last line
               ``{"ok": true, "device": {...}}``. ``--report PATH``
@@ -44,19 +57,35 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-SOURCE = "src/repro_torch/csrc/acam_match.cu"
-TPU_SITE = "src/repro/kernels/acam_match/acam_match.py"
-# kernel -> line of the TPU kernel's pallas_call in TPU_SITE (B1, B4, B2, B3)
-PALLAS_LINE = {
-    "acam_match_classify": 204,
-    "acam_match_classify_margins": 302,
-    "acam_match_classify_margins_chunked": 418,
-    "acam_match_serve": 575,
+CSRC = "src/repro_torch/csrc"
+MATCH_SRC = f"{CSRC}/acam_match.cu"
+SIM_SRC = f"{CSRC}/acam_similarity.cu"
+MATCH_TPU = "src/repro/kernels/acam_match/acam_match.py"
+SIM_TPU = "src/repro/kernels/acam_similarity/acam_similarity.py"
+# kernel -> (its CUDA source, file:line of the TPU kernel's pallas_call)
+KERNELS = {
+    "acam_match_classify": (MATCH_SRC, f"{MATCH_TPU}:204"),  # B1
+    "acam_match_classify_margins": (MATCH_SRC, f"{MATCH_TPU}:302"),  # B4
+    "acam_match_classify_margins_chunked": (MATCH_SRC,
+                                            f"{MATCH_TPU}:418"),  # B2
+    "acam_match_serve": (MATCH_SRC, f"{MATCH_TPU}:575"),  # B3
+    "acam_match": (MATCH_SRC, f"{MATCH_TPU}:126"),  # B7a
+    "acam_similarity_classify": (SIM_SRC, f"{SIM_TPU}:195"),  # B5
+    "acam_similarity_serve": (SIM_SRC, f"{SIM_TPU}:344"),  # B6
+    "acam_similarity": (SIM_SRC, f"{SIM_TPU}:101"),  # B7b
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor rate
+# FP32 / int instructions per second outside the tensor cores: 132 SMs x
+# 128 lanes x 1.98 GHz, the 67 TFLOP/s FP32 peak with an FMA counted once
+INSTR_PER_S = 33.5e12
+SIM_INSTR_PER_CELL = 10  # Eq. 9-11 per (query, template row, feature)
 N = 784  # Fig. 5 features
 ITERS = 60
+TENANTS = 8
+# the similarity service's cascade threshold in match-count units (tau / N
+# in Eq. 11 units): inside the served margins, so some requests escalate
+SIM_TAU = 12.0
 
 
 def check(cond: bool, msg: str) -> None:
@@ -179,6 +208,10 @@ def faces(x: dict, c: int, k: int):
             am.acam_match_serve, am.serve_plain,
             (x["f"], x["table"], x["slot"], t_kcp, v_kcp, x["lo"], x["hi"],
              tau, c), {"chunk": chunk}),
+        # raw (B, C * K) counts over the class-major flattened bank
+        "acam_match": (
+            lambda *a: (am.acam_match(*a),), lambda *a: (am.match_plain(*a),),
+            (x["f"], x["thr"], x["t"].reshape(-1, x["t"].shape[-1])), {}),
     }
 
 
@@ -206,7 +239,9 @@ def bound(name: str, b: int, c: int, k: int, n: int, t_rows: int):
     true classes) over 3.35 TB/s, against its B*K*C*N cell matches as two
     int8 operations each over 1,979 TOP/s. Returns (ms, bound_by, bytes)."""
     nbytes = b * n * 4 + k * c * n * 4 + k * c * 4 + b * 4 + b * c * 4
-    if name == "acam_match_serve":
+    if name == "acam_match":  # features, thresholds, templates, counts out
+        nbytes = b * n * 4 + n * 4 + k * c * n * 4 + b * k * c * 4
+    elif name == "acam_match_serve":
         nbytes += t_rows * n * 4 + b * 4 + 2 * b * 4 + b * 4 + b * 4 + b
     else:
         nbytes += n * 4
@@ -230,6 +265,7 @@ def kernel_phase(device) -> dict:
         "acam_match_classify_margins": (64, 128, 2, N),  # compose tick
         "acam_match_classify_margins_chunked": (64, 1100, 2, N),  # big bank
         "acam_match_serve": (64, 128, 2, N),  # serving tick
+        "acam_match": (256, 10, 1, N),  # ACAMHead.scores
     }
     edge_shapes = [(37, 30, 2, 300), (1, 1, 1, 1), (200, 257, 3, 1000),
                    (16, 12, 4, 64), (16, 1100, 2, 64)]
@@ -239,13 +275,27 @@ def kernel_phase(device) -> dict:
         wrapper, plain, args, kw = faces(x, c, k)[name]
         err = compare(name, wrapper(*args, **kw), plain(*args, **kw))
         q_pm = (x["f"] > x["thr"]).float() * 2 - 1
-        t_pm = layout.flatten_kmajor(x["t"], c) * 2 - 1
         ms, by, nbytes = bound(name, b, c, k, n, 8)
+        if name == "acam_match":
+            # the whole count: (N + Q~ . T~^T) / 2 in one call
+            t_pm = x["t"].reshape(-1, n) * 2 - 1
+            half_n = torch.tensor(n * 0.5, device=device)
+            check(torch.equal(torch.addmm(half_n, q_pm, t_pm.T, alpha=0.5),
+                              wrapper(*args, **kw)[0]),
+                  "acam_match: torch.addmm yardstick computes another "
+                  "function")
+            library = (lambda: torch.addmm(half_n, q_pm, t_pm.T, alpha=0.5),
+                       "torch.addmm of the bipolar operands (the whole "
+                       "count; binarising not included)")
+        else:
+            t_pm = layout.flatten_kmajor(x["t"], c) * 2 - 1
+            library = (lambda: torch.matmul(q_pm, t_pm.T),
+                       "torch.matmul bipolar score product only (partial)")
         out[name] = dict(
             shape=dict(B=b, C=c, K=k, N=n), max_abs_err=err,
             ms=time_ms(lambda: wrapper(*args, **kw)),
             plain_ms=time_ms(lambda: plain(*args, **kw)),
-            library_ms=time_ms(lambda: torch.matmul(q_pm, t_pm.T)),
+            library_ms=time_ms(library[0]), library_call=library[1],
             bound_ms=ms, bound_by=by, bound_bytes=nbytes,
             profile=profile(lambda: wrapper(*args, **kw), reps=20))
     for seed, (b, c, k, n) in enumerate(edge_shapes):
@@ -275,11 +325,241 @@ def kernel_phase(device) -> dict:
         for name, (wrapper, plain, args, kw) in faces(x, c, k).items():
             got = wrapper(*args, **kw)
             compare(f"{name} ftz probe thr={thr_val}", got, plain(*args, **kw))
-            best = got[1].max(dim=1).values
+            best = got[1 if len(got) > 1 else 0].max(dim=1).values
             check(bool((best == n).all()), f"{name} flushed a subnormal "
                   f"difference at thr={thr_val}")
     am.reset_launches()
     return out
+
+
+# ---------------------------------------------------------------------------
+# 1b. the similarity kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def windows(rng, c: int, k: int, n: int, kind: str):
+    """(lower, upper) (C, K, N) windows: "binary" as `generate_templates`
+    builds them ({0, 1}, upper >= lower), "dyadic" (multiples of 1/4: D is
+    exact in any summation order) or "real" (non-dyadic floats)."""
+    if kind == "binary":
+        lo = (rng.random((c, k, n)) > 0.5).astype(np.float32)
+        hi = np.maximum((rng.random((c, k, n)) > 0.5).astype(np.float32), lo)
+    elif kind == "dyadic":
+        lo = (rng.integers(-8, 1, (c, k, n)) / 4).astype(np.float32)
+        hi = lo + (rng.integers(0, 9, (c, k, n)) / 4).astype(np.float32)
+    else:
+        lo = rng.standard_normal((c, k, n), dtype=np.float32) * 0.5
+        hi = lo + np.abs(rng.standard_normal((c, k, n), dtype=np.float32))
+    return lo, hi
+
+
+def sim_case(seed: int, b: int, c: int, k: int, n: int, device, kind: str,
+             *, t_rows: int = 8, edges: bool = False):
+    """`case` plus windows of ``kind`` and raw queries for B7b (dyadic unless
+    the windows are real). ``edges``: class 1 duplicates class 0 (exact
+    ties), class 2 is all-invalid, and rows 1-3 get an all-invalid window,
+    a single-class window and a tied window (row 0's is empty)."""
+    import torch
+
+    x = case(seed, b, c, k, n, device, t_rows=t_rows)
+    rng = np.random.default_rng(seed + 1000)
+    lo, hi = windows(rng, c, k, n, kind)
+    q = (rng.standard_normal((b, n), dtype=np.float32) if kind == "real"
+         else (rng.integers(-8, 9, (b, n)) / 4).astype(np.float32))
+    x.update(lower=torch.as_tensor(lo, device=device),
+             upper=torch.as_tensor(hi, device=device),
+             q=torch.as_tensor(q, device=device))
+    if edges and c > 3:
+        x["lower"][1], x["upper"][1] = x["lower"][0], x["upper"][0]
+        x["valid"][0, 0] = True
+        x["valid"][1] = x["valid"][0]
+        x["valid"][2] = False
+        if b > 3:
+            x["lo"][1:4] = torch.tensor([2, 0, 0], device=device)
+            x["hi"][1:4] = torch.tensor([3, 1, 2], device=device)
+    return x
+
+
+def sim_faces(x: dict, c: int, k: int, alpha: float, chunk: int | None = None):
+    """Each similarity face's (wrapper, plain, args, kwargs) on one case;
+    taus straddle every served margin (row 0 -inf, as the scheduler pads)."""
+    import torch
+
+    from repro_torch.kernels import layout
+    from repro_torch.kernels.acam_similarity import acam_similarity as asim
+    from repro_torch.match import MAX_FUSED_ROWS
+
+    n = x["f"].shape[1]
+    cp = layout.padded_classes(c)
+    chunk = chunk or layout.class_chunk(cp, k, MAX_FUSED_ROWS)
+    lo_kcp = layout.stack_kcp(x["lower"], c)
+    hi_kcp = layout.stack_kcp(x["upper"], c)
+    v_kcp = layout.valid_kcp(x["valid"], c)
+    margins = asim.serve_plain(
+        x["f"], x["table"], x["slot"], lo_kcp, hi_kcp, v_kcp, x["lo"],
+        x["hi"], torch.zeros_like(x["f"][:, 0]), c, alpha=alpha,
+        chunk=chunk)[2]
+    sign = torch.where(torch.arange(len(margins), device=margins.device) % 2
+                       == 0, 1e-4, -1e-4)
+    tau = (margins + sign).to(torch.float32)
+    tau[0] = float("-inf")
+    kw = {"alpha": alpha}
+    return {
+        "acam_similarity": (
+            lambda *a, **k_: (asim.acam_similarity(*a, **k_),),
+            lambda *a, **k_: (asim.similarity_plain(*a, **k_),),
+            (x["q"], x["lower"].reshape(-1, n), x["upper"].reshape(-1, n)),
+            kw),
+        "acam_similarity_classify": (
+            asim.acam_similarity_classify, asim.classify_plain,
+            (x["f"], x["thr"], lo_kcp.reshape(-1, n), hi_kcp.reshape(-1, n),
+             v_kcp.reshape(-1), c), kw),
+        "acam_similarity_serve": (
+            asim.acam_similarity_serve, asim.serve_plain,
+            (x["f"], x["table"], x["slot"], lo_kcp, hi_kcp, v_kcp, x["lo"],
+             x["hi"], tau, c), dict(kw, chunk=chunk)),
+    }
+
+
+def compare_close(name: str, got, want, tau=None) -> float:
+    """Non-dyadic windows: scores and margins within rtol 1e-5, atol 1e-6
+    (-inf where the plain version has -inf); pred equal wherever the plain
+    version's top-two gap exceeds 1e-5; escalate equal wherever its margin
+    is more than 1e-5 from tau. Returns the max |diff| of finite floats."""
+    import torch
+
+    err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"{name} output {i}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
+        if g.dtype.is_floating_point:
+            check(torch.equal(torch.isfinite(g), torch.isfinite(w)),
+                  f"{name} output {i}: -inf at other positions")
+            fin = torch.isfinite(w)
+            if fin.any():
+                err = max(err, float((g[fin] - w[fin]).abs().max()))
+                check(torch.allclose(g[fin], w[fin], rtol=1e-5, atol=1e-6),
+                      f"{name} output {i} outside rtol 1e-5, atol 1e-6 "
+                      f"(max |diff| {err})")
+    if len(want) >= 2:  # classify / serve: (pred, per_class, ...)
+        if len(want) == 4:
+            gap = want[2]
+            sure = (want[2] - tau).abs() > 1e-5
+            check(torch.equal(got[3][sure], want[3][sure]),
+                  f"{name}: escalate differs away from tau")
+        else:
+            top = want[1].topk(min(2, want[1].shape[1]), dim=1).values
+            gap = (top[:, 0] - top[:, -1] if top.shape[1] > 1
+                   else torch.full_like(top[:, 0], float("inf")))
+        clear = gap > 1e-5
+        check(torch.equal(got[0][clear], want[0][clear]),
+              f"{name}: pred differs where the top-two gap exceeds 1e-5")
+    return err
+
+
+def sim_bound(name: str, b: int, c: int, k: int, n: int, valid_rows: int,
+              t_rows: int):
+    """Least time for the call on an H100 SXM: the bytes it must move (each
+    input read once, each output written once; windows counted for the
+    valid rows only, which is all the kernel reads) over 3.35 TB/s, against
+    its B * valid rows * N window cells at SIM_INSTR_PER_CELL FP32 / int
+    instructions each over INSTR_PER_S. Returns (ms, bound_by, bytes)."""
+    win = 2 * valid_rows * n * 4
+    if name == "acam_similarity":
+        nbytes = b * n * 4 + win + b * valid_rows * 4
+    elif name == "acam_similarity_classify":
+        nbytes = b * n * 4 + n * 4 + win + k * c * 4 + b * 4 + b * c * 4
+    else:  # serve: + table, slots, windows, tau in; margin, escalate out
+        nbytes = (b * n * 4 + t_rows * n * 4 + b * 4 + win + k * c * 4
+                  + 3 * b * 4 + b * 4 + b * c * 4 + b * 4 + b)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = b * valid_rows * n * SIM_INSTR_PER_CELL / INSTR_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+
+def similarity_phase(device) -> dict:
+    from repro_torch.kernels import layout
+    from repro_torch.kernels.acam_similarity import acam_similarity as asim
+
+    # (b, c, k, n): the main paths' shapes (timed; binary windows, alpha 1)
+    main_shapes = {
+        "acam_similarity_classify": (256, 10, 1, N),  # predict, similarity
+        "acam_similarity_serve": (64, 128, 2, N),  # serving tick
+        "acam_similarity": (256, 10, 1, N),  # ACAMHead.scores, similarity
+    }
+    out = {}
+    for seed, (name, (b, c, k, n)) in enumerate(main_shapes.items()):
+        x = sim_case(200 + seed, b, c, k, n, device, "binary")
+        wrapper, plain, args, kw = sim_faces(x, c, k, 1.0)[name]
+        err = compare(name, wrapper(*args, **kw), plain(*args, **kw))
+        rows = c * k if name == "acam_similarity" else int(x["valid"].sum())
+        ms, by, nbytes = sim_bound(name, b, c, k, n, rows, 8)
+        out[name] = dict(
+            shape=dict(B=b, C=c, K=k, N=n, valid_rows=rows),
+            max_abs_err=err, ms=time_ms(lambda: wrapper(*args, **kw)),
+            plain_ms=time_ms(lambda: plain(*args, **kw)), library_ms=None,
+            library_call="none: no PyTorch call computes Eq. 9-11",
+            bound_ms=ms, bound_by=by, bound_bytes=nbytes,
+            profile=profile(lambda: wrapper(*args, **kw), reps=20))
+    # bit-identity: binary and dyadic windows, both alphas, main shapes,
+    # ragged shapes and the edge cases; B6 at two chunks
+    shapes = [(64, 128, 2, N), (256, 10, 1, N), (37, 30, 2, 300), (1, 1, 1, 1),
+              (16, 12, 4, 64), (16, 1100, 2, 64)]
+    for seed, (b, c, k, n) in enumerate(shapes):
+        cp = layout.padded_classes(c)
+        for kind in ("binary", "dyadic"):
+            x = sim_case(300 + seed, b, c, k, n, device, kind, edges=True)
+            for alpha in (1.0, 0.37):
+                for chunk in (None, cp // 2):
+                    for name, (wrapper, plain, args, kw) in sim_faces(
+                            x, c, k, alpha, chunk).items():
+                        if chunk and name != "acam_similarity_serve":
+                            continue
+                        out[name]["max_abs_err"] = max(
+                            out[name]["max_abs_err"], compare(
+                                f"{name} {b}x{c}x{k}x{n} {kind} a={alpha} "
+                                f"chunk={chunk}", wrapper(*args, **kw),
+                                plain(*args, **kw)))
+    # non-dyadic real windows: within tolerance
+    for seed, (b, c, k, n) in enumerate([(64, 128, 2, N), (256, 10, 1, N)]):
+        x = sim_case(400 + seed, b, c, k, n, device, "real", edges=True)
+        for name, (wrapper, plain, args, kw) in sim_faces(
+                x, c, k, 0.37).items():
+            out[name]["real_window_max_abs_err"] = max(
+                out[name].get("real_window_max_abs_err", 0.0),
+                compare_close(f"{name} {b}x{c}x{k}x{n} real",
+                              wrapper(*args, **kw), plain(*args, **kw),
+                              args[8] if len(args) > 8 else None))
+    # flush-to-zero probe (B6 binarises with (f - thr) > 0): f one ulp above
+    # thr at thr ~ 1 and at the smallest normal; every window is [1, 1], so
+    # an unflushed row hits every feature and scores N * inv_n / 1
+    for thr_val in (1.0, float(np.finfo(np.float32).tiny)):
+        c, k, n = 10, 1, 64
+        x = sim_case(9, 8, c, k, n, device, "binary", t_rows=1)
+        thr = np.full(n, thr_val, np.float32)
+        x["f"] = torch_tensor(np.tile(np.nextafter(thr, np.float32(np.inf)),
+                                      (8, 1)), device)
+        x["table"] = torch_tensor(thr[None, :], device)
+        x["slot"].zero_()
+        x["lower"].fill_(1.0)
+        x["upper"].fill_(1.0)
+        wrapper, plain, args, kw = sim_faces(x, c, k, 1.0)[
+            "acam_similarity_serve"]
+        got = wrapper(*args, **kw)
+        compare(f"acam_similarity_serve ftz probe thr={thr_val}", got,
+                plain(*args, **kw))
+        full = float(np.float32(n) * (np.float32(1) / np.float32(n)))
+        check(bool((got[1].max(dim=1).values == full).all()),
+              f"acam_similarity_serve flushed a subnormal difference at "
+              f"thr={thr_val}")
+    asim.reset_launches()
+    return out
+
+
+def torch_tensor(a: np.ndarray, device):
+    import torch
+
+    return torch.as_tensor(a, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -295,16 +575,18 @@ def class_images(rng, protos: np.ndarray, labels: np.ndarray,
 def drive(name: str, fn, kernels: list[str]):
     """Run one path with the launch counts zeroed just before and read just
     after; every kernel of the path must have launched."""
-    from repro_torch.kernels.acam_match import acam_match as am
-
-    am.reset_launches()
-    t0 = time.perf_counter()
-    result = fn()
     import torch
 
+    from repro_torch.kernels.acam_match import acam_match as am
+    from repro_torch.kernels.acam_similarity import acam_similarity as asim
+
+    am.reset_launches()
+    asim.reset_launches()
+    t0 = time.perf_counter()
+    result = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(am.LAUNCHES)
+    counts = {**am.LAUNCHES, **asim.LAUNCHES}
     for k in kernels:
         check(counts[k] > 0, f"path {name}: kernel {k} never launched")
     return result, counts, wall
@@ -455,7 +737,148 @@ def paths(device, cfg=None, per_class: int = 64) -> dict:
         chunk=layout.class_chunk(1152, 2, match.MAX_FUSED_ROWS))
     check(torch.equal(pred, want[0]) and torch.equal(per_class, want[1]),
           "big bank: kernel differs from the plain path")
-    report["big_bank"] = dict(launches=counts, wall_s=wall)
+    report["big_bank"] = dict(
+        launches=counts, wall_s=wall,
+        profile=profile(lambda: eng.classify_features(x["f"], big), reps=20))
+    report.update(similarity_paths(device, model, head, test_x, test_y,
+                                   feats))
+    return report
+
+
+def similarity_paths(device, model, head, test_x, test_y, feats) -> dict:
+    """The similarity method's paths (B5, B6, B7a, B7b) at paper width."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import match
+    from repro_torch.core.hybrid import HybridClassifier
+    from repro_torch.core.templates import TemplateBank
+    from repro_torch.kernels import layout
+    from repro_torch.kernels.acam_similarity import acam_similarity as asim
+    from repro_torch.launch import serve as launcher
+    from repro_torch.match import EngineConfig
+    from repro_torch.models.cnn import student_features
+    from repro_torch.serve import acam_service as svc_lib
+    from repro_torch.serve.control import HybridService
+    from repro_torch.serve.spec import (CascadeSpec, RegistrySpec,
+                                        SchedulerSpec, ServiceSpec)
+
+    report = {}
+    n = feats.shape[1]
+    bank = head.bank
+
+    # -- HybridClassifier.predict with a similarity head (B5) ---------------
+    sim_clf = HybridClassifier(model, student_features,
+                               head._replace(method="similarity"),
+                               device=device)
+    pred, counts, wall = drive("predict_similarity",
+                               lambda: sim_clf.predict(test_x),
+                               ["acam_similarity_classify"])
+    want, _ = asim.classify_plain(
+        feats, bank.thresholds, layout.flatten_kmajor(bank.lower, 10),
+        layout.flatten_kmajor(bank.upper, 10),
+        layout.valid_kmajor(bank.valid, 10), 10)
+    check(pred.shape == (256,) and torch.equal(pred, want),
+          "predict (similarity): kernel preds differ from the plain path")
+    report["predict_similarity"] = dict(
+        launches=counts, wall_s=wall,
+        accuracy_vs_labels=float((pred.cpu().numpy() == test_y).mean()),
+        profile=profile(lambda: sim_clf.predict(test_x)))
+
+    # -- ACAMHead.scores, both methods (B7a, B7b) ----------------------------
+    for method, kernel in (("feature_count", "acam_match"),
+                           ("similarity", "acam_similarity")):
+        h = head._replace(method=method)
+        got, counts, wall = drive(f"scores_{method}",
+                                  lambda: h.scores(feats), [kernel])
+        want = h._replace(backend="reference").scores(feats)
+        check(got.shape == (256, 10) and bool(torch.isfinite(got).all())
+              and torch.equal(got, want),
+              f"ACAMHead.scores ({method}): kernel differs from the "
+              "reference backend")
+        report[f"scores_{method}"] = dict(launches=counts, wall_s=wall)
+
+    # -- the similarity service, booted from a spec file by the launcher ----
+    spec = ServiceSpec(
+        registry=RegistrySpec(num_features=n),
+        engine=EngineConfig(method="similarity", backend="kernel",
+                            margin=True),
+        scheduler=SchedulerSpec(slots=64),
+        cascade=CascadeSpec(tau=SIM_TAU, tau_units="count"))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "similarity_service.json"
+        path.write_text(spec.to_json())
+        argv = ["--workload", "acam", "--spec", str(path), "--tenants",
+                str(TENANTS), "--classes", "10", "--requests", "256"]
+        out, counts, wall = drive(
+            "serve_similarity", lambda: launcher.main(argv, device=device),
+            ["acam_similarity_serve"])
+        cpu = launcher.main(argv, device="cpu")
+    resp = out.pop("responses")
+    check(counts["acam_similarity_serve"] == out["classify_dispatches"],
+          f"serve_similarity: {counts['acam_similarity_serve']} launches vs "
+          f"{out['classify_dispatches']} dispatches")
+    check(len(resp) == 256 and all(r.error is None for r in resp),
+          "serve_similarity: every request answered without error")
+    check(0.0 < out["escalation_rate"] < 1.0,
+          f"serve_similarity: escalation rate {out['escalation_rate']}")
+    for a, b in zip(resp, cpu.pop("responses")):
+        check((a.pred, a.margin, a.escalated, a.energy_j) ==
+              (b.pred, b.margin, b.escalated, b.energy_j),
+              "serve_similarity: the card and the CPU answer differently")
+    # the same service again, for its traced run and one tick's engine call
+    svc = HybridService.from_spec(spec, device=device)
+    reqs = []
+    for t in range(TENANTS):
+        bnk, hwb, protos = svc_lib.make_synthetic_tenant(
+            t, num_classes=10, num_features=n)
+        svc.register_tenant(f"tenant-{t}", bnk, head=hwb)
+        f, _ = svc_lib.sample_tenant_queries(7 * t, protos, 256 // TENANTS)
+        reqs += [svc_lib.ClassifyRequest(f"tenant-{t}", row) for row in f]
+    entries = [svc.registry.get(r.tenant_id) for r in reqs[:64]]
+    tick_in = [torch.as_tensor(np.asarray(v), device=device) for v in (
+        np.stack([r.features for r in reqs[:64]]), [e.slot for e in entries],
+        [e.window[0] for e in entries], [e.window[1] for e in entries],
+        [SIM_TAU / n] * 64)]
+    eng = match.engine_from_config(svc.spec.engine)
+    report["serve_similarity"] = dict(
+        launches=counts, wall_s=wall, metrics=out,
+        tick_ms=out["tick_time_s"] / out["ticks"] * 1e3,
+        engine_call_ms=time_ms(lambda: eng.classify_serve(
+            tick_in[0], svc.registry.thresholds_table(), tick_in[1],
+            svc.registry.device_bank(), tick_in[2], tick_in[3],
+            tick_in[4].to(torch.float32))),
+        profile=profile(lambda: svc.serve(reqs)))
+
+    # -- a similarity bank past MAX_FUSED_ROWS (B6, margins face) -----------
+    x = sim_case(13, 64, 1100, 2, n, device, "binary")
+    big = TemplateBank(x["t"], x["lower"], x["upper"], x["valid"], x["thr"])
+    check(2 * layout.padded_classes(1100) > match.MAX_FUSED_ROWS,
+          "big bank exceeds the fused-row budget")
+    eng = match.engine_for(method="similarity", backend="kernel")
+    got, counts, wall = drive(
+        "big_bank_similarity",
+        lambda: eng.classify_features_margin(x["f"], big),
+        ["acam_similarity_serve"])
+    want = asim.serve_plain(
+        x["f"], x["thr"][None, :], torch.zeros(64, dtype=torch.int32,
+                                               device=device),
+        layout.stack_kcp(x["lower"], 1100), layout.stack_kcp(x["upper"], 1100),
+        layout.valid_kcp(x["valid"], 1100),
+        torch.zeros(64, dtype=torch.int32, device=device),
+        torch.full((64,), 1100, dtype=torch.int32, device=device),
+        torch.full((64,), float("-inf"), device=device), 1100,
+        chunk=layout.class_chunk(1152, 2, match.MAX_FUSED_ROWS))
+    compare("big bank (similarity)", got, want[:3])
+    rows = int(x["valid"].sum())
+    ms, by, nbytes = sim_bound("acam_similarity_serve", 64, 1100, 2, n, rows,
+                               1)
+    report["big_bank_similarity"] = dict(
+        launches=counts, wall_s=wall, valid_rows=rows, bound_ms=ms,
+        bound_by=by, bound_bytes=nbytes,
+        profile=profile(lambda: eng.classify_features_margin(x["f"], big),
+                        reps=20))
     return report
 
 
@@ -475,10 +898,11 @@ def main(argv: list[str]) -> int:
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
               file=sys.stderr)
         return 2
-    if not (ROOT / SOURCE).is_file():
-        print(f"chip_smoke: {SOURCE} not found beside this script",
-              file=sys.stderr)
-        return 2
+    for source in (MATCH_SRC, SIM_SRC):
+        if not (ROOT / source).is_file():
+            print(f"chip_smoke: {source} not found beside this script",
+                  file=sys.stderr)
+            return 2
     sys.path.insert(0, str(ROOT / "src"))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -490,50 +914,55 @@ def main(argv: list[str]) -> int:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    logs = _build.build(["acam_match"])
+    logs = _build.build(["acam_match", "acam_similarity"])
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s")
     for name, log in logs.items():
         print(f"nvcc {name}:\n{log.strip()}")
 
     kernels = kernel_phase(device)
+    kernels.update(similarity_phase(device))
     report = paths(device)
     check(report["predict"]["features"] == N, "paper width: 784 features")
     launches = {}
     for path in report.values():
         for k, v in path["launches"].items():
             launches[k] = max(launches.get(k, 0), v)
-    for name in ("predict", "serve_mega", "serve_compose", "big_bank"):
-        r = report[name]
+    for name, r in report.items():
         print(f"{name}: wall {r['wall_s'] * 1e3:.3f} ms, launches "
               f"{r['launches']}")
         if "metrics" in r:
             print(f"{name}: tick {r['tick_ms']:.4f} ms, engine call "
                   f"{r['engine_call_ms']:.4f} ms")
             print(f"{name} metrics: {json.dumps(r['metrics'])}")
-            print(f"{name} energy: {json.dumps(r['energy'])}")
+            if "energy" in r:
+                print(f"{name} energy: {json.dumps(r['energy'])}")
     for name, k in kernels.items():
         print(f"{name} profile (per call): {json.dumps(k['profile'])}")
-    for name in ("predict", "serve_mega", "serve_compose"):
-        print(f"{name} profile: {json.dumps(report[name]['profile'])}")
-    print(f"predict accuracy vs labels: "
-          f"{report['predict']['accuracy_vs_labels']}")
+    for name, r in report.items():
+        if "profile" in r:
+            print(f"{name} profile: {json.dumps(r['profile'])}")
+    for name in ("predict", "predict_similarity"):
+        print(f"{name} accuracy vs labels: "
+              f"{report[name]['accuracy_vs_labels']}")
+    check(set(kernels) == set(KERNELS), "every ported kernel measured")
 
     line = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": f"{TPU_SITE}:{PALLAS_LINE[name]}",
+        {"name": name, "route": "cuda", "source": KERNELS[name][0],
+         "replaces": KERNELS[name][1],
          "launches": launches[name], "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-         "library_call": "torch.matmul bipolar score product only (partial)",
+         "library_call": k["library_call"],
          "device_ms": k["profile"]["device_ms"], "shape": k["shape"]}
         for name, k in kernels.items()]}
     if report_path:
         report_path.parent.mkdir(parents=True, exist_ok=True)
         report_path.write_text(json.dumps(
-            dict(card=smi, build_s=build_s, kernels=line["kernels"],
-                 paths=report), indent=1, default=str))
+            dict(card=smi, build_s=build_s, nvcc=logs,
+                 kernels=line["kernels"], paths=report), indent=1,
+            default=str))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

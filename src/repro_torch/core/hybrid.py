@@ -1,7 +1,8 @@
 """The hybrid edge classifier (paper Fig. 2): CNN front end + ACAM back end.
 
-    inference: front-end features -> binarise -> ACAM match (Eq. 8)
-               -> per-class max -> WTA (Eq. 12) -> class
+    inference: front-end features -> binarise -> ACAM match (Eq. 8
+               feature count, or Eq. 9-11 similarity) -> per-class max
+               -> WTA (Eq. 12) -> class
 
 `ACAMHead` replaces a model's dense softmax head with template matching;
 all matching routes through `repro_torch.match.MatchEngine`, so the head
@@ -15,7 +16,7 @@ import torch
 
 from repro_torch import match as match_lib
 from repro_torch.core import energy as energy_lib
-from repro_torch.core import templates
+from repro_torch.core import quant, templates
 from repro_torch.device import resolve
 
 
@@ -34,9 +35,21 @@ class ACAMHead(NamedTuple):
                                     backend=self.backend)
 
     def __call__(self, features: torch.Tensor):
-        """features (B, N) -> (pred, per_class): one `acam_match_classify`
-        launch on the kernel backend."""
+        """features (B, N) -> (pred, per_class): one fused classify launch
+        (`acam_match_classify` / `acam_similarity_classify`) on the kernel
+        backend."""
         return self.engine().classify_features(features, self.bank)
+
+    def scores(self, features: torch.Tensor) -> torch.Tensor:
+        """(B, C) per-class scores of the binarised features: the raw-score
+        kernel (`acam_match` / `acam_similarity`), then the max over K."""
+        q = quant.binarize(features, self.bank.thresholds)
+        return self.engine().scores(q, self.bank).amax(dim=-1)
+
+    def to_acam(self, config=None, key=None):
+        raise NotImplementedError(
+            "programming the bank into an ACAM array (core/acam.program) "
+            "comes with the device-physics slice of the port")
 
     def energy_per_inference(self) -> float:
         rows = int(self.bank.valid.sum())

@@ -1,0 +1,83 @@
+// The windowed winner-take-all epilogue shared by the ACAM classify kernels
+// (acam_match.cu: B1-B4, acam_similarity.cu: B5-B6).
+//
+// A `Top` summarises the per-class scores of a set of classes inside a
+// request's window [lo, hi): the best score, its class index and the best
+// score at any other position. Summaries of disjoint class sets merge
+// exactly and in any order, so a warp's lanes, or a block's warps, can each
+// walk their own classes and combine at the end.
+//
+// Semantics kept exactly (src/repro/kernels/layout.py, wta_epilogue and
+// windowed_margin): the lowest class index wins ties; the runner-up
+// excludes only the winner's position, so a tie elsewhere gives margin 0;
+// the margin is clamped at `cap` (N for feature counts, 1 for similarity);
+// an empty or all -inf window gives pred 0 and margin 0.
+#pragma once
+
+#include <climits>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace acam {
+
+struct Top {
+  float t1;  // best score in the window
+  int i1;    // its class index (lowest among ties)
+  float t2;  // best score at any other position
+};
+
+__device__ __forceinline__ Top top_empty() {
+  return Top{-CUDART_INF_F, INT_MAX, -CUDART_INF_F};
+}
+
+// Add class `c`'s score to a summary. Classes must arrive in increasing
+// index order: the strict > keeps the lowest index among ties.
+__device__ __forceinline__ void top_push(Top& top, float score, int c) {
+  if (score > top.t1) {
+    top.t2 = top.t1;
+    top.t1 = score;
+    top.i1 = c;
+  } else {
+    top.t2 = fmaxf(top.t2, score);
+  }
+}
+
+// Merge two summaries over disjoint class sets: the winner is the
+// lexicographic max on (score desc, index asc); the runner-up is the
+// losing side's top1 or the winning side's own runner-up.
+__device__ __forceinline__ Top top_merge(Top a, Top b) {
+  const bool take = b.t1 > a.t1 || (b.t1 == a.t1 && b.i1 < a.i1);
+  Top out;
+  out.t1 = take ? b.t1 : a.t1;
+  out.i1 = take ? b.i1 : a.i1;
+  out.t2 = take ? fmaxf(b.t2, a.t1) : fmaxf(a.t2, b.t1);
+  return out;
+}
+
+// Merge the summaries of a warp's 32 lanes; every lane ends with the total.
+__device__ __forceinline__ Top top_warp_merge(Top top) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    Top other;
+    other.t1 = __shfl_xor_sync(0xffffffffu, top.t1, off);
+    other.i1 = __shfl_xor_sync(0xffffffffu, top.i1, off);
+    other.t2 = __shfl_xor_sync(0xffffffffu, top.t2, off);
+    top = top_merge(top, other);
+  }
+  return top;
+}
+
+// Write one row's decision: pred, the margin min(top1 - top2, cap) and the
+// cascade's escalation bit margin < tau (margin and esc may be null).
+__device__ __forceinline__ void top_finish(const Top& top, float cap,
+                                           const float* tau, int b,
+                                           int* pred, float* margin,
+                                           unsigned char* esc) {
+  const bool finite = top.t1 > -CUDART_INF_F;
+  const float m = finite ? top.t1 - fmaxf(top.t2, top.t1 - cap) : 0.0f;
+  pred[b] = finite ? top.i1 : 0;
+  if (margin) margin[b] = m;
+  if (esc) esc[b] = m < tau[b];
+}
+
+}  // namespace acam

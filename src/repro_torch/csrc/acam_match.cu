@@ -3,13 +3,14 @@
 // winner-take-all, with the windowed winner-vs-runner-up margin and the
 // cascade's escalation bit.
 //
-// Replaces the four Pallas TPU kernels of
+// Replaces the five Pallas TPU kernels of
 // src/repro/kernels/acam_match/acam_match.py:
 //   acam_match_classify                  (_classify_kernel)                 B1
 //   acam_match_classify_margins          (_classify_margins_kernel)         B4
 //   acam_match_classify_margins_chunked  (_classify_margins_chunked_kernel) B2
 //   acam_match_serve                     (_serve_kernel)                    B3
-// They share one design with four faces (one C entry each):
+//   acam_match                           (_kernel)                          B7a
+// They share one design with five faces (one C entry each):
 //
 //   pack_kernel    binarise every query row (f > thr, or for the serve tick
 //                  (f - thr_table[slot]) > 0 with a direct indexed load of
@@ -23,15 +24,17 @@
 //                  windowed (top1, argmax, runner-up) merged across lanes
 //                  with shuffles; lane 0 writes pred, margin = min(top1 -
 //                  top2, cap) and escalate = margin < tau.
+//   counts_kernel  the raw (B, M) counts of B7a: one warp per query row,
+//                  lanes over template rows, N - sum_w popc(q_w ^ t_w)
+//                  written as f32. No mask, no max, no WTA.
 //
 // Precondition: templates are {0, 1}. Every producer binarises them; the
 // TPU kernels' bipolar bf16 product equals the count only under it, and
 // here any non-zero entry reads as bit 1.
 //
-// Semantics kept exactly (src/repro/kernels/layout.py, wta_epilogue and
-// windowed_margin): the lowest class index wins ties; the runner-up
-// excludes only the winner's position; the margin is clamped at cap = N;
-// an empty or all-invalid window gives pred 0 and margin 0.
+// The windowed (top1, argmax, runner-up) epilogue is shared with the
+// similarity kernels (acam_epilogue.cuh, which states the semantics kept
+// exactly); here the margin is clamped at cap = N.
 //
 // `chunk` (B2, B3) is accepted for signature parity with the TPU kernels,
 // whose VMEM budget walked the bank in class chunks. A block here holds no
@@ -47,14 +50,19 @@
 // about launch overhead; packing templates once per bank generation is the
 // next step.
 //
+// B7a at B = 256, M = 10, N = 784 moves about 0.84 MB (f32 features and
+// templates in, counts out): about 0.25 us at 3.35 TB/s, again far below a
+// launch; its two launches are the same pack kernel and a counts kernel.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC. No --use_fast_math: it flushes subnormals to
 // zero, and the serve tick's (f - thr) > 0 must keep a subnormal difference.
 
-#include <climits>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "acam_epilogue.cuh"
 
 namespace {
 
@@ -117,24 +125,6 @@ __global__ void pack_kernel(const float* __restrict__ f,
   }
 }
 
-struct Top {
-  float t1;  // best score in the window
-  int i1;    // its class index (lowest among ties)
-  float t2;  // best score at any other position
-};
-
-// Merge two summaries over disjoint class sets: the winner is the
-// lexicographic max on (score desc, index asc); the runner-up is the
-// losing side's top1 or the winning side's own runner-up.
-__device__ __forceinline__ Top merge(Top a, Top b) {
-  const bool take = b.t1 > a.t1 || (b.t1 == a.t1 && b.i1 < a.i1);
-  Top out;
-  out.t1 = take ? b.t1 : a.t1;
-  out.i1 = take ? b.i1 : a.i1;
-  out.t2 = take ? fmaxf(b.t2, a.t1) : fmaxf(a.t2, b.t1);
-  return out;
-}
-
 __global__ void select_kernel(const uint32_t* __restrict__ qbits,
                               const uint32_t* __restrict__ tbits,
                               const float* __restrict__ valid,
@@ -154,7 +144,7 @@ __global__ void select_kernel(const uint32_t* __restrict__ qbits,
   const int whi = hi ? min(hi[b], C) : C;
   const uint32_t* q = qbits + (int64_t)b * W;
 
-  Top top{-CUDART_INF_F, INT_MAX, -CUDART_INF_F};
+  acam::Top top = acam::top_empty();
   for (int c = lane; c < C; c += 32) {
     float best = -CUDART_INF_F;
     for (int kk = 0; kk < K; ++kk) {
@@ -166,42 +156,32 @@ __global__ void select_kernel(const uint32_t* __restrict__ qbits,
       }
     }
     per_class[(int64_t)b * C + c] = best;
-    if (c >= wlo && c < whi) {
-      // classes arrive in increasing order: strict > keeps the lowest index
-      if (best > top.t1) {
-        top.t2 = top.t1;
-        top.t1 = best;
-        top.i1 = c;
-      } else {
-        top.t2 = fmaxf(top.t2, best);
-      }
-    }
+    // a lane's classes arrive in increasing order (top_push's precondition)
+    if (c >= wlo && c < whi) acam::top_push(top, best, c);
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    Top other;
-    other.t1 = __shfl_xor_sync(0xffffffffu, top.t1, off);
-    other.i1 = __shfl_xor_sync(0xffffffffu, top.i1, off);
-    other.t2 = __shfl_xor_sync(0xffffffffu, top.t2, off);
-    top = merge(top, other);
-  }
-  if (lane == 0) {
-    const bool finite = top.t1 > -CUDART_INF_F;
-    const float cap = (float)N;
-    const float m = finite ? top.t1 - fmaxf(top.t2, top.t1 - cap) : 0.0f;
-    pred[b] = finite ? top.i1 : 0;
-    if (margin) margin[b] = m;
-    if (esc) esc[b] = m < tau[b];
+  top = acam::top_warp_merge(top);
+  if (lane == 0) acam::top_finish(top, (float)N, tau, b, pred, margin, esc);
+}
+
+__global__ void counts_kernel(const uint32_t* __restrict__ qbits,
+                              const uint32_t* __restrict__ tbits, int B,
+                              int N, int M, int W, float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kSelectWarps + (threadIdx.x >> 5);
+  if (b >= B) return;
+  const uint32_t* q = qbits + (int64_t)b * W;
+  for (int r = lane; r < M; r += 32) {
+    int diff = 0;
+    for (int w = 0; w < W; ++w) diff += __popc(q[w] ^ tbits[(int64_t)w * M + r]);
+    out[(int64_t)b * M + r] = (float)(N - diff);
   }
 }
 
-int launch(const float* f, const float* thr, const int* slot, int thr_rows,
-           const float* t, const float* valid, const int* lo, const int* hi,
-           const float* tau, int B, int N, int K, int Cp, int C,
-           uint32_t* qbits, uint32_t* tbits, int* pred, float* per_class,
-           float* margin, unsigned char* esc, cudaStream_t stream) {
+// Pack B query rows and R template rows (padded classes: r % Cp >= C).
+int pack(const float* f, const float* thr, const int* slot, int thr_rows,
+         const float* t, int B, int N, int R, int Cp, int C, uint32_t* qbits,
+         uint32_t* tbits, cudaStream_t stream) {
   const int W = (N + 31) / 32;
-  const int R = K * Cp;
   const int64_t words = (int64_t)(B + R) * W;
   const int pack_blocks = (int)((words + kPackThreads - 1) / kPackThreads);
   if (slot) {
@@ -211,8 +191,18 @@ int launch(const float* f, const float* thr, const int* slot, int thr_rows,
     pack_kernel<false><<<pack_blocks, kPackThreads, 0, stream>>>(
         f, thr, nullptr, 0, t, B, N, R, Cp, C, W, qbits, tbits);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+int launch(const float* f, const float* thr, const int* slot, int thr_rows,
+           const float* t, const float* valid, const int* lo, const int* hi,
+           const float* tau, int B, int N, int K, int Cp, int C,
+           uint32_t* qbits, uint32_t* tbits, int* pred, float* per_class,
+           float* margin, unsigned char* esc, cudaStream_t stream) {
+  const int W = (N + 31) / 32;
+  const int err = pack(f, thr, slot, thr_rows, t, B, N, K * Cp, Cp, C, qbits,
+                       tbits, stream);
+  if (err != 0) return err;
   const int select_blocks = (B + kSelectWarps - 1) / kSelectWarps;
   select_kernel<<<select_blocks, kSelectWarps * 32, 0, stream>>>(
       qbits, tbits, valid, lo, hi, tau, B, N, K, Cp, C, W, pred, per_class,
@@ -224,7 +214,20 @@ int launch(const float* f, const float* thr, const int* slot, int thr_rows,
 
 // The C interface, one entry per TPU kernel face. Pointers are device
 // pointers; `stream` is a cudaStream_t. Each returns cudaGetLastError().
-// qbits holds B * ceil(N/32) words, tbits K * Cp * ceil(N/32) words.
+// qbits holds B * ceil(N/32) words, tbits K * Cp * ceil(N/32) words (M *
+// ceil(N/32) for acam_match).
+
+extern "C" int acam_match(const float* f, const float* thr, const float* t,
+                          int B, int N, int M, uint32_t* qbits,
+                          uint32_t* tbits, float* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int err = pack(f, thr, nullptr, 0, t, B, N, M, M, M, qbits, tbits, s);
+  if (err != 0) return err;
+  const int blocks = (B + kSelectWarps - 1) / kSelectWarps;
+  counts_kernel<<<blocks, kSelectWarps * 32, 0, s>>>(qbits, tbits, B, N, M,
+                                                     (N + 31) / 32, out);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int acam_match_classify(const float* f, const float* thr,
                                    const float* t, const float* valid, int B,

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles into a shared library with a plain C
 interface, bound with `ctypes`. The build happens at first use, into
 ``build/repro_torch/`` at the root of the checkout (``$REPRO_TORCH_BUILD_DIR``
-overrides it), keyed on a hash of the source and the flags, so a fresh
-checkout builds its own kernels and an edited source rebuilds.
+overrides it), keyed on a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a fresh checkout builds its own kernels
+and an edited source or header rebuilds.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3``. Never
 ``--use_fast_math``: it flushes subnormals to zero, and the serve kernel
@@ -48,7 +49,9 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(src + headers
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return build_dir() / f"{name}-{key[:16]}.so"
 
 

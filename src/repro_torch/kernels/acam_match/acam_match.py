@@ -1,4 +1,4 @@
-"""ACAM feature-count classify kernels (paper Eq. 8 + Eq. 12), four faces.
+"""ACAM feature-count kernels (paper Eq. 8 + Eq. 12), five faces.
 
 Each face keeps the signature of its Pallas TPU counterpart in
 `repro/kernels/acam_match/acam_match.py` (K-major ``(K * Cp, N)`` or
@@ -20,6 +20,7 @@ kernels.
     acam_match_classify_margins           _classify_margins_kernel          B4
     acam_match_classify_margins_chunked   _classify_margins_chunked_kernel  B2
     acam_match_serve                      _serve_kernel                     B3
+    acam_match                            _kernel (raw (B, M) counts)       B7a
 
 Templates must be {0, 1} (every producer binarises them). The chunked faces
 accept ``chunk`` for signature parity; on the card it changes nothing.
@@ -35,7 +36,8 @@ from repro_torch.kernels import _build, layout
 
 #: kernel launches per face since the last `reset_launches()`
 LAUNCHES = {"acam_match_classify": 0, "acam_match_classify_margins": 0,
-            "acam_match_classify_margins_chunked": 0, "acam_match_serve": 0}
+            "acam_match_classify_margins_chunked": 0, "acam_match_serve": 0,
+            "acam_match": 0}
 
 
 def reset_launches() -> None:
@@ -53,6 +55,10 @@ def _counts(q: torch.Tensor, templates: torch.Tensor) -> torch.Tensor:
     q_pm = q.to(torch.float32) * 2.0 - 1.0
     t_pm = templates.to(torch.float32) * 2.0 - 1.0
     return (q_pm @ t_pm.T + q.shape[-1]) * 0.5
+
+
+def match_plain(features, thresholds, templates):
+    return _counts(features > thresholds, templates)
 
 
 def _margins_plain(q, templates_kmajor, valid_row, class_lo, class_hi,
@@ -128,6 +134,8 @@ _SIGNATURES = {
     # f, thr_table, thr_rows, slot, t, valid, lo, hi, tau, B, N, K, Cp, C,
     # chunk, qbits, tbits, pred, per_class, margin, esc, stream
     "acam_match_serve": [_P, _P, _I] + [_P] * 6 + [_I] * 6 + [_P] * 7,
+    # f, thr, t, B, N, M, qbits, tbits, out, stream
+    "acam_match": [_P] * 3 + [_I] * 3 + [_P] * 4,
 }
 
 
@@ -195,6 +203,35 @@ def _run(name: str, device: torch.device, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
     LAUNCHES[name] += 1
+
+
+def acam_match(features, thresholds, templates, *, block=None,
+               interpret: bool = False):
+    """Raw Eq. 8 match counts (B7a): features (B, N) f32, thresholds (N,),
+    templates (M, N) {0,1} -> (B, M) f32. ``block`` and ``interpret`` are
+    the Pallas tiling arguments, accepted for signature parity and
+    ignored."""
+    if features.device.type == "cpu":
+        return match_plain(features, thresholds, templates)
+    device = features.device
+    if device.type != "cuda":
+        raise ValueError(f"features on {device}: the kernels take CUDA or "
+                         "CPU tensors")
+    if features.dim() != 2 or features.shape[1] < 1:
+        raise ValueError(f"features must be (B, N) with N >= 1, got "
+                         f"{tuple(features.shape)}")
+    b, n = features.shape
+    m = templates.shape[0]
+    _check("features", features, device, torch.float32, (b, n))
+    _check("thresholds", thresholds, device, torch.float32, (n,))
+    _check("templates", templates, device, torch.float32, (m, n))
+    w = -(-n // 32)
+    out = torch.empty((b, m), dtype=torch.float32, device=device)
+    if b and m:
+        _run("acam_match", device, features, thresholds, templates, b, n, m,
+             torch.empty(b * w, dtype=torch.int32, device=device),
+             torch.empty(m * w, dtype=torch.int32, device=device), out)
+    return out
 
 
 def acam_match_classify(features, thresholds, templates_kmajor, valid_row,

@@ -1,8 +1,9 @@
 """Public wrappers over the acam_match kernels: class-major ``(C, K, N)``
 banks in, the kernels' K-major layouts built here.
 
-`classify_fused` is the single-launch binarise -> match -> WTA path;
-`classify_fused_margins` adds per-row class windows and the Eq. 12 margin;
+`match_scores` runs the raw-count kernel (B7a); `classify` adds the Eq. 12
+epilogue in PyTorch (the two-stage path); `classify_fused` is the
+single-launch binarise -> match -> WTA path; `classify_fused_margins` adds per-row class windows and the Eq. 12 margin;
 `classify_fused_margins_chunked` is the same for banks past the fused-row
 budget; `serve_classify` is the multi-tenant serving tick.
 """
@@ -12,7 +13,7 @@ import torch
 
 from repro_torch.kernels import layout
 from repro_torch.kernels.acam_match.acam_match import (
-    acam_match_classify, acam_match_classify_margins,
+    acam_match, acam_match_classify, acam_match_classify_margins,
     acam_match_classify_margins_chunked, acam_match_serve)
 
 
@@ -30,6 +31,25 @@ def _windows(b: int, c: int, device, class_lo, class_hi):
     if class_hi is None:
         class_hi = torch.full((b,), c, dtype=torch.int32, device=device)
     return _i32(class_lo), _i32(class_hi)
+
+
+def match_scores(features, thresholds, templates, *, block=None):
+    """(B, M) Eq. 8 counts of raw features against (M, N) {0,1} templates.
+    ``block`` is the Pallas tiling override, accepted and ignored."""
+    return acam_match(_f32(features), _f32(thresholds), _f32(templates))
+
+
+def classify(features, thresholds, templates_flat, valid_flat,
+             num_classes: int, *, block=None):
+    """Eq. 12 decision over a class-major flattened (C * K, N) bank: the
+    raw-count kernel, then the valid mask, the max over K and the WTA.
+    Returns (pred (B,) int32, per_class (B, C))."""
+    scores = match_scores(features, thresholds, templates_flat)
+    scores = torch.where(valid_flat[None, :].to(torch.bool), scores,
+                         torch.tensor(float("-inf"), device=scores.device))
+    k = templates_flat.shape[0] // num_classes
+    per_class = scores.reshape(scores.shape[0], num_classes, k).amax(dim=-1)
+    return torch.argmax(per_class, dim=-1).to(torch.int32), per_class
 
 
 def classify_fused(features, thresholds, templates_ck, valid_ck):

@@ -2,6 +2,8 @@
 
 Every backend implements the same entry points over a `TemplateBank`:
 
+  feature_count_scores(queries, templates, valid)            -> (B, C, K)
+  similarity_scores(queries, lower, upper, valid, alpha)     -> (B, C, K)
   classify(queries, bank)              binary queries        -> (pred, per_class)
   classify_features(features, bank)    raw features          -> (pred, per_class)
   classify_features_margin(features, bank, lo, hi)           -> (pred, per_class, margin)
@@ -12,16 +14,19 @@ Backends:
 
   reference  plain PyTorch oracles (both methods) — the parity baseline.
   kernel     the hand-written CUDA kernels of `repro_torch.kernels.
-             acam_match` for the feature-count method, dispatched exactly as
-             the JAX package's Pallas paths are: one kernel call per entry
-             point, the K-major fused layout up to `MAX_FUSED_ROWS` rows and
-             the (K, Cp, N) stack past it; the serving tick is one call of
-             `acam_match_serve` (or the "compose" baseline). On CPU tensors
-             each kernel runs its plain version.
+             acam_match` (feature count) and `repro_torch.kernels.
+             acam_similarity` (similarity), dispatched exactly as the JAX
+             package's Pallas paths are: one kernel call per entry point,
+             the K-major fused layout up to `MAX_FUSED_ROWS` rows and the
+             (K, Cp, N) stack past it; the serving tick is one call of
+             `acam_match_serve` / `acam_similarity_serve` (or the "compose"
+             baseline); the ``*_scores`` entry points are the raw-score
+             kernels. On CPU tensors each kernel runs its plain version.
 
-The similarity kernels, the raw-score kernels behind the ``*_scores``
-entry points and the device-physics backend come with later slices of the
-port; the kernel backend raises `NotImplementedError` for them.
+Similarity scores follow the arithmetic order of
+`repro_torch.kernels.acam_similarity.ref` everywhere (hit count, ``*
+inv_n``, ``/ (1 + alpha * D)``), so both backends give the JAX package's
+bits. The device-physics backend comes with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -56,11 +61,6 @@ def tiny_cutoff(method: str) -> int:
     """Per-method "auto" dispatch cutoff in B * C * K * N cell matches."""
     return TINY_ELEMENTS_SIMILARITY if method == "similarity" \
         else TINY_ELEMENTS
-
-
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: it comes with a "
-                               "later slice of the port (see ROADMAP.md)")
 
 
 # ---------------------------------------------------------------------------
@@ -102,15 +102,14 @@ def feature_count_scores_ref(queries, templates, valid=None):
 
 def similarity_scores_ref(queries, lower, upper, valid=None, *,
                           alpha: float = 1.0):
-    """Eq. 9-11 reference: materialises the (B, C, K, N) intermediate."""
-    q = queries[:, None, None, :]
-    lo = lower[None]
-    hi = upper[None]
-    above = torch.clamp(q - hi, min=0.0)
-    below = torch.clamp(lo - q, min=0.0)
-    d = (above**2 + below**2).sum(dim=-1)  # Eq. 9
-    hit = ((q >= lo) & (q <= hi)).to(torch.float32).mean(dim=-1)  # Eq. 10
-    s = hit / (1.0 + alpha * d)  # Eq. 11
+    """Eq. 9-11 reference over (C, K, N) windows -> (B, C, K), in the
+    arithmetic order of `acam_similarity.ref` (the JAX package's bits)."""
+    from repro_torch.kernels.acam_similarity.ref import acam_similarity_ref
+
+    c, k, n = lower.shape
+    s = acam_similarity_ref(queries, lower.reshape(c * k, n),
+                            upper.reshape(c * k, n), alpha=alpha
+                            ).reshape(queries.shape[0], c, k)
     if valid is not None:
         s = torch.where(valid[None, :, :], s,
                         torch.tensor(NEG, device=s.device))
@@ -188,43 +187,76 @@ class ReferenceBackend(MatchBackend):
                                      alpha=alpha)
 
 
+def _binary_thresholds(n: int, device) -> torch.Tensor:
+    # binary {0,1} queries re-binarise exactly through a 0.5 threshold,
+    # letting the kernels' fused binarisation pass them through
+    return torch.full((n,), 0.5, dtype=torch.float32, device=device)
+
+
 class KernelBackend(MatchBackend):
     name = "kernel"
 
     def feature_count_scores(self, queries, templates, valid=None):
-        raise _later("the raw (B, M) match-count kernel (acam_match, B7a)")
+        """The raw-count kernel (B7a) over the class-major flattened bank."""
+        from repro_torch.kernels.acam_match import ops as match_ops
+
+        b, n = queries.shape
+        c, k, _ = templates.shape
+        scores = match_ops.match_scores(
+            queries, _binary_thresholds(n, queries.device),
+            templates.reshape(c * k, n)).reshape(b, c, k)
+        if valid is not None:
+            scores = torch.where(valid[None, :, :], scores,
+                                 torch.tensor(NEG, device=scores.device))
+        return scores
 
     def similarity_scores(self, queries, lower, upper, valid=None, *,
                           alpha=1.0):
-        raise _later("the raw similarity-score kernel (acam_similarity, B7b)")
+        """The raw similarity kernel (B7b) on the queries as given."""
+        from repro_torch.kernels.acam_similarity import ops as sim_ops
 
-    def _feature_count_only(self) -> None:
-        if self.config.method != "feature_count":
-            raise _later('the similarity kernels (method="similarity", B5/B6)')
+        b, n = queries.shape
+        c, k, _ = lower.shape
+        s = sim_ops.similarity_scores(
+            queries, lower.reshape(c * k, n), upper.reshape(c * k, n),
+            alpha=alpha).reshape(b, c, k)
+        if valid is not None:
+            s = torch.where(valid[None, :, :], s,
+                            torch.tensor(NEG, device=s.device))
+        return s
 
     def _classify_kernel_path(self, features, thresholds, bank: TemplateBank):
         """One kernel call at any bank size: the fused K-major layout when
-        the bank's K * Cp rows fit `MAX_FUSED_ROWS`, the (K, Cp, N) stack
-        past it."""
+        the bank's K * Cp rows fit `MAX_FUSED_ROWS`, past it the (K, Cp, N)
+        stack (feature count) or the serve kernel's margins face
+        (similarity)."""
         from repro_torch.kernels import layout
         from repro_torch.kernels.acam_match import ops as match_ops
+        from repro_torch.kernels.acam_similarity import ops as sim_ops
 
-        self._feature_count_only()
+        alpha = self.config.alpha
         c, k, _ = bank.templates.shape
-        if k * layout.padded_classes(c) <= MAX_FUSED_ROWS:
-            return match_ops.classify_fused(features, thresholds,
-                                            bank.templates, bank.valid)
-        pred, per_class, _ = match_ops.classify_fused_margins_chunked(
-            features, thresholds, bank.templates, bank.valid,
-            max_rows=MAX_FUSED_ROWS)
+        fused = k * layout.padded_classes(c) <= MAX_FUSED_ROWS
+        if self.config.method == "feature_count":
+            if fused:
+                return match_ops.classify_fused(features, thresholds,
+                                                bank.templates, bank.valid)
+            pred, per_class, _ = match_ops.classify_fused_margins_chunked(
+                features, thresholds, bank.templates, bank.valid,
+                max_rows=MAX_FUSED_ROWS)
+            return pred, per_class
+        if fused:
+            return sim_ops.classify_fused(features, thresholds, bank.lower,
+                                          bank.upper, bank.valid, alpha=alpha)
+        pred, per_class, _ = sim_ops.classify_fused_margins(
+            features, thresholds, bank.lower, bank.upper, bank.valid,
+            alpha=alpha, max_rows=MAX_FUSED_ROWS)
         return pred, per_class
 
     def classify(self, queries, bank):
-        # binary {0,1} queries re-binarise exactly through 0.5 thresholds
-        n = queries.shape[-1]
-        half = torch.full((n,), 0.5, dtype=torch.float32,
-                          device=queries.device)
-        return self._classify_kernel_path(queries, half, bank)
+        return self._classify_kernel_path(
+            queries, _binary_thresholds(queries.shape[-1], queries.device),
+            bank)
 
     def classify_features(self, features, bank):
         return self._classify_kernel_path(features, bank.thresholds, bank)
@@ -233,9 +265,15 @@ class KernelBackend(MatchBackend):
                                  class_hi=None):
         from repro_torch.kernels import layout
         from repro_torch.kernels.acam_match import ops as match_ops
+        from repro_torch.kernels.acam_similarity import ops as sim_ops
 
-        self._feature_count_only()
         c, k, _ = bank.templates.shape
+        if self.config.method == "similarity":
+            # the serve kernel's margins face at any bank size (B6)
+            return sim_ops.classify_fused_margins(
+                features, bank.thresholds, bank.lower, bank.upper,
+                bank.valid, class_lo, class_hi, alpha=self.config.alpha,
+                max_rows=MAX_FUSED_ROWS)
         if k * layout.padded_classes(c) <= MAX_FUSED_ROWS:
             return match_ops.classify_fused_margins(
                 features, bank.thresholds, bank.templates, bank.valid,
@@ -246,14 +284,20 @@ class KernelBackend(MatchBackend):
 
     def classify_serve(self, features, thr_table, tenant_slot, bank,
                        class_lo, class_hi, tau):
-        """The whole tick in ONE `acam_match_serve` call, or the composed
-        baseline under ``serve_fusion="compose"`` (bit-identical)."""
+        """The whole tick in ONE `acam_match_serve` / `acam_similarity_serve`
+        call, or the composed baseline under ``serve_fusion="compose"``
+        (bit-identical)."""
         if self.config.serve_fusion == "compose":
             return super().classify_serve(features, thr_table, tenant_slot,
                                           bank, class_lo, class_hi, tau)
         from repro_torch.kernels.acam_match import ops as match_ops
+        from repro_torch.kernels.acam_similarity import ops as sim_ops
 
-        self._feature_count_only()
+        if self.config.method == "similarity":
+            return sim_ops.serve_classify(
+                features, thr_table, tenant_slot, bank.lower, bank.upper,
+                bank.valid, class_lo, class_hi, tau, alpha=self.config.alpha,
+                max_rows=MAX_FUSED_ROWS)
         return match_ops.serve_classify(
             features, thr_table, tenant_slot, bank.templates, bank.valid,
             class_lo, class_hi, tau, max_rows=MAX_FUSED_ROWS)

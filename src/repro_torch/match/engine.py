@@ -11,7 +11,8 @@ Engines are memoised per `EngineConfig`. The process default backend (what
 "auto" otherwise; `use_backend` scopes a change to a ``with`` block. "auto"
 picks the kernel backend for CUDA operands at every shape; on the CPU it
 keeps the JAX package's tiny-shape rule (`backends.tiny_cutoff`), under
-which both backends give the same bits.
+which both backends give the same bits. Both methods run on both backends,
+through the classify entry points and the raw ``*_scores`` ones.
 
 Sharded execution over several cards (the JAX package's `PartitionPlan`)
 comes with the multi-GPU slice of the port.
@@ -71,13 +72,33 @@ class MatchEngine:
                 ) -> MatchBackend:
         """Resolve the backend for one call ("auto": kernel on CUDA, the
         tiny-shape rule on the CPU)."""
+        return self._backend(operand, bank.templates)
+
+    def _backend(self, operand: torch.Tensor, bank_operand: torch.Tensor
+                 ) -> MatchBackend:
         name = self.config.backend
         if name == "auto":
-            c, k, n = bank.templates.shape
+            c, k, n = bank_operand.shape
             tiny = operand.shape[0] * c * k * n < tiny_cutoff(
                 self.config.method)
             name = "reference" if tiny and not operand.is_cuda else "kernel"
         return backend_for(name, self.config)
+
+    def feature_count_scores(self, queries, templates, valid=None):
+        """Eq. 8: binary queries (B, N), templates (C, K, N) -> (B, C, K);
+        the raw-count kernel on the kernel backend. Invalid rows -inf."""
+        return self._backend(queries, templates).feature_count_scores(
+            queries, templates, valid)
+
+    def similarity_scores(self, queries, lower, upper, valid=None):
+        """Eq. 9-11: queries (B, N), windows (C, K, N) -> (B, C, K) at the
+        config's alpha; the raw similarity kernel on the kernel backend."""
+        return self._backend(queries, lower).similarity_scores(
+            queries, lower, upper, valid, alpha=self.config.alpha)
+
+    def scores(self, queries, bank: TemplateBank) -> torch.Tensor:
+        """(B, C, K) scores for the configured method; invalid rows -inf."""
+        return self.backend(queries, bank).scores(queries, bank)
 
     def classify(self, queries, bank: TemplateBank):
         """Eq. 8/11 + Eq. 12 over *binary* queries -> (pred, per_class)."""
@@ -123,6 +144,14 @@ class MatchEngine:
             tau = torch.full((b,), float("-inf"), device=dev)
         return self.backend(features, bank).classify_serve(
             features, thr_table, tenant_slot, bank, class_lo, class_hi, tau)
+
+    def __call__(self, features, bank: TemplateBank, class_lo=None,
+                 class_hi=None):
+        """Config-directed forward: margins when `config.margin` is set."""
+        if self.config.margin:
+            return self.classify_features_margin(features, bank, class_lo,
+                                                 class_hi)
+        return self.classify_features(features, bank)
 
 
 @functools.lru_cache(maxsize=None)

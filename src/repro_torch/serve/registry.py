@@ -1,8 +1,9 @@
 """Multi-tenant ACAM template-bank registry (the serving super-bank).
 
 One small `TemplateBank` per tenant is padded and stacked into ONE
-device-resident super-bank, so a scheduler tick serves every tenant with a
-single kernel call:
+device-resident super-bank (on ``device``: the card unless the caller asks
+for the CPU), so a scheduler tick serves every tenant with a single kernel
+call:
 
   * tenant classes occupy a contiguous row range ``[offset, offset + C)``
     of a shared ``(C_cap, K_max, N)`` bank; each request's Eq. 12 decision
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.templates import TemplateBank
+from repro_torch.device import resolve
 
 
 class RegistryError(ValueError):
@@ -63,13 +65,13 @@ class TemplateBankRegistry:
 
     def __init__(self, num_features: int, *, k_max: int = 2,
                  class_bucket: int = 16, initial_classes: int = 128,
-                 initial_tenants: int = 8, device=torch.device("cpu")):
+                 initial_tenants: int = 8, device=None):
         if initial_classes % class_bucket:
             raise ValueError("initial_classes must be a class_bucket multiple")
         self.num_features = num_features
         self.k_max = k_max
         self.class_bucket = class_bucket
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self._c_cap = initial_classes
         self._t_cap = initial_tenants
         n = num_features
@@ -89,6 +91,9 @@ class TemplateBankRegistry:
 
     def __contains__(self, tenant_id: str) -> bool:
         return tenant_id in self._tenants
+
+    def __len__(self) -> int:
+        return len(self._tenants)
 
     def get(self, tenant_id: str) -> TenantEntry:
         try:

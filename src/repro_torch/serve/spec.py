@@ -377,3 +377,11 @@ class ServiceSpec(NamedTuple):
     def from_file(cls, path: str) -> "ServiceSpec":
         with open(path) as f:
             return cls.from_json(f.read())
+
+
+def aligned_classes(bank_shards: int, *, class_bucket: int = 16,
+                    base: int = 128) -> int:
+    """The registry's default class capacity (``base``) rounded up to cut
+    into ``bank_shards`` shards of whole ``class_bucket``-row buckets."""
+    align = max(1, bank_shards) * class_bucket
+    return -(-base // align) * align

@@ -44,6 +44,25 @@ def binary_bank(rng: np.random.Generator, c: int, k: int, n: int,
     return dict(templates=templates, valid=rng.random((c, k)) < p_valid)
 
 
+def binary_windows(rng: np.random.Generator, c: int, k: int, n: int
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """(lower, upper) (C, K, N) windows as `generate_templates` builds them
+    for the deployed binary setting: lower in {0, 1}, upper = max(upper,
+    lower) in {0, 1}."""
+    lower = (rng.random((c, k, n)) > 0.5).astype(np.float32)
+    upper = np.maximum((rng.random((c, k, n)) > 0.5).astype(np.float32),
+                       lower)
+    return lower, upper
+
+
+def dyadic_windows(rng: np.random.Generator, c: int, k: int, n: int
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """(lower, upper) (C, K, N) real windows of quarter steps, lower <=
+    upper: Eq. 9's distance is exact in any summation order."""
+    lower = dyadic(rng, (c, k, n), -8, 1)
+    return lower, lower + dyadic(rng, (c, k, n), 0, 9)
+
+
 def assert_equal_outputs(got, want, names=("pred", "per_class", "margin",
                                            "escalate")) -> None:
     """Bit-identical outputs, element by element (inf == inf)."""

@@ -1,4 +1,4 @@
-"""The port's acam_match kernels (B1-B4) against the JAX package's.
+"""The port's acam_match kernels (B1-B4, B7a) against the JAX package's.
 
 The same numpy inputs go through `repro.kernels.acam_match.ops` (Pallas in
 interpret mode on the CPU) and `repro_torch.kernels.acam_match.ops` (the
@@ -178,3 +178,34 @@ def test_wrapper_rejects_bad_chunk():
             t(x["f"]), t(x["thr"]), layout.stack_kcp(t(x["templates"]), 3),
             layout.valid_kcp(t(x["valid"]), 3), t(x["lo"]), t(x["hi"]), 3,
             chunk=100)
+
+
+@pytest.mark.parametrize("b,c,k,n", [(37, 30, 2, 100), (1, 1, 1, 1),
+                                     (16, 12, 4, 64)])
+def test_raw_counts_and_two_stage_classify_bit_identical(b, c, k, n):
+    """B7a: `match_scores` (raw (B, M) counts) and the two-stage `classify`
+    over a class-major flattened bank, with the valid mask, the max over K
+    and the WTA in the epilogue."""
+    x = _case(b + c + k, b, c, k, n)
+    flat = x["templates"].reshape(c * k, n)
+    np.testing.assert_array_equal(
+        tops.match_scores(t(x["f"]), t(x["thr"]), t(flat)).numpy(),
+        np.asarray(jops.match_scores(jnp.asarray(x["f"]),
+                                     jnp.asarray(x["thr"]),
+                                     jnp.asarray(flat))))
+    assert_equal_outputs(
+        tops.classify(t(x["f"]), t(x["thr"]), t(flat),
+                      t(x["valid"].reshape(-1)), c),
+        jops.classify(jnp.asarray(x["f"]), jnp.asarray(x["thr"]),
+                      jnp.asarray(flat), jnp.asarray(x["valid"].reshape(-1)),
+                      c))
+
+
+def test_raw_counts_wrapper_runs_plain_on_cpu():
+    am.reset_launches()
+    x = _case(6, 5, 4, 1, 40)
+    flat = t(x["templates"].reshape(4, 40))
+    np.testing.assert_array_equal(
+        am.acam_match(t(x["f"]), t(x["thr"]), flat).numpy(),
+        acam_match_ref(t(x["f"]), t(x["thr"]), flat).numpy())
+    assert am.LAUNCHES["acam_match"] == 0

@@ -1,0 +1,265 @@
+"""The port's acam_similarity kernels (B5, B6, B7b) against the JAX package's.
+
+The same numpy inputs go through `repro.kernels.acam_similarity.ops` (Pallas
+in interpret mode on the CPU) and `repro_torch.kernels.acam_similarity.ops`
+(the plain PyTorch versions on the CPU), at N = 100 (not a power of two, so
+1/N is inexact) and alpha in {1.0, 0.37}. On binary and dyadic windows
+every output is bit-identical: the port computes Eq. 9-11 in the order XLA
+compiles the JAX kernels (hit count, ``* float32(1/N)``, ``/ fma(alpha, D,
+1)``). Non-dyadic windows agree within rtol 1e-5, atol 1e-6 (the ROADMAP
+tolerance; D sums in another order).
+"""
+from fractions import Fraction
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import (assert_equal_outputs, binary_windows, dyadic,
+                           dyadic_windows, t)
+from repro.kernels.acam_similarity import ops as jops
+from repro.kernels.acam_similarity.ref import acam_similarity_ref as jref
+from repro_torch.kernels import layout
+from repro_torch.kernels.acam_similarity import acam_similarity as asim
+from repro_torch.kernels.acam_similarity import ops as tops
+from repro_torch.kernels.acam_similarity.ref import (acam_similarity_ref,
+                                                     fma_one)
+
+N = 100
+MAX_ROWS = 2048
+T_ROWS = 8
+RESIDENT, CHUNKED = (12, 4), (1100, 2)
+ALPHAS = (1.0, 0.37)
+
+
+def _case(seed, b, c, k, n, kind):
+    """Features, thresholds, (C, K, N) windows of ``kind`` ("binary",
+    "dyadic" or "real"), ~80% valid rows, windows per row (row 0 empty),
+    slots, a thresholds table, and raw queries for B7b."""
+    rng = np.random.default_rng(seed)
+    if kind == "binary":
+        lower, upper = binary_windows(rng, c, k, n)
+    elif kind == "dyadic":
+        lower, upper = dyadic_windows(rng, c, k, n)
+    else:
+        lower = rng.standard_normal((c, k, n), dtype=np.float32) * 0.5
+        upper = lower + np.abs(rng.standard_normal((c, k, n),
+                                                   dtype=np.float32))
+    lo = rng.integers(0, max(c - 4, 1), size=b)
+    hi = np.minimum(lo + rng.integers(1, c + 1, size=b), c)
+    hi[0] = lo[0]
+    q = (rng.standard_normal((b, n), dtype=np.float32) if kind == "real"
+         else dyadic(rng, (b, n)))
+    return dict(lower=lower, upper=upper, valid=rng.random((c, k)) < 0.8,
+                f=dyadic(rng, (b, n)), thr=dyadic(rng, (n,), -2, 3),
+                lo=lo.astype(np.int32), hi=hi.astype(np.int32),
+                table=dyadic(rng, (T_ROWS, n), -4, 5),
+                slot=rng.integers(0, T_ROWS, size=b).astype(np.int32), q=q)
+
+
+def _with_taus(x, alpha, max_rows=MAX_ROWS):
+    """Taus straddling every served margin; -inf on row 0, as the
+    scheduler pads."""
+    margins = np.asarray(jops.serve_classify(
+        *(jnp.asarray(x[f]) for f in ("f", "table", "slot", "lower", "upper",
+                                      "valid", "lo", "hi")),
+        alpha=alpha, max_rows=max_rows)[2])
+    sign = np.where(np.arange(len(margins)) % 2 == 0, 1e-3, -1e-3)
+    tau = (margins + sign).astype(np.float32)
+    tau[0] = -np.inf
+    return dict(x, tau=tau)
+
+
+def _faces(x, alpha, max_rows=MAX_ROWS, fused=True):
+    """Each face through both packages' ops: name -> (jax out, torch out)."""
+    j = {k: jnp.asarray(v) for k, v in x.items()}
+    p = {k: t(v) for k, v in x.items()}
+    c, k, n = x["lower"].shape
+    flat = {s: {w: d[w].reshape(c * k, n) for w in ("lower", "upper")}
+            for s, d in (("j", j), ("p", p))}
+    out = {
+        "scores": (
+            (jops.similarity_scores(j["q"], flat["j"]["lower"],
+                                    flat["j"]["upper"], alpha=alpha),),
+            (tops.similarity_scores(p["q"], flat["p"]["lower"],
+                                    flat["p"]["upper"], alpha=alpha),)),
+        "two_stage": (
+            jops.classify(j["f"] > 0, flat["j"]["lower"], flat["j"]["upper"],
+                          j["valid"].reshape(-1), c, alpha=alpha),
+            tops.classify(p["f"] > 0, flat["p"]["lower"], flat["p"]["upper"],
+                          p["valid"].reshape(-1), c, alpha=alpha)),
+        "margins": (
+            jops.classify_fused_margins(
+                j["f"], j["thr"], j["lower"], j["upper"], j["valid"],
+                j["lo"], j["hi"], alpha=alpha, max_rows=max_rows),
+            tops.classify_fused_margins(
+                p["f"], p["thr"], p["lower"], p["upper"], p["valid"],
+                p["lo"], p["hi"], alpha=alpha, max_rows=max_rows)),
+        "serve": (
+            jops.serve_classify(j["f"], j["table"], j["slot"], j["lower"],
+                                j["upper"], j["valid"], j["lo"], j["hi"],
+                                j["tau"], alpha=alpha, max_rows=max_rows),
+            tops.serve_classify(p["f"], p["table"], p["slot"], p["lower"],
+                                p["upper"], p["valid"], p["lo"], p["hi"],
+                                p["tau"], alpha=alpha, max_rows=max_rows)),
+    }
+    if fused:  # B5 keeps the whole bank resident: the resident banks only
+        out["classify"] = (
+            jops.classify_fused(j["f"], j["thr"], j["lower"], j["upper"],
+                                j["valid"], alpha=alpha),
+            tops.classify_fused(p["f"], p["thr"], p["lower"], p["upper"],
+                                p["valid"], alpha=alpha))
+    return out
+
+
+@pytest.mark.parametrize("alpha", ALPHAS)
+@pytest.mark.parametrize("kind", ["binary", "dyadic"])
+@pytest.mark.parametrize("c,k", [RESIDENT, CHUNKED])
+def test_faces_bit_identical(c, k, kind, alpha):
+    x = _with_taus(_case(c + k + len(kind), 12, c, k, N, kind), alpha)
+    faces = _faces(x, alpha, fused=(c, k) == RESIDENT)
+    for name, (want, got) in faces.items():
+        assert_equal_outputs(got, want)
+    esc = faces["serve"][1][3].numpy()
+    assert esc.any() and not esc.all()
+
+
+@pytest.mark.parametrize("b,c,k,n", [(37, 30, 2, N), (1, 1, 1, 1),
+                                     (16, 12, 4, 64)])
+def test_ragged_shapes_bit_identical(b, c, k, n):
+    for kind in ("binary", "dyadic"):
+        x = _with_taus(_case(b + c, b, c, k, n, kind), 0.37)
+        for want, got in _faces(x, 0.37).values():
+            assert_equal_outputs(got, want)
+
+
+@pytest.mark.parametrize("c,k", [RESIDENT, CHUNKED])
+def test_edge_windows_and_ties(c, k):
+    """Empty window, all-invalid window, exact ties (duplicate windows) and
+    a single-valid-class window (margin clamped at 1.0)."""
+    b = 6
+    x = _case(c + 1, b, c, k, N, "binary")
+    x["lower"][1], x["upper"][1] = x["lower"][0], x["upper"][0]  # tie 0/1
+    x["valid"][:2] = True
+    x["valid"][2] = False  # class 2 has no valid window
+    x["valid"][3:5] = True
+    x["lo"][:] = [0, 0, 2, 3, 2, 5]
+    x["hi"][:] = [0, 2, 3, 4, 4, 9]  # empty, tie, all-invalid, single
+    x = _with_taus(x, 0.37)
+    faces = _faces(x, 0.37, fused=(c, k) == RESIDENT)
+    for want, got in faces.values():
+        assert_equal_outputs(got, want)
+    pred, per_class, margin, esc = (v.numpy() for v in faces["serve"][1])
+    assert pred[0] == 0 and margin[0] == 0.0 and not esc[0]  # empty
+    assert margin[1] == 0.0 and pred[1] == 0  # tie -> lowest index
+    assert pred[2] == 0 and margin[2] == 0.0  # all-invalid window
+    assert pred[3] == 3 and margin[3] == pytest.approx(1.0)  # capped
+    assert np.isneginf(per_class[:, 2]).all()
+
+
+def test_outputs_do_not_depend_on_chunk():
+    """Two chunk values (384 and 128 class columns) give the same bits in
+    both packages."""
+    x = _with_taus(_case(5, 16, *CHUNKED, N, "dyadic"), 0.37)
+    cp = layout.padded_classes(CHUNKED[0])
+    assert layout.class_chunk(cp, 2, MAX_ROWS) == 384
+    assert layout.class_chunk(cp, 2, 256) == 128
+    wide = _faces(x, 0.37, MAX_ROWS, fused=False)
+    narrow = _faces(x, 0.37, 256, fused=False)
+    for name in ("margins", "serve"):
+        assert_equal_outputs(narrow[name][1], wide[name][1])
+        assert_equal_outputs(narrow[name][1], narrow[name][0])
+
+
+@pytest.mark.parametrize("c,k", [RESIDENT, CHUNKED])
+def test_non_dyadic_windows_within_tolerance(c, k):
+    """Real windows: S and margin within rtol 1e-5, atol 1e-6; pred equal
+    wherever the JAX top-two gap exceeds 1e-5."""
+    x = _with_taus(_case(c * 3 + k, 12, c, k, N, "real"), 0.37)
+    for name, (want, got) in _faces(x, 0.37,
+                                    fused=(c, k) == RESIDENT).items():
+        want = [np.asarray(w) for w in want]
+        got = [g.numpy() for g in got]
+        scores = want[0] if name == "scores" else want[1]
+        np.testing.assert_allclose(
+            got[0] if name == "scores" else got[1], scores, rtol=1e-5,
+            atol=1e-6, err_msg=name)
+        if name == "scores":
+            continue
+        if len(want) > 2:
+            np.testing.assert_allclose(got[2], want[2], rtol=1e-5, atol=1e-6,
+                                       err_msg=name)
+            gap = want[2]
+        else:
+            top = np.sort(want[1], axis=1)
+            gap = top[:, -1] - top[:, -2]
+        clear = gap > 1e-5
+        assert clear.mean() > 0.5, name
+        np.testing.assert_array_equal(got[0][clear], want[0][clear],
+                                      err_msg=name)
+
+
+@pytest.mark.parametrize("alpha", ALPHAS)
+def test_reference_matches_the_compiled_jax_reference(alpha):
+    """The oracle equals the JAX oracle as XLA compiles it (under jit) bit
+    for bit on dyadic operands."""
+    rng = np.random.default_rng(11)
+    lower, upper = dyadic_windows(rng, 7, 3, N)
+    q = dyadic(rng, (9, N))
+    want = jax.jit(lambda a, b, c: jref(a, b, c, alpha=alpha))(
+        jnp.asarray(q), jnp.asarray(lower.reshape(-1, N)),
+        jnp.asarray(upper.reshape(-1, N)))
+    got = acam_similarity_ref(t(q), t(lower.reshape(-1, N)),
+                              t(upper.reshape(-1, N)), alpha=alpha)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _round_f32(x: Fraction) -> np.float32:
+    """The f32 nearest to an exact rational, ties to even."""
+    c = np.float32(float(x))
+    cands = [c, np.nextafter(c, np.float32(np.inf)),
+             np.nextafter(c, np.float32(-np.inf))]
+    return min(cands, key=lambda v: (abs(Fraction(float(v)) - x),
+                                     int(np.float32(v).view(np.int32)) & 1))
+
+
+def test_fma_one_rounds_once():
+    """fma_one(alpha, D) is alpha * D + 1 rounded once to f32, including a
+    case where rounding the float64 sum first would land on an f32 tie."""
+    rng = np.random.default_rng(12)
+    alphas = [0.37, 1.0, 1e-3, float(np.float32(1 + 2**-12))]
+    dists = np.concatenate([
+        dyadic(rng, (64,), 0, 4000, 16.0),
+        rng.random(64, dtype=np.float32) * 300,
+        np.float32([2**-24 * (1 - 2**-12 + 2**-24), 0.0, 2**-30])])
+    for alpha in alphas:
+        got = fma_one(alpha, t(dists)).numpy()
+        a = Fraction(float(np.float32(alpha)))
+        want = np.array([_round_f32(a * Fraction(float(d)) + 1)
+                         for d in dists], np.float32)
+        np.testing.assert_array_equal(got, want, err_msg=str(alpha))
+    # the hard case: float64 gives 1 + 2**-24 (an f32 tie), the exact sum
+    # lies above it
+    hard = fma_one(float(np.float32(1 + 2**-12)),
+                   t(np.float32([2**-24 * (1 - 2**-12 + 2**-24)]))).item()
+    assert hard == float(np.float32(1 + 2**-23))
+
+
+def test_wrapper_counts_no_launch_on_cpu():
+    """On CPU tensors a wrapper runs its plain version: no kernel launch."""
+    asim.reset_launches()
+    x = _with_taus(_case(2, 4, 3, 1, 8, "binary"), 1.0)
+    _faces(x, 1.0)
+    assert all(v == 0 for v in asim.LAUNCHES.values())
+
+
+def test_wrapper_rejects_bad_chunk():
+    x = _case(4, 4, 3, 1, 8, "binary")
+    lo_kcp = layout.stack_kcp(t(x["lower"]), 3)
+    with pytest.raises(ValueError, match="chunk"):
+        asim.acam_similarity_serve(
+            t(x["f"]), t(x["table"]), t(x["slot"]), lo_kcp, lo_kcp,
+            layout.valid_kcp(t(x["valid"]), 3), t(x["lo"]), t(x["hi"]),
+            torch.zeros(4), 3, chunk=100)

@@ -199,3 +199,39 @@ def test_fit_acam_head_through_the_student():
                                    device="cpu")
     np.testing.assert_array_equal(clf.predict(x).numpy(),
                                   thead(t(feats))[0].numpy())
+
+
+@pytest.mark.parametrize("backend", ["kernel", "reference"])
+@pytest.mark.parametrize("method", ["feature_count", "similarity"])
+def test_head_scores_and_similarity_predict(backend, method):
+    """`ACAMHead.scores` for both methods, and the similarity head's
+    classify and `predict`, fed the same features: bit-identical (binary
+    windows from `generate_templates`, alpha 0.37)."""
+    rng = np.random.default_rng(7)
+    cal = dyadic(rng, (150, 100), -8, 9)
+    labels = rng.integers(0, 10, size=150).astype(np.int32)
+    jbank = jtemplates.generate_templates(jnp.asarray(cal),
+                                          jnp.asarray(labels), 10)
+    tbank = convert.bank_from_numpy(*(np.asarray(a) for a in jbank),
+                                    device="cpu")
+    jhead = jhybrid.ACAMHead(bank=jbank, method=method, alpha=0.37,
+                             backend=backend)
+    thead = thybrid.ACAMHead(bank=tbank, method=method, alpha=0.37,
+                             backend=backend)
+    feats = dyadic(rng, (30, 100), -8, 9)
+    np.testing.assert_array_equal(thead.scores(t(feats)).numpy(),
+                                  np.asarray(jhead.scores(jnp.asarray(feats))))
+    jp, jpc = jhead(jnp.asarray(feats))
+    tp, tpc = thead(t(feats))
+    np.testing.assert_array_equal(tpc.numpy(), np.asarray(jpc))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+
+    def identity(p, x):
+        return x
+
+    jclf = jhybrid.HybridClassifier(None, identity, jhead)
+    tclf = thybrid.HybridClassifier(None, identity, thead, device="cpu")
+    np.testing.assert_array_equal(tclf.predict(feats).numpy(),
+                                  np.asarray(jclf.predict(jnp.asarray(feats))))
+    with pytest.raises(NotImplementedError, match="device-physics slice"):
+        thead.to_acam()

@@ -35,7 +35,7 @@ def test_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", BLOCKED_IMPORT], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 30  # every module of the slice
+    assert int(out.stdout.strip()) >= 36  # every module of both slices
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -92,3 +92,16 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                          cwd=tmp_path)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_registry_defaults_to_the_card():
+    """`TemplateBankRegistry` resolves its device like every entry point:
+    the card by default, a raise without one, the CPU only when asked."""
+    from repro_torch.serve.registry import TemplateBankRegistry
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TemplateBankRegistry(8)
+    reg = TemplateBankRegistry(8, device="cpu")
+    assert reg.device == torch.device("cpu") and len(reg) == 0
