@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--report PATH]   # on a machine with a CUDA card
 
-Builds the CUDA kernels from `src/repro_torch/csrc/` (both sources, one
-nvcc each, in parallel) and drives the port on one CUDA card, with no JAX:
+Builds the CUDA kernels from `src/repro_torch/csrc/` (all four sources,
+one nvcc each, in parallel) and drives the port on one CUDA card, with no
+JAX:
 
  1. kernels   B1-B4 and B7a (`acam_match.cu`) against their plain PyTorch
               versions on the card, at the shapes the main paths give them
@@ -14,12 +15,21 @@ nvcc each, in parallel) and drives the port on one CUDA card, with no JAX:
               at alpha 1.0 and 0.37 (bit-identical), at two B6 chunks, and
               on one non-dyadic real-window case (S and margin within
               rtol 1e-5, atol 1e-6; pred equal where the top-two gap
-              exceeds 1e-5). Times (CUDA events, median of 60 after
-              warm-up): the kernel, the plain version, and a library
-              yardstick where one exists (B1-B4: the bipolar `torch.matmul`
-              score product alone, partial; B7a: `torch.addmm` of the
-              bipolar operands, the whole count; B5, B6, B7b: none, no
-              PyTorch call computes Eq. 9-11).
+              exceeds 1e-5). B8 (`kd_loss.cu`) within rel 1e-4, abs 1e-5
+              at the trainer's (128, 10), the bench (64, 32000), (13, 5000),
+              (3, 17) and (8, 152064), bf16 logits, a T/alpha sweep and
+              out-of-range labels. B9 (`flash_attention.cu`) within 2e-3 at
+              the JAX test shapes in f32, D = 96 and the (BH, S, D) face,
+              and within 2^-6 (at unit scale, relative above it) at the bench
+              shape (1, 1024, 8, 2, 64) bf16 causal; `ops.attention` against
+              `layers.chunked_attention` on the card. Times (CUDA events,
+              median of 60 after warm-up): the kernel, the plain version,
+              and a library yardstick where one exists (B1-B4: the bipolar
+              `torch.matmul` score product alone, partial; B7a:
+              `torch.addmm` of the bipolar operands, the whole count; B9:
+              `scaled_dot_product_attention` with the kv heads expanded;
+              B5, B6, B7b, B8: none, no PyTorch call computes Eq. 9-11 or
+              Eq. 1; B8 also times a partial `torch.logsumexp`).
  2. paths     each main path driven through the entry points a user calls,
               with the launch counts set to 0 just before and read just
               after: `HybridClassifier.predict` (B1) at paper width (the
@@ -37,9 +47,26 @@ nvcc each, in parallel) and drives the port on one CUDA card, with no JAX:
               dispatches, answers equal the CPU run's), a similarity
               `classify_features_margin` past `MAX_FUSED_ROWS` (B6), and
               `ACAMHead.scores` for both methods (B7a, B7b).
+              Training (§II) at full width, no depth cut: the ResNet
+              teacher (width 16, 3 blocks per stage, 1 epoch at batch 128)
+              on `synthetic.load("train", n_per_class=64)` in greyscale, then
+              the Fig. 5 student with KD from its logits, curriculum, the
+              prune ramp and fine-tune and QAT; every loss finite, the final
+              sparsity Eq. 5's, the first step's gradients on the card
+              within relative L2 1e-4 of the CPU's taken through the same
+              ReLU and max-pool branches (TF32 off in the backward; the
+              branches a near-zero pre-activation takes may differ between
+              devices, which is reported), the first-step loss within
+              1e-5, the int8 fake-quant grid bit-identical on the card
+              and the CPU, then `fit_acam_head` and `predict` (B1) on the
+              trained front end. B8's `distillation_loss` on the trained
+              student's logits against the trainer's Eq. 1 (rel 1e-4), and
+              B9's `ops.attention` at the bench shape against
+              `chunked_attention`.
  3. report    the card's name and power limit, metrics and the energy
-              split, one ``{"kernels": [...]}`` line, and as the last line
-              ``{"ok": true, "device": {...}}``. ``--report PATH``
+              split, the training step's time, device time and idle share,
+              one ``{"kernels": [...]}`` line (ten kernels), and as the last
+              line ``{"ok": true, "device": {...}}``. ``--report PATH``
               also writes every measurement to PATH as JSON.
 
 Every failed check raises, so the run exits non-zero. Without a CUDA card,
@@ -60,8 +87,13 @@ ROOT = Path(__file__).resolve().parent
 CSRC = "src/repro_torch/csrc"
 MATCH_SRC = f"{CSRC}/acam_match.cu"
 SIM_SRC = f"{CSRC}/acam_similarity.cu"
+KD_SRC = f"{CSRC}/kd_loss.cu"
+FA_SRC = f"{CSRC}/flash_attention.cu"
+SOURCES = ("acam_match", "acam_similarity", "kd_loss", "flash_attention")
 MATCH_TPU = "src/repro/kernels/acam_match/acam_match.py"
 SIM_TPU = "src/repro/kernels/acam_similarity/acam_similarity.py"
+KD_TPU = "src/repro/kernels/kd_loss/kd_loss.py"
+FA_TPU = "src/repro/kernels/flash_attention/flash_attention.py"
 # kernel -> (its CUDA source, file:line of the TPU kernel's pallas_call)
 KERNELS = {
     "acam_match_classify": (MATCH_SRC, f"{MATCH_TPU}:204"),  # B1
@@ -73,6 +105,8 @@ KERNELS = {
     "acam_similarity_classify": (SIM_SRC, f"{SIM_TPU}:195"),  # B5
     "acam_similarity_serve": (SIM_SRC, f"{SIM_TPU}:344"),  # B6
     "acam_similarity": (SIM_SRC, f"{SIM_TPU}:101"),  # B7b
+    "kd_loss": (KD_SRC, f"{KD_TPU}:112"),  # B8
+    "flash_attention": (FA_SRC, f"{FA_TPU}:90"),  # B9
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor rate
@@ -80,6 +114,19 @@ INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor rate
 # 128 lanes x 1.98 GHz, the 67 TFLOP/s FP32 peak with an FMA counted once
 INSTR_PER_S = 33.5e12
 SIM_INSTR_PER_CELL = 10  # Eq. 9-11 per (query, template row, feature)
+# dense tensor-core rates for 16-bit operands, and FP32 outside them
+FLOPS_PER_S = {"torch.bfloat16": 989e12, "torch.float16": 989e12,
+               "torch.float32": 67e12}
+# special-function (exp) rate: 132 SMs x 16 per clock x 1.98 GHz
+SFU_PER_S = 4.18e12
+KD_RTOL, KD_ATOL = 1e-4, 1e-5  # the JAX package's kd_loss test tolerance
+FA_TOL_F32 = 2e-3  # the JAX package's flash attention test tolerance
+# bf16: 2^-6 at unit scale and relative above it (about 4 ulps of bf16's
+# 2^-8 unit roundoff); p is rounded to bf16 in both the kernel (at each
+# tile's running max) and the plain version (at the row's), and the output
+# is rounded to bf16
+FA_TOL_BF16 = 2.0 ** -6
+GRAD_RTOL = 1e-4  # card vs CPU, relative L2 per gradient tensor
 N = 784  # Fig. 5 features
 ITERS = 60
 TENANTS = 8
@@ -563,6 +610,220 @@ def torch_tensor(a: np.ndarray, device):
 
 
 # ---------------------------------------------------------------------------
+# 1c. B8 (kd_loss) and B9 (flash_attention) against their plain versions
+# ---------------------------------------------------------------------------
+
+def kd_case(seed: int, b: int, v: int, device, dtype=None):
+    """Student and teacher logits (scale 3) and in-range int32 labels."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    dtype = dtype or torch.float32
+    zs, zt = (torch.as_tensor(rng.standard_normal((b, v)) * 3,
+                              dtype=torch.float32, device=device).to(dtype)
+              for _ in range(2))
+    y = torch.as_tensor(rng.integers(0, v, b), dtype=torch.int32,
+                        device=device)
+    return zs, zt, y
+
+
+def kd_compare(name: str, got, want) -> float:
+    """Per-sample losses within rel 1e-4, abs 1e-5; returns max |diff|."""
+    import torch
+
+    check(got.shape == want.shape and got.dtype == torch.float32,
+          f"{name}: {got.shape}/{got.dtype} vs {want.shape}")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite loss")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    check(bool(torch.allclose(got, want, rtol=KD_RTOL, atol=KD_ATOL)),
+          f"{name}: outside rel {KD_RTOL}, abs {KD_ATOL} of the plain version "
+          f"(max |diff| {err})")
+    return err
+
+
+def kd_bound(b: int, v: int, itemsize: int):
+    """Least time on an H100 SXM: both logits read once, labels in, losses
+    out, over 3.35 TB/s, against three exponentials per column over the
+    special-function rate. Returns (ms, bound_by, bytes)."""
+    nbytes = 2 * b * v * itemsize + b * 4 + b * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 3 * b * v / SFU_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+
+def kd_phase(device) -> dict:
+    """B8 at the trainer's shape (128 x 10, T 4, alpha 0.5: the timed main
+    path), the bench shape 64 x 32000 (timed too), (13, 5000), (3, 17) and
+    (8, 152064), bf16 logits, a T/alpha sweep and out-of-range labels."""
+    import torch
+
+    from repro_torch.kernels.kd_loss import kd_loss as kd
+
+    out, err = {}, 0.0
+    timed = {"main": (128, 10), "bench": (64, 32000)}
+    for seed, (b, v) in enumerate([*timed.values(), (13, 5000), (3, 17),
+                                   (8, 152064)]):
+        zs, zt, y = kd_case(500 + seed, b, v, device)
+        err = max(err, kd_compare(f"kd_loss {b}x{v}", kd.kd_loss(zs, zt, y),
+                                  kd.kd_loss_plain(zs, zt, y)))
+    for b, v in [(64, 32000), (13, 5000)]:
+        zs, zt, y = kd_case(510, b, v, device, torch.bfloat16)
+        err = max(err, kd_compare(f"kd_loss {b}x{v} bf16",
+                                  kd.kd_loss(zs, zt, y),
+                                  kd.kd_loss_plain(zs, zt, y)))
+    for temperature, alpha in [(1.0, 0.0), (1.0, 1.0), (2.0, 0.25),
+                               (6.5, 0.9), (8.0, 0.7)]:
+        zs, zt, y = kd_case(520, 6, 400, device)
+        kw = dict(temperature=temperature, alpha=alpha)
+        err = max(err, kd_compare(f"kd_loss T={temperature} a={alpha}",
+                                  kd.kd_loss(zs, zt, y, **kw),
+                                  kd.kd_loss_plain(zs, zt, y, **kw)))
+    zs, zt, y = kd_case(530, 6, 2100, device)
+    y[1], y[3], y[5] = -1, 2100, 4096  # picked as 0: CE = lse
+    got = kd.kd_loss(zs, zt, y, alpha=0.0)
+    err = max(err, kd_compare("kd_loss out-of-range labels", got,
+                              kd.kd_loss_plain(zs, zt, y, alpha=0.0)))
+    lse = torch.logsumexp(zs, dim=-1)
+    check(bool(torch.allclose(got[[1, 3, 5]], lse[[1, 3, 5]], rtol=1e-6)),
+          "kd_loss: an out-of-range label must pick 0")
+    for key, (b, v) in timed.items():
+        zs, zt, y = kd_case(500 + list(timed).index(key), b, v, device)
+        ms, by, nbytes = kd_bound(b, v, 4)
+        row = dict(
+            shape=dict(B=b, V=v, T=4.0, alpha=0.5, dtype="float32"),
+            ms=time_ms(lambda: kd.kd_loss(zs, zt, y)),
+            plain_ms=time_ms(lambda: kd.kd_loss_plain(zs, zt, y)),
+            library_ms=None,
+            library_call="none: no single PyTorch call computes Eq. 1",
+            partial_library_ms=time_ms(lambda: torch.logsumexp(zs, dim=-1)),
+            partial_library_call="torch.logsumexp of the student logits "
+                                 "(the CE normaliser alone, partial)",
+            bound_ms=ms, bound_by=by, bound_bytes=nbytes,
+            profile=profile(lambda: kd.kd_loss(zs, zt, y), reps=20))
+        if key == "main":
+            out["kd_loss"] = dict(row, max_abs_err=err)
+        else:
+            out["kd_loss"]["bench"] = row
+    kd.reset_launches()
+    return out
+
+
+def fa_bound(b: int, s: int, h: int, kv: int, d: int, causal: bool, dtype):
+    """Least time on an H100 SXM: 4 * D flops per live (query, key) pair
+    (QK^T and P.V; the causal half where causal) over the dense rate of the
+    dtype, against q, k, v read once and o written once over 3.35 TB/s.
+    Returns (ms, bound_by, flops, bytes)."""
+    import torch
+
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 4 * d * pairs * b * h
+    item = torch.empty((), dtype=dtype).element_size()
+    nbytes = (2 * b * s * h * d + 2 * b * s * kv * d) * item
+    t_ops = flops / FLOPS_PER_S[str(dtype)]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def fa_case(seed: int, b: int, s: int, h: int, kv: int, d: int, device,
+            dtype):
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.standard_normal(shape),
+                                 dtype=torch.float32, device=device).to(dtype)
+                 for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+
+
+def fa_compare(name: str, got, want, tol: float) -> float:
+    """|got - want| <= tol * max(1, |want|) everywhere (tol at unit scale,
+    relative above it); returns the max |diff|."""
+    import torch
+
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    diff = (got.float() - want.float()).abs()
+    scaled = float((diff / want.float().abs().clamp(min=1.0)).max())
+    check(scaled <= tol, f"{name}: |diff| / max(1, |want|) reaches {scaled}, "
+          f"above {tol}")
+    return float(diff.max())
+
+
+def fa_phase(device) -> dict:
+    """B9 at the JAX test shapes in f32 (2e-3), at the bench shape
+    (1, 1024, 8, 2, 64) bf16 causal (2^-6; the timed main path), D = 96, the
+    (BH, S, D) face, and `ops.attention` against `layers.chunked_attention`
+    on the card."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.layers import chunked_attention
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    bench = (1, 1024, 8, 2, 64, True, bf16)
+    cases = [(2, 200, 8, 2, 64, True, f32), (1, 128, 4, 4, 128, True, f32),
+             (2, 333, 6, 2, 64, False, f32), (1, 512, 2, 1, 32, True, f32),
+             (1, 70, 4, 2, 96, False, f32), (2, 200, 8, 2, 64, True, bf16),
+             bench]
+    for seed, (b, s, h, kv, d, causal, dt) in enumerate(cases):
+        q, k, v = fa_case(600 + seed, b, s, h, kv, d, device, dt)
+        tol = FA_TOL_F32 if dt == f32 else FA_TOL_BF16
+        key = str(dt).split(".")[1]
+        err[key] = max(err[key], fa_compare(
+            f"flash_attention {(b, s, h, kv, d, causal, key)}",
+            fa.flash_attention_gqa(q, k, v, causal=causal),
+            fa.flash_attention_gqa_plain(q, k, v, causal=causal), tol))
+    # the (BH, S, D) face of the TPU kernel's signature
+    q, k, v = (x[:, :, 0].contiguous()
+               for x in fa_case(610, 3, 150, 1, 1, 64, device, f32))
+    err["float32"] = max(err["float32"], fa_compare(
+        "flash_attention (BH, S, D)", fa.flash_attention(q, k, v),
+        fa.flash_attention_plain(q, k, v), FA_TOL_F32))
+    # the entry point against the model's chunked attention, on the card
+    for seed, (b, s, h, kv, d, dt) in enumerate(
+            [(2, 160, 4, 2, 32, f32), (1, 1024, 8, 2, 64, bf16)]):
+        q, k, v = fa_case(620 + seed, b, s, h, kv, d, device, dt)
+        fa_compare(f"ops.attention vs chunked_attention {(b, s, h, kv, d)}",
+                   fa_ops.attention(q, k, v, causal=True),
+                   chunked_attention(q, k, v, causal=True, q_chunk=256),
+                   FA_TOL_F32 if dt == f32 else FA_TOL_BF16)
+    b, s, h, kv, d, causal, dt = bench
+    q, k, v = fa_case(606, b, s, h, kv, d, device, dt)
+    ms, by, flops, nbytes = fa_bound(b, s, h, kv, d, causal, dt)
+    # the yardstick: SDPA on (B, H, S, D) views with the kv heads expanded
+    # beforehand (timed call only)
+    qh, kh, vh = (x.permute(0, 2, 1, 3) for x in (
+        q, torch.repeat_interleave(k, h // kv, dim=2),
+        torch.repeat_interleave(v, h // kv, dim=2)))
+    sdpa = fa_compare("scaled_dot_product_attention yardstick",
+                      F.scaled_dot_product_attention(
+                          qh, kh, vh, is_causal=True).permute(0, 2, 1, 3),
+                      fa_ops.attention(q, k, v, causal=True), FA_TOL_BF16)
+    out = {"flash_attention": dict(
+        shape=dict(B=b, S=s, H=h, KV=kv, D=d, causal=causal,
+                   dtype="bfloat16"),
+        max_abs_err=err["bfloat16"], max_abs_err_f32=err["float32"],
+        ms=time_ms(lambda: fa_ops.attention(q, k, v, causal=True)),
+        plain_ms=time_ms(lambda: fa.flash_attention_gqa_plain(
+            q, k, v, causal=True)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True)),
+        library_call="torch.nn.functional.scaled_dot_product_attention, "
+                     "kv heads expanded outside the timed call",
+        library_max_abs_diff=sdpa,
+        bound_ms=ms, bound_by=by, bound_flops=flops, bound_bytes=nbytes,
+        profile=profile(lambda: fa_ops.attention(q, k, v, causal=True),
+                        reps=20))}
+    fa.reset_launches()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 2. the main paths, through the entry points
 # ---------------------------------------------------------------------------
 
@@ -572,21 +833,29 @@ def class_images(rng, protos: np.ndarray, labels: np.ndarray,
         (len(labels),) + protos.shape[1:])).astype(np.float32)
 
 
+def launch_modules() -> list:
+    """Every kernel wrapper module (each has LAUNCHES, reset_launches)."""
+    from repro_torch.kernels.acam_match import acam_match as am
+    from repro_torch.kernels.acam_similarity import acam_similarity as asim
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.kd_loss import kd_loss as kd
+
+    return [am, asim, kd, fa]
+
+
 def drive(name: str, fn, kernels: list[str]):
     """Run one path with the launch counts zeroed just before and read just
     after; every kernel of the path must have launched."""
     import torch
 
-    from repro_torch.kernels.acam_match import acam_match as am
-    from repro_torch.kernels.acam_similarity import acam_similarity as asim
-
-    am.reset_launches()
-    asim.reset_launches()
+    mods = launch_modules()
+    for mod in mods:
+        mod.reset_launches()
     t0 = time.perf_counter()
     result = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {**am.LAUNCHES, **asim.LAUNCHES}
+    counts = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
     for k in kernels:
         check(counts[k] > 0, f"path {name}: kernel {k} never launched")
     return result, counts, wall
@@ -882,6 +1151,280 @@ def similarity_paths(device, model, head, test_x, test_y, feats) -> dict:
     return report
 
 
+def replay_student(model, x, qat: bool, branches=None):
+    """`Student.forward(x, train=True, quantize=qat)` with its branch
+    decisions exposed: the four ReLU masks and the two max-pool argmaxes are
+    recorded (``branches=None``) or imposed (the given ones, e.g. another
+    device's). Returns (logits, branches). The same arithmetic as the
+    model's forward, so the same gradients wherever the branches agree."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import quant
+    from repro_torch.models import cnn
+
+    given = iter(branches) if branches is not None else None
+    taken = []
+
+    def decide(make):
+        taken.append(next(given).to(x.device) if given else make())
+        return taken[-1]
+
+    def conv_relu(m, h):
+        w = quant.fake_quant_int8(m.weight) if qat else m.weight
+        pre = F.conv2d(h, w, m.bias, padding=m.padding)
+        return pre * decide(lambda: (pre > 0).to(pre.dtype))
+
+    def pool(h):
+        idx = decide(lambda: F.max_pool2d(h, 2, return_indices=True)[1])
+        return h.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+
+    h = x.permute(0, 3, 1, 2)
+    h = pool(cnn.batchnorm(model.bn1, conv_relu(model.conv1, h), train=True))
+    h = pool(cnn.batchnorm(model.bn2, conv_relu(model.conv2, h), train=True))
+    h = conv_relu(model.conv4, conv_relu(model.conv3, h))
+    return model.head(h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)), taken
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| in float64 on the CPU."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def training_paths(device) -> dict:
+    """The paper's training path (§II) at full width, no depth cut: the
+    ResNet teacher (width 16, 3 blocks per stage; 1 epoch at batch 128), then
+    the Fig. 5 student with KD from its logits, curriculum, the prune ramp
+    and fine-tune, and QAT; then `fit_acam_head` and `predict` (B1) on the
+    trained front end, all on the card. Also the fused loss (B8) on the
+    trained student's logits against the trainer's Eq. 1, the first step's
+    gradients on the card against the CPU's, and one traced train step.
+    Returns (the driven paths, the training measurements)."""
+    import copy
+
+    import torch
+
+    from repro_torch.core import distill, prune, quant
+    from repro_torch.core.hybrid import HybridClassifier, fit_acam_head
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import layout
+    from repro_torch.kernels.acam_match import acam_match as am
+    from repro_torch.kernels.kd_loss import ops as kd_ops
+    from repro_torch.models import cnn
+    from repro_torch.optim import optimizers as optim
+    from repro_torch.train import cnn_trainer as tr
+
+    report = {}
+    train = synthetic.load("train", n_per_class=64, seed=0)
+    x = synthetic.normalize(synthetic.to_grayscale(train.images))
+    y = train.labels
+    test = synthetic.load("test", n_per_class=26, seed=0)
+    test_x = synthetic.normalize(synthetic.to_grayscale(test.images))[:256]
+    test_y = test.labels[:256]
+
+    # -- the teacher ---------------------------------------------------------
+    tcfg = cnn.TeacherConfig(in_channels=1)
+    t_losses = []
+    t0 = time.perf_counter()
+    teacher = tr.train_teacher(x, y, tcfg, epochs=1, batch_size=128,
+                               device=device, losses=t_losses)
+    torch.cuda.synchronize()
+    t_wall = time.perf_counter() - t0
+    zt = cnn.teacher_logits(teacher, x).cpu().numpy()
+    check(all(bool(torch.isfinite(v)) for v in t_losses) and
+          len(t_losses) == len(y) // 128, f"teacher: {len(t_losses)} steps, "
+          "every loss finite")
+    teacher_report = dict(
+        steps=len(t_losses), wall_s=t_wall, params=cnn.count_params(teacher),
+        macs=cnn.teacher_macs(tcfg),
+        losses=[float(v) for v in t_losses],
+        accuracy_train=tr.evaluate(cnn.teacher_logits, teacher, x, y))
+
+    # -- the student: KD + curriculum, prune ramp + fine-tune, QAT ----------
+    cfg = tr.TrainConfig(epochs=2, batch_size=128, prune_epochs=2,
+                         finetune_epochs=1, qat=True, seed=0)
+    s_losses = []
+    t0 = time.perf_counter()
+    student, masks = tr.train_student(
+        x, y, student_cfg=cnn.StudentConfig(), teacher_logits_all=zt,
+        cfg=cfg, do_prune=True, device=device, losses=s_losses)
+    torch.cuda.synchronize()
+    s_wall = time.perf_counter() - t0
+    check(len(s_losses) > 0 and all(bool(torch.isfinite(v))
+                                    for v in s_losses),
+          "student: every loss finite")
+    params = tr.params_of(student)
+    prunable = [v for v in params.values() if v.ndim >= 2]
+    total = sum(v.numel() for v in prunable)
+    sparsity = prune.sparsity_of(params)
+    target = float(prune.polynomial_sparsity(cfg.prune_epochs,
+                                             cfg.prune_epochs))
+    # each tensor's quantile threshold keeps all but ceil-or-floor of its
+    # elements: one element per tensor of slack
+    check(abs(sparsity - target) <= len(prunable) / total,
+          f"student sparsity {sparsity} vs the final {target}")
+    check(all(not bool(params[k][~m].any()) for k, m in masks.items()),
+          "pruned weights stay zero")
+
+    # -- the first step's gradients, card vs CPU (TF32 off in the backward) -
+    # Through the trainer's `value_and_grad` on both devices, with the
+    # student's forward replayed on the branches the card took: a
+    # pre-activation within rounding of 0 may fall on the other side of a
+    # ReLU kink on the other device, and one such flip moves the gradients
+    # of the layers below it far more than rounding does, while TF32 moves
+    # every gradient.
+    loss_fn = tr.student_loss(cfg, kd=True)
+    order = distill.curriculum_order(torch.as_tensor(zt),
+                                     torch.as_tensor(y)).numpy()
+    limit = distill.CurriculumSchedule(cfg.curriculum_start_frac,
+                                       cfg.epochs - 1).available(0, len(y))
+    sel = np.random.RandomState(cfg.seed * 9973).permutation(
+        order[:limit])[:cfg.batch_size]
+    batch = (x[sel], y[sel], zt[sel])
+    fresh = cnn.init_student(torch.Generator().manual_seed(cfg.seed),
+                             device="cpu")
+    dev_batch = tr.to_device(batch, device)
+    cpu_batch = tr.to_device(batch, "cpu")
+
+    def replayed_loss(branches):
+        def loss(model, xb, yb, ztb):
+            logits = replay_student(model, xb, cfg.qat, branches)[0]
+            return distill.distillation_loss(
+                logits, ztb, yb, alpha=cfg.distill_alpha,
+                temperature=cfg.distill_temperature)
+        return loss
+
+    with torch.no_grad(), cnn.fp32(device):
+        on_card = copy.deepcopy(fresh).to(device)
+        logits_dev, branches = replay_student(on_card, dev_batch[0], cfg.qat)
+        replay_err = rel_l2(logits_dev, on_card(dev_batch[0], train=True,
+                                                quantize=cfg.qat))
+        check(replay_err <= 1e-5, f"the replayed student's logits are "
+              f"{replay_err} (relative L2) from Student.forward's")
+    loss_dev, g_dev = tr.value_and_grad(replayed_loss(branches),
+                                        copy.deepcopy(fresh).to(device),
+                                        dev_batch)
+    card_branches = [b.cpu() for b in branches]
+    loss_cpu, g_cpu = tr.value_and_grad(replayed_loss(card_branches),
+                                        copy.deepcopy(fresh), cpu_batch)
+    grad_err = {k: rel_l2(g_dev[k], g_cpu[k]) for k in g_cpu}
+    check(max(grad_err.values()) <= GRAD_RTOL,
+          f"first-step gradients, card vs CPU on the card's branches: "
+          f"{grad_err}")
+    check(rel_l2(loss_dev, loss_cpu) <= 1e-5, "first-step loss, card vs CPU")
+    # the trainer's own loss on each device: the loss agrees; the gradients
+    # are reported with the number of branches the two devices took apart
+    own_dev, g_own_dev = tr.value_and_grad(loss_fn, on_card, dev_batch)
+    own_cpu, g_own_cpu = tr.value_and_grad(loss_fn, copy.deepcopy(fresh),
+                                           cpu_batch)
+    check(rel_l2(own_dev, own_cpu) <= 1e-5, "the trainer's first-step loss, "
+          "card vs CPU")
+    own_err = {k: rel_l2(g_own_dev[k], g_own_cpu[k]) for k in g_own_cpu}
+    with torch.no_grad():
+        cpu_branches = replay_student(copy.deepcopy(fresh), cpu_batch[0],
+                                      cfg.qat)[1]
+    flips = sum(int((a != b).sum())
+                for a, b in zip(card_branches, cpu_branches))
+    # QAT's int8 grid: the same on the card as on the CPU, bit for bit
+    for model in (fresh, student):
+        for name, w in model.named_parameters():
+            if w.ndim >= 2:
+                check(torch.equal(quant.fake_quant_int8(w.detach().cpu()),
+                                  quant.fake_quant_int8(
+                                      w.detach().to(device)).cpu()),
+                      f"fake_quant_int8({name}): card and CPU differ")
+    # the same forward and backward under cuDNN's TF32 default (no `fp32`
+    # around them), to show what the check would catch
+    tf32_model = copy.deepcopy(fresh).to(device)
+    with torch.enable_grad():
+        tf32_g = torch.autograd.grad(
+            replayed_loss(branches)(tf32_model, *dev_batch),
+            list(tf32_model.parameters()))
+    tf32_err = {k: rel_l2(g, g_cpu[k]) for (k, _), g in
+                zip(tf32_model.named_parameters(), tf32_g)}
+
+    # -- B8 on the trained student's logits vs the trainer's Eq. 1 ----------
+    xb, yb, ztb = tr.to_device((x[:128], y[:128], zt[:128]), device)
+    zs = cnn.student_logits(student, xb, quantize=True)
+    fused, counts, wall = drive(
+        "kd_loss", lambda: kd_ops.distillation_loss(
+            zs, ztb, yb, temperature=cfg.distill_temperature,
+            alpha=cfg.distill_alpha), ["kd_loss"])
+    want = distill.distillation_loss(zs, ztb, yb, alpha=cfg.distill_alpha,
+                                     temperature=cfg.distill_temperature)
+    check(abs(float(fused) - float(want)) <= 1e-4 * abs(float(want)),
+          f"B8 distillation_loss {float(fused)} vs core.distill "
+          f"{float(want)}")
+    report["kd_loss"] = dict(launches=counts, wall_s=wall,
+                             fused=float(fused), trainer_loss=float(want))
+    training = {}
+
+    # -- the trained front end served: fit_acam_head, predict (B1) ----------
+    def features(p, a):
+        return cnn.student_features(p, a, quantize=True)
+
+    head = fit_acam_head(features, student, x, y, 10, device=device)
+    clf = HybridClassifier(student, features, head, device=device)
+    pred, counts, wall = drive("predict_trained",
+                               lambda: clf.predict(test_x),
+                               ["acam_match_classify"])
+    feats = features(student, test_x)
+    check(feats.shape == (256, 784) and bool(torch.isfinite(feats).all()),
+          "trained student: finite (256, 784) features")
+    bank = head.bank
+    want_pred, _ = am.classify_plain(
+        feats, bank.thresholds, layout.flatten_kmajor(bank.templates, 10),
+        layout.valid_kmajor(bank.valid, 10), 10)
+    check(torch.equal(pred, want_pred), "predict (trained): kernel preds "
+          "differ from the plain path")
+
+    # -- one traced train step (a copy, so the trained student stays) -------
+    prof_model = copy.deepcopy(student)
+    opt = optim.adamw(cfg.lr, weight_decay=cfg.weight_decay)
+    state = opt.init(tr.params_of(prof_model))
+    step = tr._make_step(loss_fn, opt, masks)
+    training["train_teacher"] = teacher_report
+    training["train_student"] = dict(
+        steps=len(s_losses), wall_s=s_wall, losses=[float(v)
+                                                    for v in s_losses],
+        sparsity=sparsity, sparsity_target=target,
+        params=cnn.count_params(student),
+        grad_rel_l2_card_vs_cpu=grad_err,
+        grad_rel_l2_card_vs_cpu_own_branches=own_err,
+        replay_logits_rel_l2=replay_err,
+        branch_flips_card_vs_cpu=flips,
+        grad_rel_l2_tf32_vs_cpu=tf32_err,
+        metrics_test=tr.metrics(
+            lambda p, a: cnn.student_logits(p, a, quantize=True), student,
+            test_x, test_y),
+        step_ms=time_ms(lambda: step(prof_model, state, dev_batch), 20),
+        step_profile=profile(lambda: step(prof_model, state, dev_batch),
+                             reps=10))
+    report["predict_trained"] = dict(
+        launches=counts, wall_s=wall,
+        accuracy_vs_labels=float((pred.cpu().numpy() == test_y).mean()),
+        profile=profile(lambda: clf.predict(test_x)))
+    return report, training
+
+
+def attention_path(device) -> dict:
+    """B9 through its entry point, `ops.attention`, at the bench shape
+    (1, 1024, 8 heads, 2 kv heads, 64) bf16 causal, held against the model's
+    `chunked_attention` on the card."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.layers import chunked_attention
+
+    q, k, v = fa_case(630, 1, 1024, 8, 2, 64, device, torch.bfloat16)
+    out, counts, wall = drive(
+        "attention", lambda: fa_ops.attention(q, k, v, causal=True),
+        ["flash_attention"])
+    fa_compare("attention path vs chunked_attention", out,
+               chunked_attention(q, k, v, causal=True), FA_TOL_BF16)
+    return {"attention": dict(launches=counts, wall_s=wall)}
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -898,7 +1441,7 @@ def main(argv: list[str]) -> int:
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
               file=sys.stderr)
         return 2
-    for source in (MATCH_SRC, SIM_SRC):
+    for source in (MATCH_SRC, SIM_SRC, KD_SRC, FA_SRC):
         if not (ROOT / source).is_file():
             print(f"chip_smoke: {source} not found beside this script",
                   file=sys.stderr)
@@ -914,7 +1457,7 @@ def main(argv: list[str]) -> int:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    logs = _build.build(["acam_match", "acam_similarity"])
+    logs = _build.build(list(SOURCES))
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s")
     for name, log in logs.items():
@@ -922,8 +1465,13 @@ def main(argv: list[str]) -> int:
 
     kernels = kernel_phase(device)
     kernels.update(similarity_phase(device))
+    kernels.update(kd_phase(device))
+    kernels.update(fa_phase(device))
     report = paths(device)
     check(report["predict"]["features"] == N, "paper width: 784 features")
+    trained, training = training_paths(device)
+    report.update(trained)
+    report.update(attention_path(device))
     launches = {}
     for path in report.values():
         for k, v in path["launches"].items():
@@ -942,9 +1490,26 @@ def main(argv: list[str]) -> int:
     for name, r in report.items():
         if "profile" in r:
             print(f"{name} profile: {json.dumps(r['profile'])}")
-    for name in ("predict", "predict_similarity"):
+    for name in ("predict", "predict_similarity", "predict_trained"):
         print(f"{name} accuracy vs labels: "
               f"{report[name]['accuracy_vs_labels']}")
+    for name, r in training.items():
+        print(f"{name}: {r['steps']} steps in {r['wall_s']:.3f} s, losses "
+              f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}")
+    st = training["train_student"]
+    print(f"train_student: sparsity {st['sparsity']} (target "
+          f"{st['sparsity_target']}), test metrics "
+          f"{json.dumps(st['metrics_test'])}")
+    print(f"train step (batch 128, KD + QAT + masks): {st['step_ms']:.4f} ms "
+          f"per call, profile {json.dumps(st['step_profile'])}")
+    print("first-step gradients, card vs CPU on the card's branches, max "
+          f"rel L2: {max(st['grad_rel_l2_card_vs_cpu'].values()):.3e} (TF32 "
+          f"backward: {max(st['grad_rel_l2_tf32_vs_cpu'].values()):.3e}); "
+          "each device on its own branches: "
+          f"{max(st['grad_rel_l2_card_vs_cpu_own_branches'].values()):.3e} "
+          f"with {st['branch_flips_card_vs_cpu']} branch flips")
+    print(f"kd_loss bench 64x32000 (per call): "
+          f"{json.dumps(kernels['kd_loss']['bench'])}")
     check(set(kernels) == set(KERNELS), "every ported kernel measured")
 
     line = {"kernels": [
@@ -961,7 +1526,8 @@ def main(argv: list[str]) -> int:
         report_path.parent.mkdir(parents=True, exist_ok=True)
         report_path.write_text(json.dumps(
             dict(card=smi, build_s=build_s, nvcc=logs,
-                 kernels=line["kernels"], paths=report), indent=1,
+                 kernels=line["kernels"], kernel_phases=kernels,
+                 paths=report, training=training), indent=1,
             default=str))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

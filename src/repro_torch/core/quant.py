@@ -1,8 +1,9 @@
-"""Quantisation schemes (paper §II-C), forward only.
+"""Quantisation schemes (paper §II-C).
 
   1. 8-bit symmetric per-tensor fake-quant for model weights (QAT /
-     deployment). The straight-through gradient comes with the training
-     path.
+     deployment), with a straight-through gradient: the backward passes
+     the incoming gradient on unchanged, as the JAX package's `custom_vjp`
+     does, so QAT trains the full-precision weights.
   2. Binary (1-bit) feature-map quantisation for ACAM deployment against a
      *mean-based* per-feature threshold (Fig. 1).
 
@@ -17,9 +18,16 @@ import torch
 
 
 def quantize_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric per-tensor int8 quantisation. Returns (q, scale)."""
+    """Symmetric per-tensor int8 quantisation. Returns (q, scale).
+
+    ``scale`` is the IEEE quotient ``amax / 127`` on every device: the
+    divisor is a tensor on ``w``'s device, because CUDA divides by a Python
+    scalar as a multiplication by its reciprocal, which rounds differently
+    for some ``amax`` and moves weights across a rounding boundary.
+    (The JAX package's eager call divides too; under `jit` XLA rewrites the
+    division into that reciprocal product.)"""
     amax = torch.clamp(w.abs().max(), min=1e-8)
-    scale = amax / 127.0
+    scale = amax / amax.new_tensor(127.0)
     q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -28,9 +36,20 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
 
 
+class _FakeQuantSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w):
+        return dequantize_int8(*quantize_int8(w))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g  # straight-through
+
+
 def fake_quant_int8(w: torch.Tensor) -> torch.Tensor:
-    """Round weights onto the int8 grid (forward only)."""
-    return dequantize_int8(*quantize_int8(w))
+    """Round weights onto the int8 grid; the gradient is straight-through
+    (the identity), not the zero gradient of `round`."""
+    return _FakeQuantSTE.apply(w)
 
 
 def fake_quant_tree(params: dict, *, predicate=None) -> dict:

@@ -4,8 +4,8 @@ Run the front-end over a calibration set, threshold the penultimate feature
 maps (mean- or median-based, `repro_torch.core.quant`), and distil each
 class into a binary point template (feature-count matching, Eq. 8) and a
 binary window [T^L, T^U] from the class mean +/- width * std (similarity
-matching, Eq. 9-11). Several templates per class (k-means, silhouette) come
-with the training path of the port.
+matching, Eq. 9-11). Several templates per class (k-means, silhouette) are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -59,8 +59,8 @@ def generate_templates(features: torch.Tensor, labels: torch.Tensor,
     """
     if k != 1:
         raise NotImplementedError(
-            "k > 1 templates per class (k-means + silhouette) come with the "
-            "training slice of the port")
+            "k > 1 templates per class (k-means + silhouette) are not "
+            "ported yet; a later slice of the port brings them")
     thresholds = quant.feature_thresholds(features, threshold_method)
     nf = features.shape[1]
     dev = features.device

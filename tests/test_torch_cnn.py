@@ -131,7 +131,7 @@ def test_generate_templates_dyadic():
     np.testing.assert_allclose(got.thresholds.numpy(),
                                np.asarray(want.thresholds), rtol=1e-6)
     assert not bool(got.valid[8, 0])
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="k-means"):
         ttemplates.generate_templates(t(feats), t(labels), 9, k=2)
 
 

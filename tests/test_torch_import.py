@@ -22,6 +22,16 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+slice3 = {"repro_torch.kernels.kd_loss.kd_loss", "repro_torch.kernels.kd_loss.ops",
+          "repro_torch.kernels.kd_loss.ref",
+          "repro_torch.kernels.flash_attention.flash_attention",
+          "repro_torch.kernels.flash_attention.ops",
+          "repro_torch.kernels.flash_attention.ref",
+          "repro_torch.models.layers", "repro_torch.core.distill",
+          "repro_torch.core.prune", "repro_torch.data.synthetic",
+          "repro_torch.data.pipeline", "repro_torch.optim.optimizers",
+          "repro_torch.train.cnn_trainer"}
+assert slice3 <= set(names), sorted(slice3 - set(names))
 import chip_smoke
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
@@ -35,7 +45,7 @@ def test_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", BLOCKED_IMPORT], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 36  # every module of both slices
+    assert int(out.stdout.strip()) >= 59  # every module of the three slices
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -80,6 +90,32 @@ def test_entry_points_need_the_card_or_an_explicit_cpu():
                      StudentConfig(filters=(2, 2, 2, 1)))
     svc = HybridService.from_spec(ServiceSpec(), device="cpu")
     assert svc.device == torch.device("cpu")
+
+
+def test_training_entry_points_need_the_card_or_an_explicit_cpu():
+    """The teacher, both trainers and the weight carrier resolve
+    ``device=None`` to the card, and raise without one."""
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.models.cnn import TeacherConfig, init_teacher
+    from repro_torch.train import cnn_trainer
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    cfg = TeacherConfig(in_channels=1, width=2, blocks_per_stage=1)
+    x = np.zeros((4, 32, 32, 1), np.float32)
+    y = np.zeros(4, np.int32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_teacher(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cnn_trainer.train_teacher(x, y, cfg, epochs=1, batch_size=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cnn_trainer.train_student(x, y)
+    teacher = init_teacher(torch.Generator().manual_seed(0), cfg,
+                           device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.teacher_from_numpy(convert.to_numpy(teacher))
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
