@@ -10,7 +10,11 @@ JAX:
  1. kernels   B1-B4 and B7a (`acam_match.cu`) against their plain PyTorch
               versions on the card, at the shapes the main paths give them
               plus ragged, empty-window, all-invalid, tie and flush-to-zero
-              probes; all bit-identical. B5, B6 and B7b
+              probes; all bit-identical. B2 also at its class-tile
+              boundaries: ties between duplicate templates on both sides of
+              a boundary, windows starting and ending on boundaries, C and
+              B not multiples of the tiles, K 1-4, N 64, 784 and 1000. B5,
+              B6 and B7b
               (`acam_similarity.cu`) likewise, on binary and dyadic windows
               at alpha 1.0 and 0.37 (bit-identical), at two B6 chunks, and
               on one non-dyadic real-window case (S and margin within
@@ -18,18 +22,23 @@ JAX:
               exceeds 1e-5). B8 (`kd_loss.cu`) within rel 1e-4, abs 1e-5
               at the trainer's (128, 10), the bench (64, 32000), (13, 5000),
               (3, 17) and (8, 152064), bf16 logits, a T/alpha sweep and
-              out-of-range labels. B9 (`flash_attention.cu`) within 2e-3 at
-              the JAX test shapes in f32, D = 96 and the (BH, S, D) face,
-              and within 2^-6 (at unit scale, relative above it) at the bench
-              shape (1, 1024, 8, 2, 64) bf16 causal; `ops.attention` against
-              `layers.chunked_attention` on the card. Times (CUDA events,
-              median of 60 after warm-up): the kernel, the plain version,
-              and a library yardstick where one exists (B1-B4: the bipolar
+              out-of-range labels. B9 (`flash_attention.cu`) within 2e-3 in
+              f32 (the FP32 route) at the JAX test shapes, D = 96 and the
+              (BH, S, D) face, and within 2^-6 (at unit scale, relative
+              above it) in bf16 and f16 (the tensor-core route) at every
+              head dim 32-128, GQA groups 1, 2 and 8, causal and not,
+              ragged and unequal Sq and Sk, the bench shape (1, 1024, 8, 2,
+              64) and the model shape (1, 4096, 16, 8, 128);
+              `ops.attention` against `layers.chunked_attention` on the
+              card. Times (CUDA events, median of 60 after warm-up): the
+              kernel and its library yardstick in turns (kernel, library,
+              library, kernel; each one's mean and both device times), the
+              plain version; the yardsticks: B1-B4 the bipolar
               `torch.matmul` score product alone, partial; B7a:
               `torch.addmm` of the bipolar operands, the whole count; B9:
               `scaled_dot_product_attention` with the kv heads expanded;
               B5, B6, B7b, B8: none, no PyTorch call computes Eq. 9-11 or
-              Eq. 1; B8 also times a partial `torch.logsumexp`).
+              Eq. 1; B8 also times a partial `torch.logsumexp`.
  2. paths     each main path driven through the entry points a user calls,
               with the launch counts set to 0 just before and read just
               after: `HybridClassifier.predict` (B1) at paper width (the
@@ -38,7 +47,8 @@ JAX:
               classes, 64 slots, tau 8 counts), the same service under
               ``serve_fusion="compose"`` (B4), and
               `MatchEngine.classify_features` on a bank past
-              `MAX_FUSED_ROWS` (B2). The served answers must equal the
+              `MAX_FUSED_ROWS` (B2, one launch, answers equal to the CPU
+              run's). The served answers must equal the
               compose tick's and those of the same service on the CPU,
               where each kernel runs its plain version. The similarity
               method (Eq. 9-11): `predict` with a similarity head (B5), the
@@ -157,6 +167,36 @@ def time_ms(fn, iters: int = ITERS) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time per call in microseconds: ``calls`` calls enqueued back to
+    back (no synchronisation between them), after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def interleaved(kernel, library, iters: int = ITERS) -> dict:
+    """A kernel and its library yardstick timed in turns (kernel, library,
+    library, kernel) with `time_ms`, then each traced once for its device
+    time and timed on the host alone (`host_us`): ms / library_ms are the
+    means of each one's two runs."""
+    k1 = time_ms(kernel, iters)
+    l1 = time_ms(library, iters)
+    l2 = time_ms(library, iters)
+    k2 = time_ms(kernel, iters)
+    return dict(ms=(k1 + k2) / 2, ms_runs=[k1, k2],
+                library_ms=(l1 + l2) / 2, library_ms_runs=[l1, l2],
+                library_device_ms=profile(library, reps=20)["device_ms"],
+                host_us=host_us(kernel), library_host_us=host_us(library))
 
 
 def profile(fn, reps: int = 1) -> dict:
@@ -300,6 +340,65 @@ def bound(name: str, b: int, c: int, k: int, n: int, t_rows: int):
             "bytes" if t_bytes >= t_ops else "operations", nbytes)
 
 
+def b2_tile_probes(device) -> int:
+    """B2 bit-identical to its plain version where its class tiles
+    (`acam_match.CLASS_TILE` classes by `QUERY_TILE` queries) could go
+    wrong: exact ties between duplicate templates on both sides of a tile
+    boundary, windows that start and end on boundaries, an all-invalid
+    class, C not a multiple of the class tile and B not one of the query
+    tile, for K 1-4 and N 64, 784 and 1000 (not a multiple of 32). Rows
+    1-10 share one query, which classes e - 1 and e of every boundary e
+    match exactly (count N), and their decisions are checked as well.
+    Returns the number of cases."""
+    import torch
+
+    from repro_torch.kernels.acam_match import acam_match as am
+
+    ct = am.CLASS_TILE
+    b, c = 2 * am.QUERY_TILE + 5, 1100
+    check(c % ct != 0 and b % am.QUERY_TILE != 0, "ragged probe shape")
+    edges = [ct, 2 * ct, 3 * ct, c - c % ct]  # 32, 64, 96, 1088
+    # row: (window, expected pred, expected margin or None)
+    rows = {1: ((0, c), ct - 1, 0.0), 2: ((ct, 2 * ct), ct, 0.0),
+            3: ((ct - 1, ct + 1), ct - 1, 0.0),
+            4: ((ct + 1, 2 * ct), 2 * ct - 1, None),
+            5: ((edges[3], c), edges[3], None), 6: ((ct, ct), 0, 0.0),
+            7: ((ct + 5, ct + 6), 0, 0.0),  # class ct + 5: all invalid
+            8: ((0, ct), ct - 1, None), 9: ((2 * ct, edges[3]), 2 * ct, 0.0),
+            10: ((edges[3] - 1, edges[3] + 1), edges[3] - 1, 0.0)}
+    cases = 0
+    for k in (1, 2, 3, 4):
+        for n in (64, 784, 1000):
+            x = case(700 + 10 * k + n, b, c, k, n, device)
+            x["f"][1:len(rows) + 1] = x["f"][1]
+            q1 = (x["f"][1] > x["thr"]).to(torch.float32)
+            for e in edges:
+                x["t"][e - 1] = q1
+                x["t"][e] = q1
+                x["valid"][e - 1] = True
+                x["valid"][e] = True
+            x["valid"][ct + 5] = False
+            for row, ((lo, hi), _, _) in rows.items():
+                x["lo"][row], x["hi"][row] = lo, hi
+            for row in range(len(rows) + 1, b):  # windows on tile edges
+                lo = edges[row % len(edges)] * (row % 2)
+                x["lo"][row] = lo
+                x["hi"][row] = min(c, lo + ct * (1 + row % 5))
+            wrapper, plain, args, kw = faces(x, c, k)[
+                "acam_match_classify_margins_chunked"]
+            got = wrapper(*args, **kw)
+            compare(f"B2 tile probe K={k} N={n}", got, plain(*args, **kw))
+            pred, margin = got[0].tolist(), got[2].tolist()
+            for row, (_, want_pred, want_margin) in rows.items():
+                check(pred[row] == want_pred and
+                      want_margin in (None, margin[row]),
+                      f"B2 tile probe K={k} N={n} row {row}: "
+                      f"{pred[row]}/{margin[row]}, expected "
+                      f"{want_pred}/{want_margin}")
+            cases += 1
+    return cases
+
+
 def kernel_phase(device) -> dict:
     import torch
 
@@ -340,9 +439,9 @@ def kernel_phase(device) -> dict:
                        "torch.matmul bipolar score product only (partial)")
         out[name] = dict(
             shape=dict(B=b, C=c, K=k, N=n), max_abs_err=err,
-            ms=time_ms(lambda: wrapper(*args, **kw)),
+            **interleaved(lambda: wrapper(*args, **kw), library[0]),
             plain_ms=time_ms(lambda: plain(*args, **kw)),
-            library_ms=time_ms(library[0]), library_call=library[1],
+            library_call=library[1],
             bound_ms=ms, bound_by=by, bound_bytes=nbytes,
             profile=profile(lambda: wrapper(*args, **kw), reps=20))
     for seed, (b, c, k, n) in enumerate(edge_shapes):
@@ -357,6 +456,8 @@ def kernel_phase(device) -> dict:
                 out[name]["max_abs_err"],
                 compare(f"{name} {b}x{c}x{k}x{n}", wrapper(*args, **kw),
                         plain(*args, **kw)))
+    out["acam_match_classify_margins_chunked"]["tile_probes"] = \
+        b2_tile_probes(device)
     # flush-to-zero probe: f one ulp above thr, at thr ~ 1 and at the
     # smallest normal (there (f - thr) is subnormal; FTZ would zero it)
     for thr_val in (1.0, float(np.finfo(np.float32).tiny)):
@@ -727,13 +828,16 @@ def fa_bound(b: int, s: int, h: int, kv: int, d: int, causal: bool, dtype):
 
 
 def fa_case(seed: int, b: int, s: int, h: int, kv: int, d: int, device,
-            dtype):
+            dtype, sk: int | None = None):
+    """q (B, S, H, D), k and v (B, Sk, KV, D) standard normal (Sk = S
+    unless given)."""
     import torch
 
     rng = np.random.default_rng(seed)
+    sk = sk or s
     return tuple(torch.as_tensor(rng.standard_normal(shape),
                                  dtype=torch.float32, device=device).to(dtype)
-                 for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+                 for shape in ((b, s, h, d), (b, sk, kv, d), (b, sk, kv, d)))
 
 
 def fa_compare(name: str, got, want, tol: float) -> float:
@@ -751,39 +855,105 @@ def fa_compare(name: str, got, want, tol: float) -> float:
     return float(diff.max())
 
 
-def fa_phase(device) -> dict:
-    """B9 at the JAX test shapes in f32 (2e-3), at the bench shape
-    (1, 1024, 8, 2, 64) bf16 causal (2^-6; the timed main path), D = 96, the
-    (BH, S, D) face, and `ops.attention` against `layers.chunked_attention`
-    on the card."""
+# (1, 4096, 16 heads, 8 kv heads, 128): the attention geometry of
+# src/repro/configs/qwen3_1_7b.py, bf16 causal, timed beside the bench shape
+FA_MODEL_SHAPE = (1, 4096, 16, 8, 128)
+
+
+def fa_sdpa(q, k, v):
+    """The yardstick: SDPA on (B, H, S, D) views with the kv heads expanded
+    beforehand (outside the timed call). Returns the timed call."""
     import torch
     import torch.nn.functional as F
+
+    g = q.shape[2] // k.shape[2]
+    qh, kh, vh = (x.permute(0, 2, 1, 3) for x in (
+        q, torch.repeat_interleave(k, g, dim=2),
+        torch.repeat_interleave(v, g, dim=2)))
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+
+
+def fa_timed(seed: int, shape: tuple, device, dtype) -> dict:
+    """One causal shape through `ops.attention`: held against the plain
+    version and SDPA, timed in turns with SDPA, traced, and its bound."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    b, s, h, kv, d = shape
+    q, k, v = fa_case(seed, b, s, h, kv, d, device, dtype)
+    ms, by, flops, nbytes = fa_bound(b, s, h, kv, d, True, dtype)
+    sdpa = fa_sdpa(q, k, v)
+
+    def kernel():
+        return fa_ops.attention(q, k, v, causal=True)
+
+    err = fa_compare(f"flash_attention {shape} causal", kernel(),
+                     fa.flash_attention_gqa_plain(q, k, v, causal=True),
+                     FA_TOL_BF16)
+    lib_diff = fa_compare(f"SDPA yardstick at {shape}",
+                          sdpa().permute(0, 2, 1, 3), kernel(), FA_TOL_BF16)
+    return dict(
+        shape=dict(B=b, S=s, H=h, KV=kv, D=d, causal=True,
+                   dtype=str(dtype).split(".")[1]),
+        route=fa.route(dtype, d), max_abs_err=err,
+        **interleaved(kernel, sdpa),
+        plain_ms=time_ms(lambda: fa.flash_attention_gqa_plain(
+            q, k, v, causal=True), 10),
+        library_call="torch.nn.functional.scaled_dot_product_attention, "
+                     "kv heads expanded outside the timed call",
+        library_max_abs_diff=lib_diff,
+        bound_ms=ms, bound_by=by, bound_flops=flops, bound_bytes=nbytes,
+        profile=profile(kernel, reps=20))
+
+
+def fa_phase(device) -> dict:
+    """B9 in f32 at the JAX test shapes, D = 96 and the (BH, S, D) face
+    (2e-3, the FP32 route); in bf16 and f16 (2^-6 at unit scale, relative
+    above it; the tensor cores) at every head dim 32-128, GQA groups 1, 2
+    and 8, causal and not, Sq and Sk not multiples of the 64-row tile and
+    unequal, small grids (the key-split kernel) and grids of more than two
+    blocks per SM; `ops.attention` against `layers.chunked_attention` on
+    the card; then the bench shape (1, 1024, 8, 2, 64) and the model shape
+    `FA_MODEL_SHAPE`, bf16 causal, timed in turns with SDPA."""
+    import torch
 
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models.layers import chunked_attention
 
-    f32, bf16 = torch.float32, torch.bfloat16
-    err = {"float32": 0.0, "bfloat16": 0.0}
-    bench = (1, 1024, 8, 2, 64, True, bf16)
-    cases = [(2, 200, 8, 2, 64, True, f32), (1, 128, 4, 4, 128, True, f32),
-             (2, 333, 6, 2, 64, False, f32), (1, 512, 2, 1, 32, True, f32),
-             (1, 70, 4, 2, 96, False, f32), (2, 200, 8, 2, 64, True, bf16),
-             bench]
-    for seed, (b, s, h, kv, d, causal, dt) in enumerate(cases):
-        q, k, v = fa_case(600 + seed, b, s, h, kv, d, device, dt)
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    err = {"float32": 0.0, "bfloat16": 0.0, "float16": 0.0}
+    # (b, sq, sk, h, kv, causal)
+    sweep = [(1, 130, 130, 8, 8, True), (2, 200, 200, 8, 4, False),
+             (1, 333, 333, 8, 1, True), (1, 190, 190, 4, 4, False),
+             (2, 257, 257, 8, 4, True), (1, 77, 77, 16, 2, False),
+             (1, 100, 333, 4, 2, False), (2, 333, 100, 16, 2, True),
+             (1, 70, 190, 8, 1, True),
+             (4, 600, 600, 8, 2, True), (3, 700, 500, 16, 8, False)]
+    cases = [(2, 200, 200, 8, 2, 64, True, f32),
+             (1, 128, 128, 4, 4, 128, True, f32),
+             (2, 333, 333, 6, 2, 64, False, f32),
+             (1, 512, 512, 2, 1, 32, True, f32),
+             (1, 70, 70, 4, 2, 96, False, f32)]
+    cases += [(b, sq, sk, h, kv, d, causal, dt) for dt in (bf16, f16)
+              for d in fa.HEAD_DIMS for b, sq, sk, h, kv, causal in sweep]
+    for seed, (b, sq, sk, h, kv, d, causal, dt) in enumerate(cases):
+        q, k, v = fa_case(600 + seed, b, sq, h, kv, d, device, dt, sk)
         tol = FA_TOL_F32 if dt == f32 else FA_TOL_BF16
         key = str(dt).split(".")[1]
         err[key] = max(err[key], fa_compare(
-            f"flash_attention {(b, s, h, kv, d, causal, key)}",
+            f"flash_attention {(b, sq, sk, h, kv, d, causal, key)}",
             fa.flash_attention_gqa(q, k, v, causal=causal),
             fa.flash_attention_gqa_plain(q, k, v, causal=causal), tol))
     # the (BH, S, D) face of the TPU kernel's signature
-    q, k, v = (x[:, :, 0].contiguous()
-               for x in fa_case(610, 3, 150, 1, 1, 64, device, f32))
-    err["float32"] = max(err["float32"], fa_compare(
-        "flash_attention (BH, S, D)", fa.flash_attention(q, k, v),
-        fa.flash_attention_plain(q, k, v), FA_TOL_F32))
+    for dt in (f32, bf16):
+        q, k, v = (x[:, :, 0].contiguous()
+                   for x in fa_case(610, 3, 150, 1, 1, 64, device, dt))
+        key = str(dt).split(".")[1]
+        err[key] = max(err[key], fa_compare(
+            f"flash_attention (BH, S, D) {key}", fa.flash_attention(q, k, v),
+            fa.flash_attention_plain(q, k, v),
+            FA_TOL_F32 if dt == f32 else FA_TOL_BF16))
     # the entry point against the model's chunked attention, on the card
     for seed, (b, s, h, kv, d, dt) in enumerate(
             [(2, 160, 4, 2, 32, f32), (1, 1024, 8, 2, 64, bf16)]):
@@ -792,33 +962,12 @@ def fa_phase(device) -> dict:
                    fa_ops.attention(q, k, v, causal=True),
                    chunked_attention(q, k, v, causal=True, q_chunk=256),
                    FA_TOL_F32 if dt == f32 else FA_TOL_BF16)
-    b, s, h, kv, d, causal, dt = bench
-    q, k, v = fa_case(606, b, s, h, kv, d, device, dt)
-    ms, by, flops, nbytes = fa_bound(b, s, h, kv, d, causal, dt)
-    # the yardstick: SDPA on (B, H, S, D) views with the kv heads expanded
-    # beforehand (timed call only)
-    qh, kh, vh = (x.permute(0, 2, 1, 3) for x in (
-        q, torch.repeat_interleave(k, h // kv, dim=2),
-        torch.repeat_interleave(v, h // kv, dim=2)))
-    sdpa = fa_compare("scaled_dot_product_attention yardstick",
-                      F.scaled_dot_product_attention(
-                          qh, kh, vh, is_causal=True).permute(0, 2, 1, 3),
-                      fa_ops.attention(q, k, v, causal=True), FA_TOL_BF16)
+    bench = fa_timed(606, (1, 1024, 8, 2, 64), device, bf16)
+    bench["max_abs_err"] = max(bench["max_abs_err"], err["bfloat16"])
     out = {"flash_attention": dict(
-        shape=dict(B=b, S=s, H=h, KV=kv, D=d, causal=causal,
-                   dtype="bfloat16"),
-        max_abs_err=err["bfloat16"], max_abs_err_f32=err["float32"],
-        ms=time_ms(lambda: fa_ops.attention(q, k, v, causal=True)),
-        plain_ms=time_ms(lambda: fa.flash_attention_gqa_plain(
-            q, k, v, causal=True)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True)),
-        library_call="torch.nn.functional.scaled_dot_product_attention, "
-                     "kv heads expanded outside the timed call",
-        library_max_abs_diff=sdpa,
-        bound_ms=ms, bound_by=by, bound_flops=flops, bound_bytes=nbytes,
-        profile=profile(lambda: fa_ops.attention(q, k, v, causal=True),
-                        reps=20))}
+        bench, max_abs_err_f32=err["float32"],
+        max_abs_err_f16=err["float16"], cases=len(cases) + 4,
+        model_shape=fa_timed(607, FA_MODEL_SHAPE, device, bf16))}
     fa.reset_launches()
     return out
 
@@ -1006,6 +1155,16 @@ def paths(device, cfg=None, per_class: int = 64) -> dict:
         chunk=layout.class_chunk(1152, 2, match.MAX_FUSED_ROWS))
     check(torch.equal(pred, want[0]) and torch.equal(per_class, want[1]),
           "big bank: kernel differs from the plain path")
+    check(counts["acam_match_classify_margins_chunked"] == 1,
+          f"big bank: {counts['acam_match_classify_margins_chunked']} B2 "
+          "launches for one classify_features call")
+    cpu_big = TemplateBank(*(v.cpu() for v in (x["t"], x["t"], x["t"],
+                                               x["valid"], x["thr"])))
+    cpu_pred, cpu_per_class = match.engine_for(
+        backend="kernel").classify_features(x["f"].cpu(), cpu_big)
+    check(torch.equal(pred.cpu(), cpu_pred) and
+          torch.equal(per_class.cpu(), cpu_per_class),
+          "big bank: the card and the CPU answer differently")
     report["big_bank"] = dict(
         launches=counts, wall_s=wall,
         profile=profile(lambda: eng.classify_features(x["f"], big), reps=20))
@@ -1510,6 +1669,11 @@ def main(argv: list[str]) -> int:
           f"with {st['branch_flips_card_vs_cpu']} branch flips")
     print(f"kd_loss bench 64x32000 (per call): "
           f"{json.dumps(kernels['kd_loss']['bench'])}")
+    print(f"flash_attention at {FA_MODEL_SHAPE} (per call): "
+          f"{json.dumps(kernels['flash_attention']['model_shape'])}")
+    print(f"acam_match_classify_margins_chunked tile probes: "
+          f"{kernels['acam_match_classify_margins_chunked']['tile_probes']} "
+          "cases bit-identical")
     check(set(kernels) == set(KERNELS), "every ported kernel measured")
 
     line = {"kernels": [
@@ -1520,7 +1684,10 @@ def main(argv: list[str]) -> int:
          "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": k["library_ms"],
          "library_call": k["library_call"],
-         "device_ms": k["profile"]["device_ms"], "shape": k["shape"]}
+         "device_ms": k["profile"]["device_ms"],
+         "library_device_ms": k.get("library_device_ms"),
+         "host_us": k.get("host_us"),
+         "library_host_us": k.get("library_host_us"), "shape": k["shape"]}
         for name, k in kernels.items()]}
     if report_path:
         report_path.parent.mkdir(parents=True, exist_ok=True)

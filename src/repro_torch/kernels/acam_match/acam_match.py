@@ -23,7 +23,10 @@ kernels.
     acam_match                            _kernel (raw (B, M) counts)       B7a
 
 Templates must be {0, 1} (every producer binarises them). The chunked faces
-accept ``chunk`` for signature parity; on the card it changes nothing.
+accept ``chunk`` for signature parity; on the card it changes nothing. B2
+has its own one-launch tiled kernel: it counts `QUERY_TILE` queries against
+`CLASS_TILE` classes at a time, and merges the tiles' window summaries
+exactly.
 """
 from __future__ import annotations
 
@@ -33,6 +36,12 @@ import functools
 import torch
 
 from repro_torch.kernels import _build, layout
+
+#: B2's tiles (``kCT``, ``kQT`` in csrc/acam_match.cu): a block counts
+#: QUERY_TILE queries against CLASS_TILE classes at a time, and the decision
+#: merges one window summary per class tile
+CLASS_TILE = 32
+QUERY_TILE = 8
 
 #: kernel launches per face since the last `reset_launches()`
 LAUNCHES = {"acam_match_classify": 0, "acam_match_classify_margins": 0,
@@ -129,8 +138,9 @@ _SIGNATURES = {
     # f, thr, t, valid, lo, hi, B, N, K, Cp, C, qbits, tbits, pred,
     # per_class, margin, stream
     "acam_match_classify_margins": [_P] * 6 + [_I] * 5 + [_P] * 6,
-    # as margins, with chunk after C
-    "acam_match_classify_margins_chunked": [_P] * 6 + [_I] * 6 + [_P] * 6,
+    # f, thr, t, valid, lo, hi, B, N, K, Cp, C, chunk, scratch, pred,
+    # per_class, margin, stream
+    "acam_match_classify_margins_chunked": [_P] * 6 + [_I] * 6 + [_P] * 5,
     # f, thr_table, thr_rows, slot, t, valid, lo, hi, tau, B, N, K, Cp, C,
     # chunk, qbits, tbits, pred, per_class, margin, esc, stream
     "acam_match_serve": [_P, _P, _I] + [_P] * 6 + [_I] * 6 + [_P] * 7,
@@ -284,30 +294,79 @@ def acam_match_classify_margins(features, thresholds, templates_kmajor,
     return o["pred"], o["per_class"], o["margin"]
 
 
+def b2_scratch_words(b: int, n: int, k: int, cp: int, c: int) -> int:
+    """int32 words of B2's scratch: the query bits (B, W), the template
+    bits (K * Cp, W), 3 words of window summary per (row, class tile) and
+    one arrival counter per query tile."""
+    w = -(-n // 32)
+    return ((b + k * cp) * w + 3 * b * -(-c // CLASS_TILE)
+            + -(-b // QUERY_TILE))
+
+
 def acam_match_classify_margins_chunked(features, thresholds, templates_kcp,
                                         valid_kcp, class_lo, class_hi,
                                         num_classes: int, *, chunk: int):
     """B4 over a (K, Cp, N) stack, the big-bank face (B2). ``chunk`` must
     divide Cp; the outputs do not depend on it."""
-    if features.device.type == "cpu":
+    device = features.device
+    if device.type == "cpu":
         return classify_margins_chunked_plain(
             features, thresholds, templates_kcp, valid_kcp, class_lo,
             class_hi, num_classes, chunk=chunk)
-    o = _kernel_operands(features, templates_kcp, num_classes)
-    _check_chunk(o["cp"], chunk)
-    _check("thresholds", thresholds, o["device"], torch.float32, (o["n"],))
-    _check("templates_kcp", templates_kcp, o["device"], torch.float32,
-           (o["k"], o["cp"], o["n"]))
-    _check("valid_kcp", valid_kcp, o["device"], torch.float32,
-           (o["k"], o["cp"]))
-    _check("class_lo", class_lo, o["device"], torch.int32, (o["b"],))
-    _check("class_hi", class_hi, o["device"], torch.int32, (o["b"],))
-    if o["b"]:
-        _run("acam_match_classify_margins_chunked", o["device"], features,
-             thresholds, templates_kcp, valid_kcp, class_lo, class_hi,
-             o["b"], o["n"], o["k"], o["cp"], num_classes, chunk, o["qbits"],
-             o["tbits"], o["pred"], o["per_class"], o["margin"])
-    return o["pred"], o["per_class"], o["margin"]
+    if device.type != "cuda":
+        raise ValueError(f"features on {device}: the kernels take CUDA or "
+                         "CPU tensors")
+    if features.dim() != 2:
+        raise ValueError(f"features must be (B, N), got "
+                         f"{tuple(features.shape)}")
+    b, n = features.shape
+    cp = layout.padded_classes(num_classes)
+    rows = templates_kcp.numel() // max(n, 1)
+    if n < 1 or rows % cp or rows == 0:
+        raise ValueError(f"templates {tuple(templates_kcp.shape)} are not a "
+                         f"K-major bank of {num_classes} classes over {n} "
+                         "features")
+    k = rows // cp
+    _check_chunk(cp, chunk)
+    f32, i32 = torch.float32, torch.int32
+    for name, x, dtype, shape in (
+            ("features", features, f32, (b, n)),
+            ("thresholds", thresholds, f32, (n,)),
+            ("templates_kcp", templates_kcp, f32, (k, cp, n)),
+            ("valid_kcp", valid_kcp, f32, (k, cp)),
+            ("class_lo", class_lo, i32, (b,)),
+            ("class_hi", class_hi, i32, (b,))):
+        if (x.dtype is not dtype or x.shape != shape or x.device != device
+                or not x.is_contiguous()):
+            _check(name, x, device, dtype, shape)  # raises, with the reason
+    # one allocation: pred, per_class and margin, then the scratch; the
+    # output views are taken after the launch, while the kernels run
+    out_words = b * (num_classes + 2)
+    buf = torch.empty(out_words + b2_scratch_words(b, n, k, cp, num_classes),
+                      dtype=i32, device=device)
+    if b:
+        base = buf.data_ptr()
+        args = (features.data_ptr(), thresholds.data_ptr(),
+                templates_kcp.data_ptr(), valid_kcp.data_ptr(),
+                class_lo.data_ptr(), class_hi.data_ptr(), b, n, k, cp,
+                num_classes, chunk, base + 4 * out_words, base,
+                base + 4 * b, base + 4 * b * (num_classes + 1),
+                _build.stream(device))
+        fn = _lib().acam_match_classify_margins_chunked
+        if device.index == torch.cuda.current_device():
+            rc = fn(*args)
+        else:
+            with torch.cuda.device(device):
+                rc = fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"acam_match_classify_margins_chunked: CUDA "
+                               f"error {rc} at launch")
+        LAUNCHES["acam_match_classify_margins_chunked"] += 1
+    fbuf = buf.view(f32)  # as_strided: the cheapest views to build
+    pred = buf.as_strided((b,), (1,), 0)
+    per_class = fbuf.as_strided((b, num_classes), (num_classes, 1), b)
+    margin = fbuf.as_strided((b,), (1,), b * (num_classes + 1))
+    return pred, per_class, margin
 
 
 def acam_match_serve(features, thr_table, tenant_slot, templates_kcp,

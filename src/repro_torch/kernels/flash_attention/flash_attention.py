@@ -17,8 +17,12 @@ v's dtype before P.V, f32 accumulation, l clamped at 1e-30, the output in
 q's dtype. The wrappers take the plain version only for tensors on the CPU;
 for CUDA tensors they launch the kernel or raise. ``block`` and
 ``interpret`` are the Pallas tiling arguments, accepted for signature
-parity and ignored (the kernel tiles 64 query by 64 key rows). Head dims
-32, 64, 96 and 128 are supported on the card.
+parity and ignored. Head dims 32, 64, 96 and 128 are supported on the card.
+
+`route` names the kernel a (dtype, head dim) runs on the card: bf16 and
+f16 on the tensor cores (``mma.sync``, f32 accumulation, 64 query rows by
+64 keys per step), f32 on FP32 FMAs (tensor cores would compute f32 as
+TF32, outside the 2e-3 the JAX package holds f32 attention to).
 """
 from __future__ import annotations
 
@@ -37,6 +41,22 @@ HEAD_DIMS = (32, 64, 96, 128)
 LAUNCHES = {"flash_attention": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+TENSOR_CORE, FP32 = "tensor_core", "fp32"
+
+
+def route(dtype: torch.dtype, d: int) -> str:
+    """The card's kernel for ``dtype`` operands of head dim ``d``:
+    `TENSOR_CORE` for bf16 and f16, `FP32` for f32. Raises for anything the
+    kernel does not take."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention supports head dims {HEAD_DIMS} "
+                         f"on the card, got {d}")
+    if dtype in (torch.bfloat16, torch.float16):
+        return TENSOR_CORE
+    if dtype == torch.float32:
+        return FP32
+    raise TypeError(f"q is {dtype}: q, k and v must share one of float32, "
+                    "bfloat16, float16")
 
 
 def reset_launches() -> None:
@@ -90,7 +110,8 @@ def _lib() -> ctypes.CDLL:
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool) -> torch.Tensor:
-    """Validate (B, Sq, H, D) / (B, Sk, KV, D) operands and launch."""
+    """Validate (B, Sq, H, D) / (B, Sk, KV, D) operands and launch the
+    kernel `route` names."""
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"q on {device}: the kernel takes CUDA or CPU "
@@ -100,33 +121,41 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got {tuple(q.shape)}, {tuple(k.shape)}")
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention supports head dims {HEAD_DIMS} "
-                         f"on the card, got {d}")
+    path = route(q.dtype, d)
     if kv < 1 or h % kv:
         raise ValueError(f"{h} query heads are not a multiple of {kv} kv "
                          "heads")
-    if b * h > 65535:
+    if path == FP32 and b * h > 65535:
         raise ValueError(f"B * H = {b * h} exceeds the grid limit 65535")
+    if path == TENSOR_CORE and -(-sq // 64) > 65535:
+        raise ValueError(f"{sq} query rows exceed the grid limit of 65535 "
+                         "tiles of 64")
     for name, x, shape in (("q", q, (b, sq, h, d)), ("k", k, (b, sk, kv, d)),
                            ("v", v, (b, sk, kv, d))):
-        if x.device != device or tuple(x.shape) != shape:
+        if x.device != device or x.shape != shape:
             raise ValueError(f"{name}: {tuple(x.shape)} on {x.device}, "
                              f"expected {shape} on {device}")
-        if x.dtype != q.dtype or x.dtype not in _DTYPES:
+        if x.dtype != q.dtype:
             raise TypeError(f"{name} is {x.dtype}: q, k and v must share one "
                             "of float32, bfloat16, float16")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if path == TENSOR_CORE and x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             "copies 16-byte chunks)")
     if sk < 1:
         raise ValueError("attention needs at least one key")
     out = torch.empty_like(q)
     if b and sq:
-        with torch.cuda.device(device):
-            rc = _lib().flash_attention(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
                 sq, sk, h, kv, d, _DTYPES[q.dtype], int(causal), d ** -0.5,
-                torch.cuda.current_stream(device).cuda_stream)
+                _build.stream(device))
+        fn = _lib().flash_attention
+        if device.index == torch.cuda.current_device():
+            rc = fn(*args)
+        else:
+            with torch.cuda.device(device):
+                rc = fn(*args)
         if rc != 0:
             raise RuntimeError(f"flash_attention: CUDA error {rc} at launch")
         LAUNCHES["flash_attention"] += 1

@@ -209,3 +209,69 @@ def test_raw_counts_wrapper_runs_plain_on_cpu():
         am.acam_match(t(x["f"]), t(x["thr"]), flat).numpy(),
         acam_match_ref(t(x["f"]), t(x["thr"]), flat).numpy())
     assert am.LAUNCHES["acam_match"] == 0
+
+
+def _tile_boundary_case(seed, b, c, k, n):
+    """Rows 1-10 share one query, which the duplicated templates of classes
+    e - 1 and e at every class-tile boundary e (multiples of B2's
+    `CLASS_TILE`) match exactly: ties split across a boundary, and windows
+    that start and end on boundaries. Returns (inputs, {row: (expected
+    pred, expected margin or None)})."""
+    ct = am.CLASS_TILE
+    edges = list(range(ct, c, ct))
+    last = edges[-1]
+    x = _case(seed, b, c, k, n)
+    x["f"][1:11] = x["f"][1]
+    q1 = (x["f"][1] > x["thr"]).astype(np.float32)
+    for e in edges:
+        x["templates"][e - 1:e + 1] = q1[None, None, :]
+        x["valid"][e - 1:e + 1] = True
+    x["valid"][ct + 5] = False  # an all-invalid class
+    rows = {1: ((0, c), ct - 1, 0.0), 2: ((ct, 2 * ct), ct, 0.0),
+            3: ((ct - 1, ct + 1), ct - 1, 0.0),
+            4: ((ct + 1, 2 * ct), 2 * ct - 1, None),
+            5: ((last, c), last, None), 6: ((ct, ct), 0, 0.0),
+            7: ((ct + 5, ct + 6), 0, 0.0), 8: ((0, ct), ct - 1, None),
+            9: ((2 * ct, last), 2 * ct, 0.0),
+            10: ((last - 1, last + 1), last - 1, 0.0)}
+    for row, ((lo, hi), _, _) in rows.items():
+        x["lo"][row], x["hi"][row] = lo, hi
+    for row in range(11, b):  # windows that start and end on tile edges
+        lo = edges[row % len(edges)] * (row % 2)
+        x["lo"][row], x["hi"][row] = lo, min(c, lo + ct * (1 + row % 5))
+    return x, {row: want for row, (_, *want) in rows.items()}
+
+
+# (b, c, k, n): the big-bank main path, then B not a multiple of the query
+# tile and C not one of the class tile at K 1-4 and N 64 / 1000
+@pytest.mark.parametrize("b,c,k,n", [(64, 1100, 2, 784), (37, 1100, 1, 64),
+                                     (37, 300, 3, 1000), (21, 100, 4, 64)])
+def test_chunked_bit_identical_at_class_tile_boundaries(b, c, k, n):
+    """B2's plain route against the JAX package's chunked classify (Pallas,
+    interpret mode), with ties and windows on the card kernel's class-tile
+    boundaries; the decisions also match the ties' expected winners."""
+    x, want = _tile_boundary_case(b + 3 * c + k, b, c, k, n)
+    j = {key: jnp.asarray(v) for key, v in x.items()}
+    p = {key: t(v) for key, v in x.items()}
+    jax_out = jops.classify_fused_margins_chunked(
+        j["f"], j["thr"], j["templates"], j["valid"], j["lo"], j["hi"],
+        max_rows=MAX_ROWS)
+    got = tops.classify_fused_margins_chunked(
+        p["f"], p["thr"], p["templates"], p["valid"], p["lo"], p["hi"],
+        max_rows=MAX_ROWS)
+    assert_equal_outputs(got, jax_out, names=("pred", "per_class", "margin"))
+    pred, margin = got[0].tolist(), got[2].tolist()
+    for row, (want_pred, want_margin) in want.items():
+        assert pred[row] == want_pred, (row, pred[row], want_pred)
+        assert want_margin is None or margin[row] == want_margin, row
+
+
+def test_b2_tiles_fit_the_bank_layout():
+    """The card kernel needs Cp to be a multiple of its class tile, and one
+    scratch buffer holds the bits, the tile summaries and the counters."""
+    assert layout.LANE % am.CLASS_TILE == 0
+    assert layout.padded_classes(1100) % am.CLASS_TILE == 0
+    # (64 + 2 * 1152) rows of 25 words, 64 rows x 35 tiles x 3 words, one
+    # counter per query tile
+    assert am.b2_scratch_words(64, 784, 2, 1152, 1100) == \
+        2368 * 25 + 64 * 35 * 3 + 64 // am.QUERY_TILE

@@ -161,3 +161,50 @@ def test_cpu_tensors_take_the_plain_version():
     np.testing.assert_array_equal(
         got.numpy(),
         tfa.flash_attention_gqa_plain(t(q), t(k), t(v), causal=True).numpy())
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    *((dt, d, tfa.TENSOR_CORE) for dt in (torch.bfloat16, torch.float16)
+      for d in (32, 64, 96, 128)),
+    *((torch.float32, d, tfa.FP32) for d in (32, 64, 96, 128))])
+def test_route_by_dtype_and_head_dim(dtype, d, route):
+    """bf16 and f16 run on the tensor cores, f32 on FP32 FMAs (tensor cores
+    would round f32 to TF32); decided on the CPU, nothing launched."""
+    tfa.reset_launches()
+    assert tfa.route(dtype, d) == route
+    assert tfa.LAUNCHES["flash_attention"] == 0
+
+
+def test_route_rejects_what_the_card_does_not_take():
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.route(torch.bfloat16, 80)
+    with pytest.raises(TypeError, match="float32, bfloat16, float16"):
+        tfa.route(torch.float64, 64)
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_model_shape_bound():
+    """The timed model shape is qwen3-1.7b's attention (16 query heads, 8
+    kv heads, head dim 128) at 4096 tokens; causal, it needs 4 * 128 flops
+    for each of 4096 * 4097 / 2 live pairs per head: 68.7 GFLOP, 0.0695 ms
+    at 989 TFLOP/s, well above its 50 MB over 3.35 TB/s."""
+    from repro.configs.qwen3_1_7b import CONFIG
+
+    cs = _chip_smoke()
+    b, s, h, kv, d = cs.FA_MODEL_SHAPE
+    assert (h, kv, d) == (CONFIG.n_heads, CONFIG.n_kv_heads, CONFIG.head_dim)
+    ms, by, flops, nbytes = cs.fa_bound(b, s, h, kv, d, True, torch.bfloat16)
+    assert flops == 4 * 128 * (4096 * 4097 // 2) * 16 == 68_736_253_952
+    assert nbytes == (2 * 4096 * 16 * 128 + 2 * 4096 * 8 * 128) * 2
+    assert by == "operations"
+    assert ms == pytest.approx(flops / 989e12 * 1e3) and 0.0695 < ms < 0.0696
