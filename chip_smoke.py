@@ -10,11 +10,19 @@ JAX:
  1. kernels   B1-B4 and B7a (`acam_match.cu`) against their plain PyTorch
               versions on the card, at the shapes the main paths give them
               plus ragged, empty-window, all-invalid, tie and flush-to-zero
-              probes; all bit-identical. B2 also at its class-tile
-              boundaries: ties between duplicate templates on both sides of
-              a boundary, windows starting and ending on boundaries, C and
-              B not multiples of the tiles, K 1-4, N 64, 784 and 1000. B5,
-              B6 and B7b
+              probes; all bit-identical, B1 and B3 under both designs of
+              the tiled kernel (local and cooperative). B1, B2 and B3 also
+              at their class-tile boundaries: ties between duplicate
+              templates on both sides of every boundary, windows starting
+              and ending on boundaries (B2, B3), an all-invalid class, C and
+              B not multiples of the tiles, K 1-4, N 64, 784 and 1000 (B2 on
+              1,100 classes, B1 and B3 on 100 and 130), the expected winners
+              checked by row; B3 with tenant slots outside the thresholds
+              table (-1, T, T + 5: zero thresholds) and -inf taus on padding
+              rows. One kernel name per B1, B2, B3 call in the profile; both
+              designs of B1 and B3 timed in turns, at the main shapes and on
+              16-, 32- and 64-row banks (where `LOCAL_ROWS` switches), and
+              B3's wrapper timed step by step on the host. B5, B6 and B7b
               (`acam_similarity.cu`) likewise, on binary and dyadic windows
               at alpha 1.0 and 0.37 (bit-identical), at two B6 chunks, and
               on one non-dyadic real-window case (S and margin within
@@ -84,6 +92,7 @@ or without the repository beside it, it exits non-zero before any result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -340,61 +349,142 @@ def bound(name: str, b: int, c: int, k: int, n: int, t_rows: int):
             "bytes" if t_bytes >= t_ops else "operations", nbytes)
 
 
-def b2_tile_probes(device) -> int:
-    """B2 bit-identical to its plain version where its class tiles
-    (`acam_match.CLASS_TILE` classes by `QUERY_TILE` queries) could go
-    wrong: exact ties between duplicate templates on both sides of a tile
-    boundary, windows that start and end on boundaries, an all-invalid
-    class, C not a multiple of the class tile and B not one of the query
-    tile, for K 1-4 and N 64, 784 and 1000 (not a multiple of 32). Rows
-    1-10 share one query, which classes e - 1 and e of every boundary e
-    match exactly (count N), and their decisions are checked as well.
-    Returns the number of cases."""
+#: the faces of the tiled kernel whose design `LOCAL_ROWS` picks
+DESIGN_FACES = ("acam_match_classify", "acam_match_serve")
+#: `acam_match.LOCAL_ROWS` forcing each design of the tiled kernel
+DESIGNS = {"local": 1 << 30, "cooperative": 0}
+
+
+@contextlib.contextmanager
+def design(name: str):
+    """B1 and B3 forced onto one design of the tiled kernel ("default":
+    the one `acam_match.LOCAL_ROWS` picks)."""
+    from repro_torch.kernels.acam_match import acam_match as am
+
+    keep = am.LOCAL_ROWS
+    am.LOCAL_ROWS = DESIGNS.get(name, keep)
+    try:
+        yield
+    finally:
+        am.LOCAL_ROWS = keep
+
+
+def tile_probes(device) -> dict:
+    """B1, B2 and B3 bit-identical to their plain versions where the tiled
+    kernel's class tiles (`acam_match.CLASS_TILE` classes by `QUERY_TILE`
+    queries) could go wrong: exact ties between duplicate templates on both
+    sides of every class-tile boundary, windows that start and end on
+    boundaries (B2, B3), an all-invalid class, C not a multiple of the class
+    tile and B not one of the query tile, for K 1-4 and N 64, 784 and 1000
+    (not a multiple of 32); B2 on a 1,100-class bank, B1 and B3 at C 100
+    and 130 (inside `MAX_FUSED_ROWS`) under both designs. Rows 1-10 share
+    one query (and, for B3, one slot), which classes e - 1 and e of every
+    boundary e match exactly (count N); their decisions are checked by row.
+    Returns the number of cases per face."""
     import torch
 
     from repro_torch.kernels.acam_match import acam_match as am
 
     ct = am.CLASS_TILE
-    b, c = 2 * am.QUERY_TILE + 5, 1100
-    check(c % ct != 0 and b % am.QUERY_TILE != 0, "ragged probe shape")
-    edges = [ct, 2 * ct, 3 * ct, c - c % ct]  # 32, 64, 96, 1088
-    # row: (window, expected pred, expected margin or None)
-    rows = {1: ((0, c), ct - 1, 0.0), 2: ((ct, 2 * ct), ct, 0.0),
-            3: ((ct - 1, ct + 1), ct - 1, 0.0),
-            4: ((ct + 1, 2 * ct), 2 * ct - 1, None),
-            5: ((edges[3], c), edges[3], None), 6: ((ct, ct), 0, 0.0),
-            7: ((ct + 5, ct + 6), 0, 0.0),  # class ct + 5: all invalid
-            8: ((0, ct), ct - 1, None), 9: ((2 * ct, edges[3]), 2 * ct, 0.0),
-            10: ((edges[3] - 1, edges[3] + 1), edges[3] - 1, 0.0)}
-    cases = 0
-    for k in (1, 2, 3, 4):
-        for n in (64, 784, 1000):
-            x = case(700 + 10 * k + n, b, c, k, n, device)
-            x["f"][1:len(rows) + 1] = x["f"][1]
-            q1 = (x["f"][1] > x["thr"]).to(torch.float32)
-            for e in edges:
-                x["t"][e - 1] = q1
-                x["t"][e] = q1
-                x["valid"][e - 1] = True
-                x["valid"][e] = True
-            x["valid"][ct + 5] = False
-            for row, ((lo, hi), _, _) in rows.items():
-                x["lo"][row], x["hi"][row] = lo, hi
-            for row in range(len(rows) + 1, b):  # windows on tile edges
-                lo = edges[row % len(edges)] * (row % 2)
-                x["lo"][row] = lo
-                x["hi"][row] = min(c, lo + ct * (1 + row % 5))
-            wrapper, plain, args, kw = faces(x, c, k)[
-                "acam_match_classify_margins_chunked"]
-            got = wrapper(*args, **kw)
-            compare(f"B2 tile probe K={k} N={n}", got, plain(*args, **kw))
-            pred, margin = got[0].tolist(), got[2].tolist()
-            for row, (_, want_pred, want_margin) in rows.items():
-                check(pred[row] == want_pred and
-                      want_margin in (None, margin[row]),
-                      f"B2 tile probe K={k} N={n} row {row}: "
-                      f"{pred[row]}/{margin[row]}, expected "
-                      f"{want_pred}/{want_margin}")
+    b = 2 * am.QUERY_TILE + 5
+    check(b % am.QUERY_TILE != 0, "ragged probe batch")
+    runs = [("acam_match_classify_margins_chunked", 1100, "default")]
+    runs += [(face, c, how) for face in DESIGN_FACES for c in (100, 130)
+             for how in DESIGNS]
+    cases = {}
+    for name, c, how in runs:
+        check(c % ct != 0, "ragged probe bank")
+        edges = list(range(ct, c, ct))
+        last = edges[-1]
+        # row: (window, expected pred, expected margin or None)
+        rows = {1: ((0, c), ct - 1, 0.0), 2: ((ct, 2 * ct), ct, 0.0),
+                3: ((ct - 1, ct + 1), ct - 1, 0.0),
+                4: ((ct + 1, 2 * ct), 2 * ct - 1, None),
+                5: ((last, c), last, None), 6: ((ct, ct), 0, 0.0),
+                7: ((ct + 5, ct + 6), 0, 0.0),  # class ct + 5: all invalid
+                8: ((0, ct), ct - 1, None), 9: ((2 * ct, last), 2 * ct, 0.0),
+                10: ((last - 1, last + 1), last - 1, 0.0)}
+        for k in (1, 2, 3, 4):
+            for n in (64, 784, 1000):
+                x = case(700 + 10 * k + n + c, b, c, k, n, device)
+                x["f"][1:len(rows) + 1] = x["f"][1]
+                x["slot"][1:len(rows) + 1] = 0
+                x["table"][0] = x["thr"]
+                q1 = (x["f"][1] > x["thr"]).to(torch.float32)
+                for e in edges:
+                    x["t"][e - 1] = q1
+                    x["t"][e] = q1
+                    x["valid"][e - 1] = True
+                    x["valid"][e] = True
+                x["valid"][ct + 5] = False
+                for row, ((lo, hi), _, _) in rows.items():
+                    x["lo"][row], x["hi"][row] = lo, hi
+                for row in range(len(rows) + 1, b):  # windows on tile edges
+                    lo = edges[row % len(edges)] * (row % 2)
+                    x["lo"][row] = lo
+                    x["hi"][row] = min(c, lo + ct * (1 + row % 5))
+                wrapper, plain, args, kw = faces(x, c, k)[name]
+                label = f"{name} tile probe ({how}) C={c} K={k} N={n}"
+                with design(how):
+                    got = wrapper(*args, **kw)
+                compare(label, got, plain(*args, **kw))
+                pred, per_class = got[0].tolist(), got[1]
+                margins = got[2].tolist() if len(got) > 2 else None
+                for row, (_, want_pred, want_margin) in rows.items():
+                    if name == "acam_match_classify":  # no windows
+                        want_pred, want_margin = ct - 1, None
+                        check(bool((per_class[row, [e - 1 for e in edges]
+                                              + edges] == n).all())
+                              and per_class[row, ct + 5] == -np.inf,
+                              f"{label} row {row}: tie classes not N")
+                    margin = margins[row] if margins else None
+                    check(pred[row] == want_pred and
+                          want_margin in (None, margin),
+                          f"{label} row {row}: {pred[row]}/{margin}, "
+                          f"expected {want_pred}/{want_margin}")
+                cases[name] = cases.get(name, 0) + 1
+    return cases
+
+
+def slot_probes(device) -> int:
+    """B3 with tenant slots outside the thresholds table (-1, T, T + 5: zero
+    thresholds, as the TPU kernel's one-hot select reads), taus straddling
+    every margin and -inf on padding rows, under both designs at the serve
+    tick's bank and a one-tile bank. Bit-identical to the plain version;
+    out-of-table rows count f > 0, padding rows never escalate. Returns the
+    number of cases."""
+    import torch
+
+    from repro_torch.kernels import layout
+    from repro_torch.kernels.acam_match import acam_match as am
+
+    t_rows, cases = 8, 0
+    for b, c, k in ((64, 128, 2), (21, 10, 1)):
+        x = case(900 + c, b, c, k, N, device, t_rows=t_rows)
+        out_of_table = torch.arange(b, device=device) % 4 == 1
+        x["slot"][out_of_table] = torch.tensor(
+            [-1, t_rows, t_rows + 5], dtype=torch.int32,
+            device=device).repeat(b)[:int(out_of_table.sum())]
+        wrapper, plain, args, kw = faces(x, c, k)["acam_match_serve"]
+        args = list(args)
+        padding = torch.arange(b, device=device) >= b - 5
+        args[7] = torch.where(padding, float("-inf"), args[7])
+        want = plain(*args, **kw)
+        zero_thr = am.classify_plain(
+            x["f"], torch.zeros(N, device=device),
+            layout.flatten_kmajor(x["t"], c), layout.valid_kmajor(
+                x["valid"], c), c)[1]
+        for how in DESIGNS:
+            label = f"acam_match_serve slot probe ({how}) C={c}"
+            with design(how):
+                got = wrapper(*args, **kw)
+            compare(label, got, want)
+            check(torch.equal(got[1][out_of_table], zero_thr[out_of_table]),
+                  f"{label}: an out-of-table slot did not read zeros")
+            check(not bool(got[3][padding].any()),
+                  f"{label}: a padding row escalated")
+            check(bool(got[3].any()) and not bool(got[3].all()),
+                  f"{label}: taus straddle the margins")
             cases += 1
     return cases
 
@@ -444,6 +534,26 @@ def kernel_phase(device) -> dict:
             library_call=library[1],
             bound_ms=ms, bound_by=by, bound_bytes=nbytes,
             profile=profile(lambda: wrapper(*args, **kw), reps=20))
+        if name in DESIGN_FACES or name.endswith("_chunked"):
+            kernels_seen = out[name]["profile"]["by_kernel"]
+            check(len(kernels_seen) == 1, f"{name}: one kernel per call, "
+                  f"the profile shows {list(kernels_seen)}")
+        if name in DESIGN_FACES:
+            out[name]["design"] = ("local" if k * c <= am.LOCAL_ROWS
+                                   else "cooperative")
+            out[name]["designs"] = design_times(wrapper, plain, args, kw,
+                                                name)
+        if name == "acam_match_serve":
+            out[name]["host_steps"] = host_steps(x, b, c, k, n, library[0])
+    # both designs where `LOCAL_ROWS` puts the crossover: banks of 16, 32
+    # and 64 template rows (K * C) at the predict shape
+    for name, (b, c, k, n) in (("acam_match_classify", (256, 16, 1, N)),
+                               ("acam_match_classify", (256, 32, 1, N)),
+                               ("acam_match_classify", (256, 32, 2, N))):
+        x = case(50 + c * k, b, c, k, n, device)
+        wrapper, plain, args, kw = faces(x, c, k)[name]
+        out[name].setdefault("crossover", {})[f"{k}x{c}"] = design_times(
+            wrapper, plain, args, kw, f"{name} {b}x{c}x{k}x{n}")
     for seed, (b, c, k, n) in enumerate(edge_shapes):
         x = case(100 + seed, b, c, k, n, device)
         # duplicate templates: exact ties resolve to the lowest class
@@ -452,12 +562,16 @@ def kernel_phase(device) -> dict:
             x["valid"][1] = x["valid"][0]
             x["valid"][2] = False  # an all-invalid class
         for name, (wrapper, plain, args, kw) in faces(x, c, k).items():
-            out[name]["max_abs_err"] = max(
-                out[name]["max_abs_err"],
-                compare(f"{name} {b}x{c}x{k}x{n}", wrapper(*args, **kw),
-                        plain(*args, **kw)))
-    out["acam_match_classify_margins_chunked"]["tile_probes"] = \
-        b2_tile_probes(device)
+            for how in DESIGNS if name in DESIGN_FACES else ["default"]:
+                with design(how):
+                    got = wrapper(*args, **kw)
+                out[name]["max_abs_err"] = max(
+                    out[name]["max_abs_err"],
+                    compare(f"{name} {b}x{c}x{k}x{n} ({how})", got,
+                            plain(*args, **kw)))
+    for name, count in tile_probes(device).items():
+        out[name]["tile_probes"] = count
+    out["acam_match_serve"]["slot_probes"] = slot_probes(device)
     # flush-to-zero probe: f one ulp above thr, at thr ~ 1 and at the
     # smallest normal (there (f - thr) is subnormal; FTZ would zero it)
     for thr_val in (1.0, float(np.finfo(np.float32).tiny)):
@@ -471,12 +585,88 @@ def kernel_phase(device) -> dict:
         x["slot"].zero_()
         x["t"].fill_(1.0)
         for name, (wrapper, plain, args, kw) in faces(x, c, k).items():
-            got = wrapper(*args, **kw)
-            compare(f"{name} ftz probe thr={thr_val}", got, plain(*args, **kw))
-            best = got[1 if len(got) > 1 else 0].max(dim=1).values
-            check(bool((best == n).all()), f"{name} flushed a subnormal "
-                  f"difference at thr={thr_val}")
+            for how in DESIGNS if name in DESIGN_FACES else ["default"]:
+                with design(how):
+                    got = wrapper(*args, **kw)
+                label = f"{name} ftz probe thr={thr_val} ({how})"
+                compare(label, got, plain(*args, **kw))
+                best = got[1 if len(got) > 1 else 0].max(dim=1).values
+                check(bool((best == n).all()),
+                      f"{label}: flushed a subnormal difference")
     am.reset_launches()
+    return out
+
+
+def host_steps(x: dict, b: int, c: int, k: int, n: int, library) -> dict:
+    """Where B3's host time goes on one main-path call (`host_us` of each
+    step of its wrapper): the tensor checks, the layout and the one
+    allocation, the launch (pointers, ctypes call, driver), the output
+    views; beside the whole call and its library yardstick."""
+    import torch
+
+    from repro_torch.kernels import layout
+    from repro_torch.kernels.acam_match import acam_match as am
+
+    wrapper, _, args, kw = faces(x, c, k)["acam_match_serve"]
+    f, table, slot, t_kcp, v_kcp, lo, hi, tau, _ = args
+    device, f32, i32 = f.device, torch.float32, torch.int32
+    cp = layout.padded_classes(c)
+    specs = (("features", f, f32, (b, n)), ("thr_table", table, f32,
+                                             tuple(table.shape)),
+             ("tenant_slot", slot, i32, (b,)),
+             ("templates_kcp", t_kcp, f32, (k, cp, n)),
+             ("valid_kcp", v_kcp, f32, (k, cp)), ("class_lo", lo, i32, (b,)),
+             ("class_hi", hi, i32, (b,)), ("tau", tau, f32, (b,)))
+    lay = am.tiled_layout(b, c, margin=True,
+                          scratch=am._scratch(b, n, k, cp, c), escalate=True)
+    buf = torch.empty(lay.words, dtype=i32, device=device)
+    base = buf.data_ptr()
+
+    def launch():
+        am._launch("acam_match_serve", device, f.data_ptr(),
+                   table.data_ptr(), table.shape[0], slot.data_ptr(),
+                   t_kcp.data_ptr(), v_kcp.data_ptr(), lo.data_ptr(),
+                   hi.data_ptr(), tau.data_ptr(), b, n, k, cp, c, kw["chunk"],
+                   None if lay.scratch is None else base + lay.scratch, base,
+                   base + lay.per_class, base + lay.margin,
+                   base + lay.escalate)
+
+    steps = dict(
+        checks=host_us(lambda: (am._tiled_shape(f, t_kcp, c),
+                                am._require(device, specs))),
+        layout_and_allocation=host_us(lambda: torch.empty(
+            am.tiled_layout(b, c, margin=True,
+                            scratch=am._scratch(b, n, k, cp, c),
+                            escalate=True).words, dtype=i32, device=device)),
+        launch=host_us(launch),
+        views=host_us(lambda: am._outputs(buf, lay, b, c)),
+        call=host_us(lambda: wrapper(*args, **kw)),
+        library_call=host_us(library))
+    am.reset_launches()
+    return steps
+
+
+def design_times(wrapper, plain, args, kw, name: str) -> dict:
+    """Both designs of the tiled kernel on one face's main-path call, in
+    turns (local, cooperative, cooperative, local): bit-identical to the
+    plain version, then call time (mean of the two runs), device time and
+    host time of each."""
+    want = plain(*args, **kw)
+
+    def call():
+        return wrapper(*args, **kw)
+
+    runs = {}
+    for how in ("local", "cooperative", "cooperative", "local"):
+        with design(how):
+            compare(f"{name} ({how} design)", call(), want)
+            runs.setdefault(how, []).append(time_ms(call))
+    out = {}
+    for how, ms in runs.items():
+        with design(how):
+            out[how] = dict(ms=sum(ms) / 2, ms_runs=ms,
+                            device_ms=profile(call, reps=20)["device_ms"],
+                            host_us=host_us(call))
     return out
 
 
@@ -1671,9 +1861,19 @@ def main(argv: list[str]) -> int:
           f"{json.dumps(kernels['kd_loss']['bench'])}")
     print(f"flash_attention at {FA_MODEL_SHAPE} (per call): "
           f"{json.dumps(kernels['flash_attention']['model_shape'])}")
-    print(f"acam_match_classify_margins_chunked tile probes: "
-          f"{kernels['acam_match_classify_margins_chunked']['tile_probes']} "
-          "cases bit-identical")
+    for name in ("acam_match_classify", "acam_match_classify_margins_chunked",
+                 "acam_match_serve"):
+        print(f"{name} tile probes: {kernels[name]['tile_probes']} cases "
+              "bit-identical")
+    print(f"acam_match_serve slot probes: "
+          f"{kernels['acam_match_serve']['slot_probes']} cases bit-identical")
+    for name in DESIGN_FACES:
+        print(f"{name} designs ({kernels[name]['design']} taken): "
+              f"{json.dumps(kernels[name]['designs'])}")
+    print("acam_match_classify designs by bank (K x C): "
+          f"{json.dumps(kernels['acam_match_classify']['crossover'])}")
+    print("acam_match_serve host us per step: "
+          f"{json.dumps(kernels['acam_match_serve']['host_steps'])}")
     check(set(kernels) == set(KERNELS), "every ported kernel measured")
 
     line = {"kernels": [

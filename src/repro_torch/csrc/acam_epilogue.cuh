@@ -70,14 +70,22 @@ __device__ __forceinline__ Top top_warp_merge(Top top) {
 // Write one row's decision: pred, the margin min(top1 - top2, cap) and the
 // cascade's escalation bit margin < tau (margin and esc may be null).
 __device__ __forceinline__ void top_finish(const Top& top, float cap,
-                                           const float* tau, int b,
-                                           int* pred, float* margin,
+                                           float tau_b, int b, int* pred,
+                                           float* margin,
                                            unsigned char* esc) {
   const bool finite = top.t1 > -CUDART_INF_F;
   const float m = finite ? top.t1 - fmaxf(top.t2, top.t1 - cap) : 0.0f;
   pred[b] = finite ? top.i1 : 0;
   if (margin) margin[b] = m;
-  if (esc) esc[b] = m < tau[b];
+  if (esc) esc[b] = m < tau_b;
+}
+
+// The same with row b's tau read here (tau may be null when esc is).
+__device__ __forceinline__ void top_finish(const Top& top, float cap,
+                                           const float* tau, int b,
+                                           int* pred, float* margin,
+                                           unsigned char* esc) {
+  top_finish(top, cap, esc ? tau[b] : 0.0f, b, pred, margin, esc);
 }
 
 }  // namespace acam

@@ -10,44 +10,57 @@
 //   acam_match_classify_margins_chunked  (_classify_margins_chunked_kernel) B2
 //   acam_match_serve                     (_serve_kernel)                    B3
 //   acam_match                           (_kernel)                          B7a
-// B1, B3, B4 and B7a share one design (one C entry each):
 //
-//   pack_kernel    binarise every query row (f > thr, or for the serve tick
-//                  (f - thr_table[slot]) > 0 with a direct indexed load of
-//                  the slot's threshold row) and every template row
-//                  (t != 0) into 32-bit words, one thread per word.
+// B1, B2 and B3 are one launch each of the tiled design. A warp counts one
+// query row against a tile of kCT = 32 classes, one lane per class:
+// N - sum_w popc(q_w ^ t_w) in int32 over bits staged in shared memory,
+// the max over K (invalid rows -inf), per_class written; the warp reduces
+// its window's classes to one acam::Top (best, its class, runner-up),
+// which merges exactly in any order, so ties go to the lowest class across
+// tiles too. Queries binarise as f > thr (B1, B2) or, for the serve tick,
+// (f - thr_table[slot]) > 0, a slot outside the table reading zero
+// thresholds; templates as t != 0. One warp binarises a row: lane j reads
+// feature 32 w + j, one coalesced 128-byte load per word, and
+// __ballot_sync forms word w.
+//
+//   big_bank_kernel  B2: one cooperative launch. Pack the
+//                    query rows and the valid template rows once into
+//                    row-major bit scratch (block 0 zeroes the arrival
+//                    counters); grid sync; blocks walk (class tile, 8-query
+//                    tile) items; the last class tile of a query tile to
+//                    arrive (an atomic counter) merges its rows' summaries
+//                    and writes pred and margin = min(top1 - top2, N).
+//   tiled_kernel     B1 and B3. An item is gq query rows x gc class tiles
+//                    (gc the power of two up to 8 that covers the bank, gq
+//                    the warps left): a block merges its gc tiles'
+//                    summaries itself, so no counter is needed up to 8
+//                    tiles (256 classes). Staging loads of a round are all
+//                    in flight before the first store; pred, margin and
+//                    escalate = margin < tau are written by the block.
+//                    Two designs, picked by the wrapper (LOCAL_ROWS):
+//     cooperative    B2's pack and grid sync, then the items stage bits
+//                    through L2 (__ldcg: other SMs wrote them); past 8
+//                    tiles the last group to arrive merges (B2's counters).
+//     local          a plain launch, no scratch: one block per 4 query rows
+//                    binarises its queries and the bank's rows straight
+//                    into shared memory (bank rows on the warps that stage
+//                    no query). It reads the bank once per block, so it
+//                    suits small banks (predict's 10 classes), and it needs
+//                    neither a grid sync nor a counter.
+//
+// B4 and B7a keep the first design (one C entry each, two launches):
+//
+//   pack_kernel    binarise every query row (f > thr) and every template
+//                  row (t != 0) into 32-bit words, one thread per word.
 //                  Queries land row-major (B, W), templates word-major
 //                  (W, K * Cp) so a warp's lanes read neighbouring rows.
 //   select_kernel  one warp per query row, lanes over classes: match count
-//                  N - sum_w popc(q_w ^ t_w) (exact in int32), invalid rows
-//                  -inf, max over K, per-class scores written out, then the
-//                  windowed (top1, argmax, runner-up) merged across lanes
-//                  with shuffles; lane 0 writes pred, margin = min(top1 -
-//                  top2, cap) and escalate = margin < tau.
+//                  (exact in int32), invalid rows -inf, max over K,
+//                  per-class scores written out, then the windowed (top1,
+//                  argmax, runner-up) merged across lanes with shuffles;
+//                  lane 0 writes pred and margin = min(top1 - top2, cap).
 //   counts_kernel  the raw (B, M) counts of B7a: one warp per query row,
-//                  lanes over template rows, N - sum_w popc(q_w ^ t_w)
-//                  written as f32. No mask, no max, no WTA.
-//
-// B2, the big-bank face, is one cooperative launch of its own kernel
-// (big_bank_kernel, the tiled design), on a grid of co-resident blocks:
-//
-//   pack           one warp per row: lane j reads feature 32 w + j, a
-//                  coalesced 128-byte load per word (32 words in flight per
-//                  lane), and __ballot_sync forms word w. Queries and
-//                  templates land row-major ((B, W) and (K * Cp, W));
-//                  padded class rows and invalid rows are neither read nor
-//                  written. Then the grid synchronises.
-//   count          blocks walk (class tile of kCT = 32) x (query tile of
-//                  kQT = 8) items: an item stages its tile's bits (up to 4
-//                  K slices at once) in shared memory, one thread per
-//                  (query, class) counts N - sum popc(q ^ t), takes the max
-//                  over K (invalid rows -inf) and writes per_class, and each
-//                  warp (one query, the tile's 32 classes) reduces its
-//                  window's classes to one acam::Top in scratch.
-//   decide         the last item of a query tile to arrive (an atomic
-//                  counter, zeroed in the pack phase) merges each row's
-//                  tile summaries (top_merge is exact in any order) and
-//                  writes pred and margin = min(top1 - top2, N).
+//                  lanes over template rows, written as f32.
 //
 // Precondition: templates are {0, 1}. Every producer binarises them; the
 // TPU kernels' bipolar bf16 product equals the count only under it, and
@@ -55,33 +68,34 @@
 //
 // The windowed (top1, argmax, runner-up) epilogue is shared with the
 // similarity kernels (acam_epilogue.cuh, which states the semantics kept
-// exactly); here the margin is clamped at cap = N.
+// exactly: ties to the lowest class across tiles too, invalid and padded
+// rows -inf, an empty or all-invalid window pred 0 and margin 0); here the
+// margin is clamped at cap = N.
 //
 // `chunk` (B2, B3) is accepted for signature parity with the TPU kernels,
 // whose VMEM budget walked the bank in class chunks. Outputs never depend
-// on it: B3 holds no bank in shared memory, and B2's class tiles are its
-// own (kCT), merged exactly.
+// on it: the class tiles here are the kernel's own (kCT), merged exactly.
 //
-// Bound on this card. At the serving tick (64 slots, N = 784, 128 classes,
-// K = 2) the call must move about 1.06 MB (f32 features, f32 {0,1}
-// templates, the thresholds table, per-class scores out): about 0.32 us at
-// 3.35 TB/s, far below the fixed cost of a launch. B1/B3/B4 make two
-// launches and read the f32 templates once (pack) and their 32x smaller
-// bits once per query row (select, from L2). B7a at B = 256, M = 10,
-// N = 784 moves about 0.84 MB: about 0.25 us, again far below a launch.
-//
-// B2 at B = 64, C = 1,100, K = 2, N = 784 must move 7.4 MB, almost all of
-// it the f32 bank: 2.2 us at 3.35 TB/s, while its 2 B K C N bit operations
-// take 0.11 us at 1,979 TOP/s, so it is bound by bytes. B1-B4's design
-// (one warp walking every class of a row: 16 blocks for 132 SMs and
-// ~1,750 dependent loads per lane; a pack with 32 cache lines per warp
-// load) is latency bound there, two orders above the bound. The tiled
-// design reads the bank once,
-// coalesced, with every SM busy in each phase (296 blocks, 280 count
-// items), and its count is a few hundred shared-memory popcounts per
-// thread. It is one launch because at this size the call is bound by its
-// host cost: a second launch costs more host time than the grid sync
-// costs device time.
+// Bounds on this card (bytes: each input read once, each output written
+// once, at 3.35 TB/s; the 2 B K C N bit operations at 1,979 TOP/s are far
+// smaller):
+//   B1 at predict (B 256, C 10, K 1, N 784): 0.85 MB, 0.25 us.
+//   B3 at the serve tick (B 64, C 128, K 2, N 784, 8 tenants): 1.06 MB,
+//      0.32 us.
+//   B2 on the big bank (B 64, C 1,100, K 2, N 784): 7.4 MB, 2.2 us.
+// B1's and B3's bounds lie below the fixed cost of a launch (about 1 us
+// of device time for an empty one), so their design is about launches and
+// dependent round trips: one launch per call (the first design made two,
+// with a pack of 32 cache lines per warp load and one warp walking every
+// class of a row), every load coalesced, each round's loads issued
+// together, and no cross-block merge at these banks. What is left is the
+// cooperative design's pack (two dependent rounds for the serve tick:
+// slot, then its threshold row), grid sync, L2 staging and a count bound
+// by popc (16 per clock per SM) on B3's 32 blocks; the local design's
+// binarising rounds on B1. B2 is bound by bytes: it reads its bank once,
+// coalesced, with every SM busy in each phase. At these sizes a call is
+// bound by its host cost: a second launch costs more host time than a
+// grid sync costs device time.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC. No --use_fast_math: it flushes subnormals to
@@ -101,10 +115,8 @@ constexpr int kSelectWarps = 4;
 
 // One thread per 32-bit word. Words [0, B * W) are query words (row-major),
 // words [B * W, (B + R) * W) template words (word-major: w * R + r).
-template <bool kServe>
 __global__ void pack_kernel(const float* __restrict__ f,
                             const float* __restrict__ thr,
-                            const int* __restrict__ slot, int thr_rows,
                             const float* __restrict__ t, int B, int N, int R,
                             int Cp, int C, int W, uint32_t* __restrict__ qbits,
                             uint32_t* __restrict__ tbits) {
@@ -115,28 +127,10 @@ __global__ void pack_kernel(const float* __restrict__ f,
   if (idx < q_words) {
     const int b = (int)(idx / W), w = (int)(idx % W);
     const float* row = f + (int64_t)b * N;
-    const float* th = thr;
-    bool zero_thr = false;
-    if (kServe) {
-      const int s = slot[b];
-      // a slot outside the table reads zero thresholds, as the TPU
-      // kernel's one-hot select does
-      zero_thr = s < 0 || s >= thr_rows;
-      th = thr + (int64_t)(zero_thr ? 0 : s) * N;
-    }
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const int i = w * 32 + j;
-      if (i < N) {
-        bool bit;
-        if (kServe) {
-          const float x = row[i] - (zero_thr ? 0.0f : th[i]);
-          bit = x > 0.0f;
-        } else {
-          bit = row[i] > th[i];
-        }
-        word |= (uint32_t)bit << j;
-      }
+      if (i < N) word |= (uint32_t)(row[i] > thr[i]) << j;
     }
     qbits[idx] = word;
   } else {
@@ -159,19 +153,16 @@ __global__ void select_kernel(const uint32_t* __restrict__ qbits,
                               const uint32_t* __restrict__ tbits,
                               const float* __restrict__ valid,
                               const int* __restrict__ lo,
-                              const int* __restrict__ hi,
-                              const float* __restrict__ tau, int B, int N,
+                              const int* __restrict__ hi, int B, int N,
                               int K, int Cp, int C, int W,
                               int* __restrict__ pred,
                               float* __restrict__ per_class,
-                              float* __restrict__ margin,
-                              unsigned char* __restrict__ esc) {
+                              float* __restrict__ margin) {
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kSelectWarps + (threadIdx.x >> 5);
   if (b >= B) return;  // whole warps leave together
   const int R = K * Cp;
-  const int wlo = lo ? max(lo[b], 0) : 0;
-  const int whi = hi ? min(hi[b], C) : C;
+  const int wlo = max(lo[b], 0), whi = min(hi[b], C);
   const uint32_t* q = qbits + (int64_t)b * W;
 
   acam::Top top = acam::top_empty();
@@ -190,7 +181,8 @@ __global__ void select_kernel(const uint32_t* __restrict__ qbits,
     if (c >= wlo && c < whi) acam::top_push(top, best, c);
   }
   top = acam::top_warp_merge(top);
-  if (lane == 0) acam::top_finish(top, (float)N, tau, b, pred, margin, esc);
+  if (lane == 0) acam::top_finish(top, (float)N, nullptr, b, pred, margin,
+                                  nullptr);
 }
 
 __global__ void counts_kernel(const uint32_t* __restrict__ qbits,
@@ -207,18 +199,27 @@ __global__ void counts_kernel(const uint32_t* __restrict__ qbits,
   }
 }
 
-// ---- B2: the tiled big-bank design ---------------------------------------
+// ---- B1, B2, B3: the tiled designs ---------------------------------------
 
-constexpr int kB2Warps = 8;  // warps per block; a tile's query rows
-constexpr int kQT = kB2Warps;
-constexpr int kCT = 32;  // classes per tile (one per lane)
-constexpr int kKS = 4;   // K slices staged per round
-constexpr int kWC = 64;  // words staged per round (2,048 features)
+constexpr int kTileWarps = 8;  // warps per block
+constexpr int kCT = 32;        // classes per tile (one per lane)
+// B2 (big_bank_kernel): items of kQT queries x one class tile, staged kKS
+// K slices of kWC words a round
+constexpr int kQT = kTileWarps;
+constexpr int kKS = 4;
+constexpr int kWC = 64;  // 2,048 features
+// B1, B3 (tiled_kernel): items of gq queries x gc class tiles (gq gc = 8
+// warps), staged kSlabs (class tile, K slice) slabs of kSW words a round
+constexpr int kSlabs = 8;
+constexpr int kSW = 32;  // 1,024 features
+constexpr int kSlabRows = kCT / kTileWarps;  // rows of a slab per warp
 
 // Words [w0, w0 + kU) of one row, one warp: lane j reads feature
 // 32 w + j, so each word is one coalesced 128-byte warp load, and the
-// ballot is the word; lane u keeps word w0 + u. Bits past N stay 0.
-template <int kU, bool kQuery>
+// ballot is the word; lane u keeps word w0 + u. Bits past N stay 0. A
+// query binarises as x > thr, or with kServe as (x - thr) > 0, a null
+// `thr` reading zeros; a template as x != 0.
+template <int kU, bool kQuery, bool kServe>
 __device__ __forceinline__ uint32_t pack_words(const float* __restrict__ src,
                                                const float* __restrict__ thr,
                                                int w0, int N, int lane) {
@@ -227,14 +228,16 @@ __device__ __forceinline__ uint32_t pack_words(const float* __restrict__ src,
   for (int u = 0; u < kU; ++u) {
     const int i = (w0 + u) * 32 + lane;
     x[u] = i < N ? src[i] : 0.0f;
-    if (kQuery) th[u] = i < N ? thr[i] : 0.0f;
+    if (kQuery) th[u] = i < N && (!kServe || thr) ? thr[i] : 0.0f;
   }
   uint32_t mine = 0;
 #pragma unroll
   for (int u = 0; u < kU; ++u) {
     const int i = (w0 + u) * 32 + lane;
-    const bool bit = i < N && (kQuery ? x[u] > th[kQuery ? u : 0]
-                                      : x[u] != 0.0f);
+    const float h = th[kQuery ? u : 0];
+    const bool bit =
+        i < N && (kQuery ? (kServe ? x[u] - h > 0.0f : x[u] > h)
+                         : x[u] != 0.0f);
     const uint32_t word = __ballot_sync(0xffffffffu, bit);
     if (lane == u) mine = word;
   }
@@ -248,64 +251,120 @@ __device__ __forceinline__ acam::Top load_top(const acam::Top* p) {
                    __ldcg(w + 2)};
 }
 
-// B2 in one cooperative launch, a grid of co-resident blocks in three
-// phases:
-//  1. pack: one warp per row (grid-stride) binarises the B query rows
-//     (f > thr) and the valid template rows (t != 0) into row-major bit
-//     words; padded class rows and invalid rows are skipped. Block 0 zeroes
-//     the arrival counters. Then the grid synchronises.
-//  2. count: blocks walk the (class tile of kCT, query tile of kQT) items;
-//     an item stages its tile's bits in shared memory (up to kKS K slices
-//     of kWC words a round), one thread per (query, class) counts
-//     N - sum popc(q ^ t), takes the max over K (invalid rows -inf) and
-//     writes per_class, and each warp reduces its window's classes to one
-//     acam::Top in `tops`.
-//  3. decide: the last item of a query tile to arrive (an atomic counter)
-//     merges each of its rows' tile summaries (exact in any order) and
-//     writes pred and margin = min(top1 - top2, N).
+// One call's operands. Null `lo`/`hi` mean the window [0, C); null
+// `margin`, `tau`/`esc` are not written. `slot` (the serve tick) picks each
+// row's threshold row of `thr` (thr_rows rows); otherwise `thr` is one row.
+// The scratch pointers are used by the cooperative designs only.
+struct TileArgs {
+  const float* f;
+  const float* thr;
+  const int* slot;
+  int thr_rows;
+  const float* t;
+  const float* valid;
+  const int* lo;
+  const int* hi;
+  const float* tau;
+  int B, N, K, Cp, C;
+  uint32_t* qbits;
+  uint32_t* tbits;
+  acam::Top* tops;
+  unsigned* arrivals;
+  int* pred;
+  float* per_class;
+  float* margin;
+  unsigned char* esc;
+};
+
+// Row b's threshold row: the one row, or its slot's (null for a slot
+// outside the table: zeros, as the TPU kernel's one-hot select reads).
+template <bool kServe>
+__device__ __forceinline__ const float* thr_row(const TileArgs& a, int b) {
+  if (!kServe) return a.thr;
+  const int s = a.slot[b];
+  return s >= 0 && s < a.thr_rows ? a.thr + (int64_t)s * a.N : nullptr;
+}
+
+// The cooperative pack phase: one warp per row, grid-stride, binarises the
+// B query rows (kQU words a round) and the valid template rows into
+// row-major bit words; padded class rows and invalid rows are never
+// counted, so never packed. Block 0 zeroes `counters` arrival counters.
+template <int kQU, bool kServe>
+__device__ __forceinline__ void pack_rows(const TileArgs& a, int counters) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int N = a.N, W = (N + 31) / 32, R = a.K * a.Cp;
+  if (blockIdx.x == 0)
+    for (int i = threadIdx.x; i < counters; i += blockDim.x) a.arrivals[i] = 0;
+  for (int row = blockIdx.x * kTileWarps + warp; row < a.B + R;
+       row += gridDim.x * kTileWarps) {
+    if (row < a.B) {
+      const float* src = a.f + (int64_t)row * N;
+      const float* th = thr_row<kServe>(a, row);
+      for (int w0 = 0; w0 < W; w0 += kQU) {
+        const uint32_t mine = pack_words<kQU, true, kServe>(src, th, w0, N,
+                                                            lane);
+        if (lane < kQU && w0 + lane < W)
+          a.qbits[(int64_t)row * W + w0 + lane] = mine;
+      }
+    } else {
+      const int r = row - a.B;
+      if (r % a.Cp >= a.C || !(a.valid[r] > 0.0f)) continue;
+      const float* src = a.t + (int64_t)r * N;
+      for (int w0 = 0; w0 < W; w0 += 32) {
+        const uint32_t mine =
+            pack_words<32, false, false>(src, nullptr, w0, N, lane);
+        if (w0 + lane < W) a.tbits[(int64_t)r * W + w0 + lane] = mine;
+      }
+    }
+  }
+}
+
+// The cooperative decide phase: the last of `parts` items of query group
+// `qg` to arrive (an atomic counter) merges the `parts` summaries of each
+// of its rows (exact in any order) and writes the decision; the warps with
+// `decides` set each decide their row b. Every thread of the block calls.
+__device__ __forceinline__ void decide_last(const TileArgs& a, int qg,
+                                            int parts, int b, bool decides,
+                                            bool* last) {
+  const int lane = threadIdx.x & 31;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    *last = atomicAdd(&a.arrivals[qg], 1u) == (unsigned)parts - 1;
+  __syncthreads();
+  if (*last && decides && b < a.B) {
+    __threadfence();
+    acam::Top top = acam::top_empty();
+    for (int i = lane; i < parts; i += 32)
+      top = acam::top_merge(top, load_top(a.tops + (int64_t)b * parts + i));
+    top = acam::top_warp_merge(top);
+    if (lane == 0)
+      acam::top_finish(top, (float)a.N, a.tau, b, a.pred, a.margin, a.esc);
+  }
+}
+
+// B2 in one cooperative launch (its count loop kept as its device time was
+// measured, one L2 round trip per staged row): pack; grid sync; blocks walk the (class tile of kCT, query
+// tile of kQT) items, stage the tile's bits (up to kKS K slices of kWC
+// words a round) in shared memory, one thread per (query, class) counts
+// N - sum popc(q ^ t), takes the max over K (invalid rows -inf) and writes
+// per_class, and each warp reduces its window's classes to one acam::Top
+// in `tops`; the last tile of a query tile to arrive decides its rows.
 // The bit words are read through L2 (__ldcg): other SMs wrote them.
-__global__ void __launch_bounds__(kB2Warps * 32)
-    big_bank_kernel(const float* __restrict__ f,
-                    const float* __restrict__ thr,
-                    const float* __restrict__ t,
-                    const float* __restrict__ valid,
-                    const int* __restrict__ lo, const int* __restrict__ hi,
-                    int B, int N, int K, int Cp, int C, uint32_t* qbits,
-                    uint32_t* tbits, acam::Top* tops, unsigned* arrivals,
-                    int* __restrict__ pred, float* __restrict__ per_class,
-                    float* __restrict__ margin) {
+__global__ void __launch_bounds__(kTileWarps * 32)
+    big_bank_kernel(const TileArgs a) {
   // rows padded to kWC + 1 words: lane c reads ts[.][c][w], conflict-free
   __shared__ uint32_t ts[kKS][kCT][kWC + 1];
   __shared__ uint32_t qs[kQT][kWC + 1];
   __shared__ bool last;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int W = (N + 31) / 32, R = K * Cp;
+  const int B = a.B, N = a.N, K = a.K, Cp = a.Cp, C = a.C;
+  const int W = (N + 31) / 32;
   const int tiles = (C + kCT - 1) / kCT, q_tiles = (B + kQT - 1) / kQT;
 
-  // 1. pack
-  if (blockIdx.x == 0)
-    for (int i = threadIdx.x; i < q_tiles; i += blockDim.x) arrivals[i] = 0;
-  for (int row = blockIdx.x * kB2Warps + warp; row < B + R;
-       row += gridDim.x * kB2Warps) {
-    if (row < B) {
-      const float* src = f + (int64_t)row * N;
-      for (int w0 = 0; w0 < W; w0 += 16) {
-        const uint32_t mine = pack_words<16, true>(src, thr, w0, N, lane);
-        if (lane < 16 && w0 + lane < W) qbits[(int64_t)row * W + w0 + lane] = mine;
-      }
-    } else {
-      const int r = row - B;
-      if (r % Cp >= C || !(valid[r] > 0.0f)) continue;  // never counted
-      const float* src = t + (int64_t)r * N;
-      for (int w0 = 0; w0 < W; w0 += 32) {
-        const uint32_t mine = pack_words<32, false>(src, nullptr, w0, N, lane);
-        if (w0 + lane < W) tbits[(int64_t)r * W + w0 + lane] = mine;
-      }
-    }
-  }
+  pack_rows<16, false>(a, q_tiles);
   cooperative_groups::this_grid().sync();
 
-  // 2. count, and 3. decide
   for (int item = blockIdx.x; item < tiles * q_tiles; item += gridDim.x) {
     const int c0 = (item % tiles) * kCT, qt = item / tiles;
     const int c = c0 + lane, b = qt * kQT + warp;
@@ -317,7 +376,7 @@ __global__ void __launch_bounds__(kB2Warps * 32)
 #pragma unroll
       for (int u = 0; u < kKS; ++u) {
         // Cp is a multiple of kCT: row (k0 + u) Cp + c stays in its slice
-        vf[u] = u < kn && c < C ? valid[(k0 + u) * Cp + c] : 0.0f;
+        vf[u] = u < kn && c < C ? a.valid[(k0 + u) * Cp + c] : 0.0f;
         diff[u] = 0;
       }
       for (int w0 = 0; w0 < W; w0 += kWC) {
@@ -329,9 +388,10 @@ __global__ void __launch_bounds__(kB2Warps * 32)
           for (int rr = warp; rr < kCT; rr += kQT)
             for (int w = lane; w < wn; w += 32)
               ts[u][rr][w] = __ldcg(
-                  tbits + (int64_t)((k0 + u) * Cp + c0 + rr) * W + w0 + w);
+                  a.tbits + (int64_t)((k0 + u) * Cp + c0 + rr) * W + w0 + w);
         for (int w = lane; w < wn; w += 32)
-          qs[warp][w] = b < B ? __ldcg(qbits + (int64_t)b * W + w0 + w) : 0u;
+          qs[warp][w] = b < B ? __ldcg(a.qbits + (int64_t)b * W + w0 + w)
+                              : 0u;
         __syncthreads();
 #pragma unroll
         for (int u = 0; u < kKS; ++u) {
@@ -350,76 +410,272 @@ __global__ void __launch_bounds__(kB2Warps * 32)
 
     acam::Top top = acam::top_empty();
     if (b < B) {
-      if (c < C) per_class[(int64_t)b * C + c] = best;
-      const int wlo = max(lo[b], 0), whi = min(hi[b], C);
+      if (c < C) a.per_class[(int64_t)b * C + c] = best;
+      const int wlo = max(a.lo[b], 0), whi = min(a.hi[b], C);
       if (c >= wlo && c < whi) acam::top_push(top, best, c);
     }
     top = acam::top_warp_merge(top);  // exact in any lane order
-    if (lane == 0 && b < B) tops[(int64_t)b * tiles + item % tiles] = top;
-
-    // the last class tile of this query tile to arrive decides its rows
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0)
-      last = atomicAdd(&arrivals[qt], 1u) == (unsigned)tiles - 1;
-    __syncthreads();
-    if (last && b < B) {
-      __threadfence();
-      top = acam::top_empty();
-      for (int i = lane; i < tiles; i += 32)
-        top = acam::top_merge(top, load_top(tops + (int64_t)b * tiles + i));
-      top = acam::top_warp_merge(top);
-      if (lane == 0) acam::top_finish(top, (float)N, nullptr, b, pred,
-                                      margin, nullptr);
-    }
+    if (lane == 0 && b < B) a.tops[(int64_t)b * tiles + item % tiles] = top;
+    decide_last(a, qt, tiles, b, true, &last);
   }
 }
 
-// Pack B query rows and R template rows (padded classes: r % Cp >= C).
-int pack(const float* f, const float* thr, const int* slot, int thr_rows,
-         const float* t, int B, int N, int R, int Cp, int C, uint32_t* qbits,
-         uint32_t* tbits, cudaStream_t stream) {
+// Class tiles per item of tiled_kernel: the power of two (1, 2, 4, 8) that
+// covers the bank's tiles, at most 8; and its query rows per item: the
+// warps left, but at most 4 in the local design, whose warps beyond them
+// binarise bank rows meanwhile.
+__host__ __device__ __forceinline__ int group_tiles(int tiles) {
+  return tiles > 4 ? 8 : tiles > 2 ? 4 : tiles;
+}
+__host__ __device__ __forceinline__ int group_rows(int gc, bool local) {
+  const int gq = kTileWarps / gc;
+  return local && gq > 4 ? 4 : gq;
+}
+
+// B1 and B3 in one launch (see the head of this file); kLocal picks the
+// design. An item is gq query rows x gc class tiles (group_rows,
+// group_tiles): warp (qi, gt) counts query qi of the item against the 32
+// classes of tile gt, one per lane, and a block merge of the gc warps'
+// summaries decides each row unless the bank has more than 8 tiles (the
+// cooperative decide then merges the groups). One block per SM is enough
+// (the grid is small): the full register file keeps the unrolled staging
+// and count out of local memory.
+template <bool kServe, bool kLocal>
+__global__ void __launch_bounds__(kTileWarps * 32, 1)
+    tiled_kernel(const TileArgs a) {
+  // slab rows padded to kSW + 1 words: lane c reads ts[.][c][w],
+  // conflict-free; the count reads all kSW words, zeros past N
+  __shared__ uint32_t ts[kSlabs][kCT][kSW + 1];
+  __shared__ uint32_t qs[kTileWarps][kSW + 1];
+  __shared__ acam::Top warp_top[kTileWarps];
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int B = a.B, N = a.N, K = a.K, Cp = a.Cp, C = a.C;
   const int W = (N + 31) / 32;
-  const int64_t words = (int64_t)(B + R) * W;
-  const int pack_blocks = (int)((words + kPackThreads - 1) / kPackThreads);
-  if (slot) {
-    pack_kernel<true><<<pack_blocks, kPackThreads, 0, stream>>>(
-        f, thr, slot, thr_rows, t, B, N, R, Cp, C, W, qbits, tbits);
-  } else {
-    pack_kernel<false><<<pack_blocks, kPackThreads, 0, stream>>>(
-        f, thr, nullptr, 0, t, B, N, R, Cp, C, W, qbits, tbits);
+  const int tiles = (C + kCT - 1) / kCT;
+  const int gc = group_tiles(tiles), gq = group_rows(gc, kLocal);
+  const int kr = kSlabs / gc, kr_log = 3 - (__ffs(gc) - 1);  // K slices
+  const int groups = (tiles + gc - 1) / gc, q_groups = (B + gq - 1) / gq;
+  const int qi = warp / gc, gt = warp % gc;
+
+  if (!kLocal) {
+    pack_rows<32, kServe>(a, q_groups);
+    cooperative_groups::this_grid().sync();
   }
+
+  const int items = kLocal ? q_groups : groups * q_groups;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int qg = kLocal ? item : item / groups;
+    const int g0 = kLocal ? 0 : item % groups, g1 = kLocal ? groups : g0 + 1;
+    const int b = qi < gq ? qg * gq + qi : B;  // this warp's row, if any
+    const int bs = qg * gq + warp;  // the row this warp stages (warp < gq)
+    const float* th =
+        kLocal && warp < gq && bs < B ? thr_row<kServe>(a, bs) : nullptr;
+    // the row's window and tau, read before the count needs them
+    const int wlo = b < B && a.lo ? max(a.lo[b], 0) : 0;
+    const int whi = b < B && a.hi ? min(a.hi[b], C) : C;
+    const float tau_b = b < B && a.esc ? a.tau[b] : 0.0f;
+    acam::Top top = acam::top_empty();
+    for (int g = g0; g < g1; ++g) {
+      const int c = (g * gc + gt) * kCT + lane;
+      float best = -CUDART_INF_F;
+      for (int k0 = 0; k0 < K; k0 += kr) {
+        float vf[kSlabs];  // this warp's slices, loaded before the staging
+        int diff[kSlabs];
+#pragma unroll
+        for (int u = 0; u < kSlabs; ++u) {
+          vf[u] = b < B && u < kr && k0 + u < K && c < C
+                      ? a.valid[(k0 + u) * Cp + c] : 0.0f;
+          diff[u] = 0;
+        }
+        for (int w0 = 0; w0 < W; w0 += kSW) {
+          const int wn = min(kSW, W - w0);
+          __syncthreads();  // the previous round (or item) is consumed
+          // slab s holds K slice k0 + (s % kr) of the group's tile s / kr;
+          // each warp stages every 8th row of each slab
+          if (kLocal) {
+            // binarise straight from the bank (padded classes and slices
+            // past K skipped: never counted)
+            for (int s = 0; s < kSlabs; ++s) {
+              const int u = s & (kr - 1);
+              const int c0 = (g * gc + (s >> kr_log)) * kCT;
+              if (k0 + u >= K) continue;
+              for (int j = 0; j < kSlabRows; ++j) {
+                // rows start on the warps that stage no query
+                const int rr = (warp + kTileWarps - gq) % kTileWarps +
+                               j * kTileWarps;
+                if (c0 + rr >= C) break;
+                ts[s][rr][lane] = pack_words<32, false, false>(
+                    a.t + (int64_t)((k0 + u) * Cp + c0 + rr) * N, nullptr,
+                    w0, N, lane);
+              }
+            }
+            // with one round of words qs keeps its rows across the groups
+            // and K rounds
+            if (warp < gq && (W > kSW || (g == g0 && k0 == 0)))
+              qs[warp][lane] = bs < B ? pack_words<32, true, kServe>(
+                                            a.f + (int64_t)bs * N, th, w0,
+                                            N, lane)
+                                      : 0u;
+          } else {
+            // every load of the round in flight before the first store
+            uint32_t v[kSlabs][kSlabRows];
+            const bool in_words = lane < wn;
+#pragma unroll
+            for (int s = 0; s < kSlabs; ++s) {
+              const int u = s & (kr - 1);
+              const int c0 = (g * gc + (s >> kr_log)) * kCT;
+#pragma unroll
+              for (int j = 0; j < kSlabRows; ++j) {
+                const int rr = warp + j * kTileWarps;
+                v[s][j] = in_words && k0 + u < K && c0 + rr < C
+                              ? __ldcg(a.tbits +
+                                       (int64_t)((k0 + u) * Cp + c0 + rr) *
+                                           W + w0 + lane)
+                              : 0u;
+              }
+            }
+            const uint32_t qv =
+                warp < gq && bs < B && in_words
+                    ? __ldcg(a.qbits + (int64_t)bs * W + w0 + lane) : 0u;
+#pragma unroll
+            for (int s = 0; s < kSlabs; ++s)
+#pragma unroll
+              for (int j = 0; j < kSlabRows; ++j)
+                ts[s][warp + j * kTileWarps][lane] = v[s][j];
+            if (warp < gq) qs[warp][lane] = qv;
+          }
+          __syncthreads();
+#pragma unroll
+          for (int u = 0; u < kSlabs; ++u) {
+            if (vf[u] > 0.0f) {
+              const uint32_t* t_row = ts[gt * kr + u][lane];
+              int d = 0;
+#pragma unroll
+              for (int w = 0; w < kSW; ++w) d += __popc(qs[qi][w] ^ t_row[w]);
+              diff[u] += d;
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kSlabs; ++u)
+          if (vf[u] > 0.0f) best = fmaxf(best, (float)(N - diff[u]));
+      }
+      if (b < B) {
+        if (c < C) a.per_class[(int64_t)b * C + c] = best;
+        // a lane's classes arrive in increasing order (top_push's
+        // precondition), also across the local design's groups
+        if (c >= wlo && c < whi) acam::top_push(top, best, c);
+      }
+    }
+    top = acam::top_warp_merge(top);  // exact in any lane order
+    if (gc > 1) {  // merge the item's gc class tiles of each row
+      if (lane == 0) warp_top[warp] = top;
+      __syncthreads();
+      if (gt == 0)
+        for (int j = 1; j < gc; ++j)
+          top = acam::top_merge(top, warp_top[warp + j]);
+    }
+    if (kLocal || groups == 1) {  // the item held every class of its rows
+      if (gt == 0 && lane == 0 && b < B)
+        acam::top_finish(top, (float)N, tau_b, b, a.pred, a.margin, a.esc);
+      continue;
+    }
+    if (gt == 0 && lane == 0 && b < B) a.tops[(int64_t)b * groups + g0] = top;
+    decide_last(a, qg, groups, b, gt == 0, &last);
+  }
+}
+
+// Blocks of `kernel` (kTileWarps warps) that fit on device `dev` at once,
+// cached per device in `cache`: the cap of a cooperative grid.
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, int dev, int* cache,
+                            int* resident) {
+  *resident = dev < 64 ? cache[dev] : 0;
+  if (*resident) return cudaSuccess;
+  int per_sm = 0, sms = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kTileWarps * 32, 0);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  *resident = per_sm * sms;
+  if (dev < 64) cache[dev] = *resident;
+  return cudaSuccess;
+}
+
+// One cooperative launch of `kernel` on min(want, co-resident) blocks,
+// `scratch` holding B * W query words, K * Cp * W template words,
+// B * ceil(C / 32) acam::Top summaries (3 words each) and the arrival
+// counters, in that order.
+template <typename Kernel>
+int launch_cooperative(Kernel kernel, int* cache, TileArgs a,
+                       uint32_t* scratch, int64_t want, cudaStream_t stream) {
+  int dev = 0, resident = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = resident_blocks(kernel, dev, cache, &resident);
+  if (err != cudaSuccess) return (int)err;
+  const int W = (a.N + 31) / 32, tiles = (a.C + kCT - 1) / kCT;
+  a.qbits = scratch;
+  a.tbits = a.qbits + (int64_t)a.B * W;
+  a.tops = reinterpret_cast<acam::Top*>(a.tbits + (int64_t)a.K * a.Cp * W);
+  a.arrivals = reinterpret_cast<unsigned*>(a.tops + (int64_t)a.B * tiles);
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel((const void*)kernel,
+                                    (int)min(want, (int64_t)resident),
+                                    kTileWarps * 32, args, 0, stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-int launch(const float* f, const float* thr, const int* slot, int thr_rows,
-           const float* t, const float* valid, const int* lo, const int* hi,
-           const float* tau, int B, int N, int K, int Cp, int C,
-           uint32_t* qbits, uint32_t* tbits, int* pred, float* per_class,
-           float* margin, unsigned char* esc, cudaStream_t stream) {
+// B1 or B3 in one launch: the local design when `scratch` is null (one
+// block per query group), else the cooperative one (B arrival counters).
+template <bool kServe>
+int launch_tiled(TileArgs a, uint32_t* scratch, cudaStream_t stream) {
+  static int resident_of[64] = {};  // co-resident blocks per device
+  if (a.Cp % kCT != 0) return (int)cudaErrorInvalidValue;
+  const int tiles = (a.C + kCT - 1) / kCT;
+  const int gc = group_tiles(tiles), gq = group_rows(gc, !scratch);
+  const int64_t q_groups = (a.B + gq - 1) / gq;
+  if (!scratch) {
+    tiled_kernel<kServe, true><<<(int)q_groups, kTileWarps * 32, 0,
+                                 stream>>>(a);
+    return (int)cudaGetLastError();
+  }
+  const int64_t want =
+      max((int64_t)(a.B + a.K * a.Cp + kTileWarps - 1) / kTileWarps,
+          (tiles + gc - 1) / gc * q_groups);
+  return launch_cooperative(tiled_kernel<kServe, false>, resident_of, a,
+                            scratch, want, stream);
+}
+
+// Pack B query rows and R template rows (padded classes: r % Cp >= C).
+int pack(const float* f, const float* thr, const float* t, int B, int N,
+         int R, int Cp, int C, uint32_t* qbits, uint32_t* tbits,
+         cudaStream_t stream) {
   const int W = (N + 31) / 32;
-  const int err = pack(f, thr, slot, thr_rows, t, B, N, K * Cp, Cp, C, qbits,
-                       tbits, stream);
-  if (err != 0) return err;
-  const int select_blocks = (B + kSelectWarps - 1) / kSelectWarps;
-  select_kernel<<<select_blocks, kSelectWarps * 32, 0, stream>>>(
-      qbits, tbits, valid, lo, hi, tau, B, N, K, Cp, C, W, pred, per_class,
-      margin, esc);
+  const int64_t words = (int64_t)(B + R) * W;
+  const int pack_blocks = (int)((words + kPackThreads - 1) / kPackThreads);
+  pack_kernel<<<pack_blocks, kPackThreads, 0, stream>>>(
+      f, thr, t, B, N, R, Cp, C, W, qbits, tbits);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // The C interface, one entry per TPU kernel face. Pointers are device
-// pointers; `stream` is a cudaStream_t. Each returns cudaGetLastError().
-// qbits holds B * ceil(N/32) words, tbits K * Cp * ceil(N/32) words (M *
-// ceil(N/32) for acam_match).
+// pointers; `stream` is a cudaStream_t. Each returns cudaGetLastError() (or
+// the launch's own error). B4's qbits holds B * ceil(N/32) words and its
+// tbits K * Cp * ceil(N/32) (M * ceil(N/32) for acam_match); the tiled
+// faces' `scratch` is laid out as launch_cooperative says, with
+// ceil(B / 8) arrival counters for B2 and B for B1 and B3, and null picks
+// B1's and B3's local design.
 
 extern "C" int acam_match(const float* f, const float* thr, const float* t,
                           int B, int N, int M, uint32_t* qbits,
                           uint32_t* tbits, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int err = pack(f, thr, nullptr, 0, t, B, N, M, M, M, qbits, tbits, s);
+  const int err = pack(f, thr, t, B, N, M, M, M, qbits, tbits, s);
   if (err != 0) return err;
   const int blocks = (B + kSelectWarps - 1) / kSelectWarps;
   counts_kernel<<<blocks, kSelectWarps * 32, 0, s>>>(qbits, tbits, B, N, M,
@@ -430,12 +686,13 @@ extern "C" int acam_match(const float* f, const float* thr, const float* t,
 extern "C" int acam_match_classify(const float* f, const float* thr,
                                    const float* t, const float* valid, int B,
                                    int N, int K, int Cp, int C,
-                                   uint32_t* qbits, uint32_t* tbits,
-                                   int* pred, float* per_class,
-                                   void* stream) {
-  return launch(f, thr, nullptr, 0, t, valid, nullptr, nullptr, nullptr, B,
-                N, K, Cp, C, qbits, tbits, pred, per_class, nullptr, nullptr,
-                (cudaStream_t)stream);
+                                   uint32_t* scratch, int* pred,
+                                   float* per_class, void* stream) {
+  TileArgs a{};
+  a.f = f, a.thr = thr, a.t = t, a.valid = valid;
+  a.B = B, a.N = N, a.K = K, a.Cp = Cp, a.C = C;
+  a.pred = pred, a.per_class = per_class;
+  return launch_tiled<false>(a, scratch, (cudaStream_t)stream);
 }
 
 extern "C" int acam_match_classify_margins(
@@ -443,15 +700,17 @@ extern "C" int acam_match_classify_margins(
     const int* lo, const int* hi, int B, int N, int K, int Cp, int C,
     uint32_t* qbits, uint32_t* tbits, int* pred, float* per_class,
     float* margin, void* stream) {
-  return launch(f, thr, nullptr, 0, t, valid, lo, hi, nullptr, B, N, K, Cp,
-                C, qbits, tbits, pred, per_class, margin, nullptr,
-                (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int W = (N + 31) / 32;
+  const int err = pack(f, thr, t, B, N, K * Cp, Cp, C, qbits, tbits, s);
+  if (err != 0) return err;
+  const int select_blocks = (B + kSelectWarps - 1) / kSelectWarps;
+  select_kernel<<<select_blocks, kSelectWarps * 32, 0, s>>>(
+      qbits, tbits, valid, lo, hi, B, N, K, Cp, C, W, pred, per_class,
+      margin);
+  return (int)cudaGetLastError();
 }
 
-// B2: `scratch` holds B * W query words, K * Cp * W template words,
-// B * ceil(C / 32) acam::Top summaries (3 words each) and ceil(B / 8)
-// arrival counters, in that order. One cooperative launch of at most the
-// blocks that fit on the card at once.
 extern "C" int acam_match_classify_margins_chunked(
     const float* f, const float* thr, const float* t, const float* valid,
     const int* lo, const int* hi, int B, int N, int K, int Cp, int C,
@@ -459,40 +718,16 @@ extern "C" int acam_match_classify_margins_chunked(
     void* stream) {
   (void)chunk;
   static int resident_of[64] = {};  // co-resident blocks per device
-  if (Cp % kCT != 0) return (int)cudaErrorInvalidValue;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  int resident = dev < 64 ? resident_of[dev] : 0;
-  if (resident == 0) {
-    int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, big_bank_kernel, kB2Warps * 32, 0);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    resident = per_sm * sms;
-    if (dev < 64) resident_of[dev] = resident;
-  }
-  const int W = (N + 31) / 32, R = K * Cp;
+  if (!scratch || Cp % kCT != 0) return (int)cudaErrorInvalidValue;
+  TileArgs a{};
+  a.f = f, a.thr = thr, a.t = t, a.valid = valid, a.lo = lo, a.hi = hi;
+  a.B = B, a.N = N, a.K = K, a.Cp = Cp, a.C = C;
+  a.pred = pred, a.per_class = per_class, a.margin = margin;
   const int tiles = (C + kCT - 1) / kCT, q_tiles = (B + kQT - 1) / kQT;
-  uint32_t* qbits = scratch;
-  uint32_t* tbits = qbits + (int64_t)B * W;
-  acam::Top* tops = reinterpret_cast<acam::Top*>(tbits + (int64_t)R * W);
-  unsigned* arrivals =
-      reinterpret_cast<unsigned*>(tops + (int64_t)B * tiles);
-  const int64_t want =
-      max((int64_t)(B + R + kB2Warps - 1) / kB2Warps,
-          (int64_t)tiles * q_tiles);
-  const int grid = (int)min(want, (int64_t)resident);
-  void* args[] = {&f,  &thr,   &t,     &valid, &lo,   &hi,       &B,
-                  &N,  &K,     &Cp,    &C,     &qbits, &tbits,   &tops,
-                  &arrivals,   &pred,  &per_class,     &margin};
-  err = cudaLaunchCooperativeKernel((const void*)big_bank_kernel, grid,
-                                    kB2Warps * 32, args, 0,
-                                    (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const int64_t want = max((int64_t)(B + K * Cp + kTileWarps - 1) / kTileWarps,
+                           (int64_t)tiles * q_tiles);
+  return launch_cooperative(big_bank_kernel, resident_of, a, scratch, want,
+                            (cudaStream_t)stream);
 }
 
 extern "C" int acam_match_serve(const float* f, const float* thr_table,
@@ -500,11 +735,14 @@ extern "C" int acam_match_serve(const float* f, const float* thr_table,
                                 const float* valid, const int* lo,
                                 const int* hi, const float* tau, int B, int N,
                                 int K, int Cp, int C, int chunk,
-                                uint32_t* qbits, uint32_t* tbits, int* pred,
+                                uint32_t* scratch, int* pred,
                                 float* per_class, float* margin,
                                 unsigned char* esc, void* stream) {
   (void)chunk;
-  return launch(f, thr_table, slot, thr_rows, t, valid, lo, hi, tau, B, N, K,
-                Cp, C, qbits, tbits, pred, per_class, margin, esc,
-                (cudaStream_t)stream);
+  TileArgs a{};
+  a.f = f, a.thr = thr_table, a.slot = slot, a.thr_rows = thr_rows;
+  a.t = t, a.valid = valid, a.lo = lo, a.hi = hi, a.tau = tau;
+  a.B = B, a.N = N, a.K = K, a.Cp = Cp, a.C = C;
+  a.pred = pred, a.per_class = per_class, a.margin = margin, a.esc = esc;
+  return launch_tiled<true>(a, scratch, (cudaStream_t)stream);
 }

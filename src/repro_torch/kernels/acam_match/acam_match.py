@@ -23,25 +23,40 @@ kernels.
     acam_match                            _kernel (raw (B, M) counts)       B7a
 
 Templates must be {0, 1} (every producer binarises them). The chunked faces
-accept ``chunk`` for signature parity; on the card it changes nothing. B2
-has its own one-launch tiled kernel: it counts `QUERY_TILE` queries against
-`CLASS_TILE` classes at a time, and merges the tiles' window summaries
-exactly.
+accept ``chunk`` for signature parity; on the card it changes nothing.
+
+B1, B2 and B3 are one launch each of the tiled design: a warp counts one
+query against `CLASS_TILE` classes, one per lane, and window summaries
+merge exactly across tiles. B2 (its own kernel, `QUERY_TILE` queries by one
+class tile per block), and B1 and B3 on banks past `LOCAL_ROWS` template
+rows, take the cooperative design: a pack into bit scratch, a grid sync,
+the count, and a merge of the class tiles' summaries (inside the block up
+to 8 tiles for B1 and B3; past that the last tile to arrive merges). B1
+and B3 on smaller banks take the local design: one block per query group
+binarises straight into shared memory, with no grid sync and no scratch.
+Their wrappers make one allocation (outputs, then scratch, then B3's
+escalate bytes; `tiled_layout`) and take the output views after the
+launch. B4 and B7a keep the two-launch pack + select / counts design.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build, layout
 
-#: B2's tiles (``kCT``, ``kQT`` in csrc/acam_match.cu): a block counts
-#: QUERY_TILE queries against CLASS_TILE classes at a time, and the decision
-#: merges one window summary per class tile
+#: the tiled kernel's tiles (``kCT``, ``kQT`` in csrc/acam_match.cu): a
+#: block counts QUERY_TILE queries against CLASS_TILE classes at a time, and
+#: the decision merges one window summary per class tile
 CLASS_TILE = 32
 QUERY_TILE = 8
+#: B1 and B3 take the tiled kernel's local design for banks of up to this
+#: many template rows (K * C; each block binarises them, once per query
+#: group) and its cooperative design past it
+LOCAL_ROWS = 16
 
 #: kernel launches per face since the last `reset_launches()`
 LAUNCHES = {"acam_match_classify": 0, "acam_match_classify_margins": 0,
@@ -133,8 +148,8 @@ def serve_plain(features, thr_table, tenant_slot, templates_kcp, valid_kcp,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # f, thr, t, valid, B, N, K, Cp, C, qbits, tbits, pred, per_class, stream
-    "acam_match_classify": [_P] * 4 + [_I] * 5 + [_P] * 5,
+    # f, thr, t, valid, B, N, K, Cp, C, scratch, pred, per_class, stream
+    "acam_match_classify": [_P] * 4 + [_I] * 5 + [_P] * 4,
     # f, thr, t, valid, lo, hi, B, N, K, Cp, C, qbits, tbits, pred,
     # per_class, margin, stream
     "acam_match_classify_margins": [_P] * 6 + [_I] * 5 + [_P] * 6,
@@ -142,8 +157,8 @@ _SIGNATURES = {
     # per_class, margin, stream
     "acam_match_classify_margins_chunked": [_P] * 6 + [_I] * 6 + [_P] * 5,
     # f, thr_table, thr_rows, slot, t, valid, lo, hi, tau, B, N, K, Cp, C,
-    # chunk, qbits, tbits, pred, per_class, margin, esc, stream
-    "acam_match_serve": [_P, _P, _I] + [_P] * 6 + [_I] * 6 + [_P] * 7,
+    # chunk, scratch, pred, per_class, margin, esc, stream
+    "acam_match_serve": [_P, _P, _I] + [_P] * 6 + [_I] * 6 + [_P] * 6,
     # f, thr, t, B, N, M, qbits, tbits, out, stream
     "acam_match": [_P] * 3 + [_I] * 3 + [_P] * 4,
 }
@@ -203,16 +218,24 @@ def _kernel_operands(features, templates, num_classes):
         margin=torch.empty(b, dtype=torch.float32, device=device))
 
 
-def _run(name: str, device: torch.device, *args) -> None:
-    """Launch a face on ``device``'s current stream (tensors pass as their
-    device pointers); raise on a CUDA error."""
-    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        rc = getattr(_lib(), name)(
-            *args, torch.cuda.current_stream(device).cuda_stream)
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Call face ``name`` (pointers and ints) on ``device``'s current
+    stream; raise on a CUDA error."""
+    fn = getattr(_lib(), name)
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, _build.stream(device))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, _build.stream(device))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
     LAUNCHES[name] += 1
+
+
+def _run(name: str, device: torch.device, *args) -> None:
+    """`_launch` with tensors passed as their device pointers."""
+    _launch(name, device, *(a.data_ptr() if isinstance(a, torch.Tensor)
+                            else a for a in args))
 
 
 def acam_match(features, thresholds, templates, *, block=None,
@@ -244,30 +267,6 @@ def acam_match(features, thresholds, templates, *, block=None,
     return out
 
 
-def acam_match_classify(features, thresholds, templates_kmajor, valid_row,
-                        num_classes: int):
-    """Fused Eq. 8 + Eq. 12 from raw features to the WTA (B1).
-
-    features (B, N) f32, thresholds (N,), templates_kmajor (K * Cp, N)
-    {0,1}, valid_row (K * Cp,) f32 {0,1}. Returns (pred (B,) int32,
-    per_class (B, C) f32).
-    """
-    if features.device.type == "cpu":
-        return classify_plain(features, thresholds, templates_kmajor,
-                              valid_row, num_classes)
-    o = _kernel_operands(features, templates_kmajor, num_classes)
-    rows = o["k"] * o["cp"]
-    _check("thresholds", thresholds, o["device"], torch.float32, (o["n"],))
-    _check("templates_kmajor", templates_kmajor, o["device"], torch.float32,
-           (rows, o["n"]))
-    _check("valid_row", valid_row, o["device"], torch.float32, (rows,))
-    if o["b"]:
-        _run("acam_match_classify", o["device"], features, thresholds,
-             templates_kmajor, valid_row, o["b"], o["n"], o["k"], o["cp"],
-             num_classes, o["qbits"], o["tbits"], o["pred"], o["per_class"])
-    return o["pred"], o["per_class"]
-
-
 def acam_match_classify_margins(features, thresholds, templates_kmajor,
                                 valid_row, class_lo, class_hi,
                                 num_classes: int):
@@ -294,25 +293,57 @@ def acam_match_classify_margins(features, thresholds, templates_kmajor,
     return o["pred"], o["per_class"], o["margin"]
 
 
-def b2_scratch_words(b: int, n: int, k: int, cp: int, c: int) -> int:
-    """int32 words of B2's scratch: the query bits (B, W), the template
-    bits (K * Cp, W), 3 words of window summary per (row, class tile) and
-    one arrival counter per query tile."""
+def scratch_words(b: int, n: int, k: int, cp: int, c: int,
+                  counters: int) -> int:
+    """int32 words of a cooperative tiled launch's scratch: the query bits
+    (B, W), the template bits (K * Cp, W), 3 words of window summary per
+    (row, class tile) and ``counters`` arrival counters."""
     w = -(-n // 32)
-    return ((b + k * cp) * w + 3 * b * -(-c // CLASS_TILE)
-            + -(-b // QUERY_TILE))
+    return (b + k * cp) * w + 3 * b * -(-c // CLASS_TILE) + counters
 
 
-def acam_match_classify_margins_chunked(features, thresholds, templates_kcp,
-                                        valid_kcp, class_lo, class_hi,
-                                        num_classes: int, *, chunk: int):
-    """B4 over a (K, Cp, N) stack, the big-bank face (B2). ``chunk`` must
-    divide Cp; the outputs do not depend on it."""
+def b2_scratch_words(b: int, n: int, k: int, cp: int, c: int) -> int:
+    """B2's scratch: one arrival counter per query tile."""
+    return scratch_words(b, n, k, cp, c, -(-b // QUERY_TILE))
+
+
+class TiledLayout(NamedTuple):
+    """Byte offsets into a tiled face's one int32 buffer (pred, int32, at
+    0), None where the face has no such view, and its length in words."""
+    words: int
+    per_class: int
+    margin: int | None
+    scratch: int | None
+    escalate: int | None
+
+
+@functools.lru_cache(maxsize=256)
+def tiled_layout(b: int, c: int, *, margin: bool, scratch: int,
+                 escalate: bool) -> TiledLayout:
+    """pred (B,) int32, per_class (B, C) f32, margin (B,) f32, ``scratch``
+    words of cooperative scratch and escalate (B,) bytes, in that order:
+    every view but escalate starts on a word."""
+    words = b + b * c
+    margin_at = 4 * words if margin else None
+    words += b if margin else 0
+    scratch_at = 4 * words if scratch else None
+    words += scratch
+    escalate_at = 4 * words if escalate else None
+    words += -(-b // 4) if escalate else 0
+    return TiledLayout(words, 4 * b, margin_at, scratch_at, escalate_at)
+
+
+def _scratch(b: int, n: int, k: int, cp: int, c: int) -> int:
+    """B1's and B3's scratch words: none for the local design, else one
+    arrival counter per row (at least one per query group)."""
+    if k * c <= LOCAL_ROWS:
+        return 0
+    return scratch_words(b, n, k, cp, c, b)
+
+
+def _tiled_shape(features, templates, num_classes):
+    """(device, B, N, K, Cp) of a tiled face's call on the card."""
     device = features.device
-    if device.type == "cpu":
-        return classify_margins_chunked_plain(
-            features, thresholds, templates_kcp, valid_kcp, class_lo,
-            class_hi, num_classes, chunk=chunk)
     if device.type != "cuda":
         raise ValueError(f"features on {device}: the kernels take CUDA or "
                          "CPU tensors")
@@ -321,52 +352,100 @@ def acam_match_classify_margins_chunked(features, thresholds, templates_kcp,
                          f"{tuple(features.shape)}")
     b, n = features.shape
     cp = layout.padded_classes(num_classes)
-    rows = templates_kcp.numel() // max(n, 1)
+    rows = templates.numel() // max(n, 1)
     if n < 1 or rows % cp or rows == 0:
-        raise ValueError(f"templates {tuple(templates_kcp.shape)} are not a "
+        raise ValueError(f"templates {tuple(templates.shape)} are not a "
                          f"K-major bank of {num_classes} classes over {n} "
                          "features")
-    k = rows // cp
-    _check_chunk(cp, chunk)
-    f32, i32 = torch.float32, torch.int32
-    for name, x, dtype, shape in (
-            ("features", features, f32, (b, n)),
-            ("thresholds", thresholds, f32, (n,)),
-            ("templates_kcp", templates_kcp, f32, (k, cp, n)),
-            ("valid_kcp", valid_kcp, f32, (k, cp)),
-            ("class_lo", class_lo, i32, (b,)),
-            ("class_hi", class_hi, i32, (b,))):
+    return device, b, n, rows // cp, cp
+
+
+def _require(device: torch.device, operands) -> None:
+    """One combined test per (name, tensor, dtype, shape); `_check` only
+    to raise with the reason."""
+    for name, x, dtype, shape in operands:
         if (x.dtype is not dtype or x.shape != shape or x.device != device
                 or not x.is_contiguous()):
-            _check(name, x, device, dtype, shape)  # raises, with the reason
-    # one allocation: pred, per_class and margin, then the scratch; the
-    # output views are taken after the launch, while the kernels run
-    out_words = b * (num_classes + 2)
-    buf = torch.empty(out_words + b2_scratch_words(b, n, k, cp, num_classes),
-                      dtype=i32, device=device)
+            _check(name, x, device, dtype, shape)
+
+
+def _outputs(buf: torch.Tensor, lay: TiledLayout, b: int, c: int) -> tuple:
+    """pred, per_class and (where laid out) margin and escalate as views of
+    ``buf``; `as_strided` is the cheapest view to build."""
+    fbuf = buf.view(torch.float32)
+    out = (buf.as_strided((b,), (1,), 0),
+           fbuf.as_strided((b, c), (c, 1), lay.per_class // 4))
+    if lay.margin is not None:
+        out += (fbuf.as_strided((b,), (1,), lay.margin // 4),)
+    if lay.escalate is not None:
+        out += (buf.view(torch.bool).as_strided((b,), (1,), lay.escalate),)
+    return out
+
+
+def acam_match_classify(features, thresholds, templates_kmajor, valid_row,
+                        num_classes: int):
+    """Fused Eq. 8 + Eq. 12 from raw features to the WTA (B1).
+
+    features (B, N) f32, thresholds (N,), templates_kmajor (K * Cp, N)
+    {0,1}, valid_row (K * Cp,) f32 {0,1}. Returns (pred (B,) int32,
+    per_class (B, C) f32).
+    """
+    if features.device.type == "cpu":
+        return classify_plain(features, thresholds, templates_kmajor,
+                              valid_row, num_classes)
+    device, b, n, k, cp = _tiled_shape(features, templates_kmajor,
+                                       num_classes)
+    f32 = torch.float32
+    _require(device, (("features", features, f32, (b, n)),
+                      ("thresholds", thresholds, f32, (n,)),
+                      ("templates_kmajor", templates_kmajor, f32,
+                       (k * cp, n)),
+                      ("valid_row", valid_row, f32, (k * cp,))))
+    lay = tiled_layout(b, num_classes, margin=False,
+                       scratch=_scratch(b, n, k, cp, num_classes),
+                       escalate=False)
+    buf = torch.empty(lay.words, dtype=torch.int32, device=device)
     if b:
         base = buf.data_ptr()
-        args = (features.data_ptr(), thresholds.data_ptr(),
+        _launch("acam_match_classify", device, features.data_ptr(),
+                thresholds.data_ptr(), templates_kmajor.data_ptr(),
+                valid_row.data_ptr(), b, n, k, cp, num_classes,
+                None if lay.scratch is None else base + lay.scratch, base,
+                base + lay.per_class)
+    return _outputs(buf, lay, b, num_classes)
+
+
+def acam_match_classify_margins_chunked(features, thresholds, templates_kcp,
+                                        valid_kcp, class_lo, class_hi,
+                                        num_classes: int, *, chunk: int):
+    """B4 over a (K, Cp, N) stack, the big-bank face (B2). ``chunk`` must
+    divide Cp; the outputs do not depend on it."""
+    if features.device.type == "cpu":
+        return classify_margins_chunked_plain(
+            features, thresholds, templates_kcp, valid_kcp, class_lo,
+            class_hi, num_classes, chunk=chunk)
+    device, b, n, k, cp = _tiled_shape(features, templates_kcp, num_classes)
+    _check_chunk(cp, chunk)
+    f32, i32 = torch.float32, torch.int32
+    _require(device, (("features", features, f32, (b, n)),
+                      ("thresholds", thresholds, f32, (n,)),
+                      ("templates_kcp", templates_kcp, f32, (k, cp, n)),
+                      ("valid_kcp", valid_kcp, f32, (k, cp)),
+                      ("class_lo", class_lo, i32, (b,)),
+                      ("class_hi", class_hi, i32, (b,))))
+    lay = tiled_layout(b, num_classes, margin=True,
+                       scratch=b2_scratch_words(b, n, k, cp, num_classes),
+                       escalate=False)
+    buf = torch.empty(lay.words, dtype=i32, device=device)
+    if b:
+        base = buf.data_ptr()
+        _launch("acam_match_classify_margins_chunked", device,
+                features.data_ptr(), thresholds.data_ptr(),
                 templates_kcp.data_ptr(), valid_kcp.data_ptr(),
                 class_lo.data_ptr(), class_hi.data_ptr(), b, n, k, cp,
-                num_classes, chunk, base + 4 * out_words, base,
-                base + 4 * b, base + 4 * b * (num_classes + 1),
-                _build.stream(device))
-        fn = _lib().acam_match_classify_margins_chunked
-        if device.index == torch.cuda.current_device():
-            rc = fn(*args)
-        else:
-            with torch.cuda.device(device):
-                rc = fn(*args)
-        if rc != 0:
-            raise RuntimeError(f"acam_match_classify_margins_chunked: CUDA "
-                               f"error {rc} at launch")
-        LAUNCHES["acam_match_classify_margins_chunked"] += 1
-    fbuf = buf.view(f32)  # as_strided: the cheapest views to build
-    pred = buf.as_strided((b,), (1,), 0)
-    per_class = fbuf.as_strided((b, num_classes), (num_classes, 1), b)
-    margin = fbuf.as_strided((b,), (1,), b * (num_classes + 1))
-    return pred, per_class, margin
+                num_classes, chunk, base + lay.scratch, base,
+                base + lay.per_class, base + lay.margin)
+    return _outputs(buf, lay, b, num_classes)
 
 
 def acam_match_serve(features, thr_table, tenant_slot, templates_kcp,
@@ -377,29 +456,37 @@ def acam_match_serve(features, thr_table, tenant_slot, templates_kcp,
 
     features (B, N) f32 raw, thr_table (T, N) f32, tenant_slot (B,) int32,
     templates_kcp (K, Cp, N), valid_kcp (K, Cp), class_lo/hi (B,) int32,
-    tau (B,) f32. Returns (pred, per_class, margin, escalate (B,) bool).
+    tau (B,) f32. A slot outside [0, T) reads zero thresholds. Returns
+    (pred, per_class, margin, escalate (B,) bool).
     """
     if features.device.type == "cpu":
         return serve_plain(features, thr_table, tenant_slot, templates_kcp,
                            valid_kcp, class_lo, class_hi, tau, num_classes,
                            chunk=chunk)
-    o = _kernel_operands(features, templates_kcp, num_classes)
-    _check_chunk(o["cp"], chunk)
+    device, b, n, k, cp = _tiled_shape(features, templates_kcp, num_classes)
+    _check_chunk(cp, chunk)
+    f32, i32 = torch.float32, torch.int32
     t_rows = thr_table.shape[0] if thr_table.dim() == 2 else -1
-    _check("thr_table", thr_table, o["device"], torch.float32,
-           (t_rows, o["n"]))
-    _check("tenant_slot", tenant_slot, o["device"], torch.int32, (o["b"],))
-    _check("templates_kcp", templates_kcp, o["device"], torch.float32,
-           (o["k"], o["cp"], o["n"]))
-    _check("valid_kcp", valid_kcp, o["device"], torch.float32,
-           (o["k"], o["cp"]))
-    _check("class_lo", class_lo, o["device"], torch.int32, (o["b"],))
-    _check("class_hi", class_hi, o["device"], torch.int32, (o["b"],))
-    _check("tau", tau, o["device"], torch.float32, (o["b"],))
-    esc = torch.empty(o["b"], dtype=torch.bool, device=o["device"])
-    if o["b"]:
-        _run("acam_match_serve", o["device"], features, thr_table, t_rows,
-             tenant_slot, templates_kcp, valid_kcp, class_lo, class_hi, tau,
-             o["b"], o["n"], o["k"], o["cp"], num_classes, chunk, o["qbits"],
-             o["tbits"], o["pred"], o["per_class"], o["margin"], esc)
-    return o["pred"], o["per_class"], o["margin"], esc
+    _require(device, (("features", features, f32, (b, n)),
+                      ("thr_table", thr_table, f32, (t_rows, n)),
+                      ("tenant_slot", tenant_slot, i32, (b,)),
+                      ("templates_kcp", templates_kcp, f32, (k, cp, n)),
+                      ("valid_kcp", valid_kcp, f32, (k, cp)),
+                      ("class_lo", class_lo, i32, (b,)),
+                      ("class_hi", class_hi, i32, (b,)),
+                      ("tau", tau, f32, (b,))))
+    lay = tiled_layout(b, num_classes, margin=True,
+                       scratch=_scratch(b, n, k, cp, num_classes),
+                       escalate=True)
+    buf = torch.empty(lay.words, dtype=i32, device=device)
+    if b:
+        base = buf.data_ptr()
+        _launch("acam_match_serve", device, features.data_ptr(),
+                thr_table.data_ptr(), t_rows, tenant_slot.data_ptr(),
+                templates_kcp.data_ptr(), valid_kcp.data_ptr(),
+                class_lo.data_ptr(), class_hi.data_ptr(), tau.data_ptr(), b,
+                n, k, cp, num_classes, chunk,
+                None if lay.scratch is None else base + lay.scratch, base,
+                base + lay.per_class, base + lay.margin,
+                base + lay.escalate)
+    return _outputs(buf, lay, b, num_classes)

@@ -275,3 +275,106 @@ def test_b2_tiles_fit_the_bank_layout():
     # counter per query tile
     assert am.b2_scratch_words(64, 784, 2, 1152, 1100) == \
         2368 * 25 + 64 * 35 * 3 + 64 // am.QUERY_TILE
+
+
+def _tiled_case(seed, b, c, k, n):
+    """`_tile_boundary_case` for B1 and B3: rows 1-10 also share the serve
+    tick's slot 0, whose threshold row is ``thr``, and the taus straddle
+    every margin (-inf on row 0, a padding row)."""
+    x, want = _tile_boundary_case(seed, b, c, k, n)
+    x["slot"][1:11] = 0
+    x["table"][0] = x["thr"]
+    return _with_taus(x), want
+
+
+# (b, c, k, n): banks inside MAX_FUSED_ROWS whose classes cross several
+# class tiles (C 100 and 130 are no multiple of 32), B no multiple of the
+# query tile, K 1-4, N 64 / 784 / 1000
+TILED_SHAPES = [(21, 100, 1, 784), (21, 130, 2, 1000), (37, 100, 4, 64),
+                (21, 130, 3, 64)]
+
+
+@pytest.mark.parametrize("b,c,k,n", TILED_SHAPES)
+def test_classify_bit_identical_at_class_tile_boundaries(b, c, k, n):
+    """B1's plain route against the JAX package's fused classify (Pallas,
+    interpret mode) with exact ties on both sides of every class-tile
+    boundary: rows 1-10 pick the lowest tied class and score N there."""
+    x, _ = _tiled_case(b + 5 * c + k, b, c, k, n)
+    ct = am.CLASS_TILE
+    ties = [e + d for e in range(ct, c, ct) for d in (-1, 0)]
+    got = tops.classify_fused(t(x["f"]), t(x["thr"]), t(x["templates"]),
+                              t(x["valid"]))
+    assert_equal_outputs(got, jops.classify_fused(
+        jnp.asarray(x["f"]), jnp.asarray(x["thr"]),
+        jnp.asarray(x["templates"]), jnp.asarray(x["valid"])),
+        names=("pred", "per_class"))
+    pred, per_class = got[0].numpy(), got[1].numpy()
+    assert (pred[1:11] == ct - 1).all(), pred[1:11]
+    assert (per_class[1:11][:, ties] == n).all()
+    assert (per_class[1:11, ct + 5] == -np.inf).all()  # all invalid
+
+
+@pytest.mark.parametrize("b,c,k,n", TILED_SHAPES)
+def test_serve_bit_identical_at_class_tile_boundaries(b, c, k, n):
+    """B3's plain route against the JAX package's serve tick (Pallas,
+    interpret mode) with ties and windows on the class-tile boundaries; the
+    decisions match the expected winners, and the padding row never
+    escalates."""
+    x, want = _tiled_case(b + 7 * c + k, b, c, k, n)
+    jax_out, got = _faces(x)["serve"]
+    assert_equal_outputs(got, jax_out)
+    pred, margin, esc = (v.tolist() for v in (got[0], got[2], got[3]))
+    for row, (want_pred, want_margin) in want.items():
+        assert pred[row] == want_pred, (row, pred[row], want_pred)
+        assert want_margin is None or margin[row] == want_margin, row
+    assert not esc[0] and any(esc) and not all(esc[1:])
+
+
+@pytest.mark.parametrize("c,k", [(128, 2), (10, 1)])
+def test_serve_out_of_table_slots_read_zero_thresholds(c, k):
+    """Slots -1, T and T + 5 lie outside the (T, N) thresholds table: both
+    packages binarise those rows against zeros (the TPU kernel's one-hot
+    select), so they count f > 0."""
+    b, n = 24, 784
+    x = _case(40 + c, b, c, k, n)
+    x["slot"][1::4] = np.resize([-1, T_ROWS, T_ROWS + 5], len(x["slot"][1::4]))
+    x = _with_taus(x)
+    jax_out, got = _faces(x)["serve"]
+    assert_equal_outputs(got, jax_out)
+    rows = np.arange(1, b, 4)
+    zero_thr = tops.classify_fused(t(x["f"][rows]), t(np.zeros(n, np.float32)),
+                                   t(x["templates"]), t(x["valid"]))[1]
+    np.testing.assert_array_equal(got[1].numpy()[rows], zero_thr.numpy())
+
+
+@pytest.mark.parametrize("b,n,k,c,local", [
+    (64, 784, 2, 128, False),  # the serve tick (B3), cooperative
+    (256, 784, 1, 10, True),   # predict (B1), local: no scratch
+    (21, 1000, 3, 130, False), (1, 1, 1, 1, True)])
+def test_tiled_layout_words_and_alignment(b, n, k, c, local):
+    """B1's and B3's one buffer: pred, per_class, margin, the cooperative
+    scratch and escalate's bytes, each view aligned to its element size
+    (the scratch to the 4-byte acam::Top it holds) and inside the buffer."""
+    cp = layout.padded_classes(c)
+    w, tiles = -(-n // 32), -(-c // am.CLASS_TILE)
+    scratch = 0 if local else am.scratch_words(b, n, k, cp, c, b)
+    assert scratch == (0 if local else (b + k * cp) * w + 3 * b * tiles + b)
+    assert am.b2_scratch_words(b, n, k, cp, c) == \
+        am.scratch_words(b, n, k, cp, c, -(-b // am.QUERY_TILE))
+    for margin, escalate in ((False, False), (True, True)):
+        lay = am.tiled_layout(b, c, margin=margin, scratch=scratch,
+                              escalate=escalate)
+        ends = [(0, 4 * b), (lay.per_class, lay.per_class + 4 * b * c)]
+        if margin:
+            ends.append((lay.margin, lay.margin + 4 * b))
+        if scratch:
+            ends.append((lay.scratch, lay.scratch + 4 * scratch))
+        if escalate:
+            ends.append((lay.escalate, lay.escalate + b))
+        assert lay.words == b + b * c + (b if margin else 0) + scratch + (
+            -(-b // 4) if escalate else 0)
+        for (start, end), nxt in zip(ends, ends[1:] + [(4 * lay.words,)]):
+            assert start % 4 == 0 and end <= nxt[0]  # aligned, no overlap
+        assert (lay.margin is None) != margin
+        assert (lay.scratch is None) != bool(scratch)
+        assert (lay.escalate is None) != escalate
