@@ -10,24 +10,27 @@ JAX:
  1. kernels   B1-B4 and B7a (`acam_match.cu`) against their plain PyTorch
               versions on the card, at the shapes the main paths give them
               plus ragged, empty-window, all-invalid, tie and flush-to-zero
-              probes; all bit-identical, B1 and B3 under both designs of
-              the tiled kernel (local and cooperative). B1, B2 and B3 also
-              at their class-tile boundaries: ties between duplicate
+              probes; all bit-identical, B1, B3, B4 and B7a under both
+              designs of the tiled kernel (local and cooperative). All five
+              also at their class-tile boundaries: ties between duplicate
               templates on both sides of every boundary, windows starting
-              and ending on boundaries (B2, B3), an all-invalid class, C and
-              B not multiples of the tiles, K 1-4, N 64, 784 and 1000 (B2 on
-              1,100 classes, B1 and B3 on 100 and 130), the expected winners
-              checked by row; B3 with tenant slots outside the thresholds
-              table (-1, T, T + 5: zero thresholds) and -inf taus on padding
-              rows. One kernel name per B1, B2, B3 call in the profile; both
-              designs of B1 and B3 timed in turns, at the main shapes and on
-              16-, 32- and 64-row banks (where `LOCAL_ROWS` switches), and
-              B3's wrapper timed step by step on the host. B5, B6 and B7b
+              and ending on boundaries (B2, B3, B4), an all-invalid class, C
+              and B not multiples of the tiles, K 1-4, N 64, 784 and 1000
+              (B2 on 1,100 classes, the others on 100 and 130), the expected
+              winners checked by row (B7a: its counts N in every tie
+              column, at M = C K up to 520); B3 with tenant slots outside
+              the thresholds table (-1, T, T + 5: zero thresholds) and -inf
+              taus on padding rows. One kernel name per B1-B4 and B7a call
+              in the profile; both designs of B1, B3, B4 and B7a timed in
+              turns at the main shapes, B1's also on 16-, 32- and 64-row
+              banks (where `LOCAL_ROWS` switches), and B3's wrapper timed
+              step by step on the host. B5, B6 and B7b
               (`acam_similarity.cu`) likewise, on binary and dyadic windows
               at alpha 1.0 and 0.37 (bit-identical), at two B6 chunks, and
               on one non-dyadic real-window case (S and margin within
               rtol 1e-5, atol 1e-6; pred equal where the top-two gap
-              exceeds 1e-5). B8 (`kd_loss.cu`) within rel 1e-4, abs 1e-5
+              exceeds 1e-5); B6 also timed on the big bank (64, 1,100, 2,
+              784). B8 (`kd_loss.cu`) within rel 1e-4, abs 1e-5
               at the trainer's (128, 10), the bench (64, 32000), (13, 5000),
               (3, 17) and (8, 152064), bf16 logits, a T/alpha sweep and
               out-of-range labels. B9 (`flash_attention.cu`) within 2e-3 in
@@ -350,15 +353,16 @@ def bound(name: str, b: int, c: int, k: int, n: int, t_rows: int):
 
 
 #: the faces of the tiled kernel whose design `LOCAL_ROWS` picks
-DESIGN_FACES = ("acam_match_classify", "acam_match_serve")
+DESIGN_FACES = ("acam_match_classify", "acam_match_serve",
+                "acam_match_classify_margins", "acam_match")
 #: `acam_match.LOCAL_ROWS` forcing each design of the tiled kernel
 DESIGNS = {"local": 1 << 30, "cooperative": 0}
 
 
 @contextlib.contextmanager
 def design(name: str):
-    """B1 and B3 forced onto one design of the tiled kernel ("default":
-    the one `acam_match.LOCAL_ROWS` picks)."""
+    """The `DESIGN_FACES` forced onto one design of the tiled kernel
+    ("default": the one `acam_match.LOCAL_ROWS` picks)."""
     from repro_torch.kernels.acam_match import acam_match as am
 
     keep = am.LOCAL_ROWS
@@ -370,17 +374,20 @@ def design(name: str):
 
 
 def tile_probes(device) -> dict:
-    """B1, B2 and B3 bit-identical to their plain versions where the tiled
-    kernel's class tiles (`acam_match.CLASS_TILE` classes by `QUERY_TILE`
-    queries) could go wrong: exact ties between duplicate templates on both
-    sides of every class-tile boundary, windows that start and end on
-    boundaries (B2, B3), an all-invalid class, C not a multiple of the class
-    tile and B not one of the query tile, for K 1-4 and N 64, 784 and 1000
-    (not a multiple of 32); B2 on a 1,100-class bank, B1 and B3 at C 100
-    and 130 (inside `MAX_FUSED_ROWS`) under both designs. Rows 1-10 share
-    one query (and, for B3, one slot), which classes e - 1 and e of every
-    boundary e match exactly (count N); their decisions are checked by row.
-    Returns the number of cases per face."""
+    """B2 and the `DESIGN_FACES` bit-identical to their plain versions
+    where the tiled kernel's class tiles (`acam_match.CLASS_TILE` classes by
+    `QUERY_TILE` queries) could go wrong: exact ties between duplicate
+    templates on both sides of every class-tile boundary, windows that
+    start and end on boundaries (B2, B3, B4), an all-invalid class, C not a
+    multiple of the class tile and B not one of the query tile, for K 1-4
+    and N 64, 784 and 1000 (not a multiple of 32); B2 on a 1,100-class
+    bank, the others at C 100 and 130 (inside `MAX_FUSED_ROWS`) under both
+    designs. Rows 1-10 share one query (and, for B3, one slot), which
+    classes e - 1 and e of every boundary e match exactly (count N); their
+    decisions are checked by row. B7a counts the class-major (C K, N) bank,
+    whose own tiles run over its M = C K rows: rows e - 1 and e of every
+    boundary e there duplicate the query too, and every tie column of rows
+    1-10 must count N. Returns the number of cases per face."""
     import torch
 
     from repro_torch.kernels.acam_match import acam_match as am
@@ -395,6 +402,7 @@ def tile_probes(device) -> dict:
     for name, c, how in runs:
         check(c % ct != 0, "ragged probe bank")
         edges = list(range(ct, c, ct))
+        ties = [e - 1 for e in edges] + edges
         last = edges[-1]
         # row: (window, expected pred, expected margin or None)
         rows = {1: ((0, c), ct - 1, 0.0), 2: ((ct, 2 * ct), ct, 0.0),
@@ -417,6 +425,12 @@ def tile_probes(device) -> dict:
                     x["valid"][e - 1] = True
                     x["valid"][e] = True
                 x["valid"][ct + 5] = False
+                # B7a's columns of the tie classes' templates
+                tie_cols = {e * k + kk for e in ties for kk in range(k)}
+                if name == "acam_match":  # ties on B7a's own tile edges
+                    for e in range(ct, c * k, ct):
+                        x["t"].view(-1, n)[e - 1:e + 1] = q1
+                        tie_cols |= {e - 1, e}
                 for row, ((lo, hi), _, _) in rows.items():
                     x["lo"][row], x["hi"][row] = lo, hi
                 for row in range(len(rows) + 1, b):  # windows on tile edges
@@ -428,13 +442,17 @@ def tile_probes(device) -> dict:
                 with design(how):
                     got = wrapper(*args, **kw)
                 compare(label, got, plain(*args, **kw))
+                cases[name] = cases.get(name, 0) + 1
+                if name == "acam_match":
+                    check(bool((got[0][1:len(rows) + 1][:, sorted(tie_cols)]
+                                == n).all()), f"{label}: tie columns not N")
+                    continue
                 pred, per_class = got[0].tolist(), got[1]
                 margins = got[2].tolist() if len(got) > 2 else None
                 for row, (_, want_pred, want_margin) in rows.items():
                     if name == "acam_match_classify":  # no windows
                         want_pred, want_margin = ct - 1, None
-                        check(bool((per_class[row, [e - 1 for e in edges]
-                                              + edges] == n).all())
+                        check(bool((per_class[row, ties] == n).all())
                               and per_class[row, ct + 5] == -np.inf,
                               f"{label} row {row}: tie classes not N")
                     margin = margins[row] if margins else None
@@ -442,7 +460,6 @@ def tile_probes(device) -> dict:
                           want_margin in (None, margin),
                           f"{label} row {row}: {pred[row]}/{margin}, "
                           f"expected {want_pred}/{want_margin}")
-                cases[name] = cases.get(name, 0) + 1
     return cases
 
 
@@ -839,6 +856,23 @@ def similarity_phase(device) -> dict:
             library_call="none: no PyTorch call computes Eq. 9-11",
             bound_ms=ms, bound_by=by, bound_bytes=nbytes,
             profile=profile(lambda: wrapper(*args, **kw), reps=20))
+    # B6 on the big bank, as the similarity `classify_features_margin` path
+    # calls it past `MAX_FUSED_ROWS` (one thresholds row)
+    b, c, k, n = 64, 1100, 2, N
+    x = sim_case(203, b, c, k, n, device, "binary", t_rows=1)
+    wrapper, plain, args, kw = sim_faces(x, c, k, 1.0)[
+        "acam_similarity_serve"]
+    err = compare("acam_similarity_serve big bank", wrapper(*args, **kw),
+                  plain(*args, **kw))
+    rows = int(x["valid"].sum())
+    ms, by, nbytes = sim_bound("acam_similarity_serve", b, c, k, n, rows, 1)
+    out["acam_similarity_serve"]["big_bank"] = dict(
+        shape=dict(B=b, C=c, K=k, N=n, valid_rows=rows), max_abs_err=err,
+        ms=time_ms(lambda: wrapper(*args, **kw)),
+        plain_ms=time_ms(lambda: plain(*args, **kw), 10), library_ms=None,
+        bound_ms=ms, bound_by=by, bound_bytes=nbytes,
+        host_us=host_us(lambda: wrapper(*args, **kw)),
+        profile=profile(lambda: wrapper(*args, **kw), reps=20))
     # bit-identity: binary and dyadic windows, both alphas, main shapes,
     # ragged shapes and the edge cases; B6 at two chunks
     shapes = [(64, 128, 2, N), (256, 10, 1, N), (37, 30, 2, 300), (1, 1, 1, 1),
@@ -1861,8 +1895,7 @@ def main(argv: list[str]) -> int:
           f"{json.dumps(kernels['kd_loss']['bench'])}")
     print(f"flash_attention at {FA_MODEL_SHAPE} (per call): "
           f"{json.dumps(kernels['flash_attention']['model_shape'])}")
-    for name in ("acam_match_classify", "acam_match_classify_margins_chunked",
-                 "acam_match_serve"):
+    for name in ("acam_match_classify_margins_chunked", *DESIGN_FACES):
         print(f"{name} tile probes: {kernels[name]['tile_probes']} cases "
               "bit-identical")
     print(f"acam_match_serve slot probes: "
@@ -1874,6 +1907,8 @@ def main(argv: list[str]) -> int:
           f"{json.dumps(kernels['acam_match_classify']['crossover'])}")
     print("acam_match_serve host us per step: "
           f"{json.dumps(kernels['acam_match_serve']['host_steps'])}")
+    print("acam_similarity_serve big bank (per call): "
+          f"{json.dumps(kernels['acam_similarity_serve']['big_bank'])}")
     check(set(kernels) == set(KERNELS), "every ported kernel measured")
 
     line = {"kernels": [

@@ -11,16 +11,16 @@
 //   acam_match_serve                     (_serve_kernel)                    B3
 //   acam_match                           (_kernel)                          B7a
 //
-// B1, B2 and B3 are one launch each of the tiled design. A warp counts one
-// query row against a tile of kCT = 32 classes, one lane per class:
+// Every face is one launch of the tiled design. A warp counts one query
+// row against a tile of kCT = 32 classes, one lane per class:
 // N - sum_w popc(q_w ^ t_w) in int32 over bits staged in shared memory,
 // the max over K (invalid rows -inf), per_class written; the warp reduces
 // its window's classes to one acam::Top (best, its class, runner-up),
 // which merges exactly in any order, so ties go to the lowest class across
-// tiles too. Queries binarise as f > thr (B1, B2) or, for the serve tick,
-// (f - thr_table[slot]) > 0, a slot outside the table reading zero
-// thresholds; templates as t != 0. One warp binarises a row: lane j reads
-// feature 32 w + j, one coalesced 128-byte load per word, and
+// tiles too. Queries binarise as f > thr (B1, B2, B4, B7a) or, for the
+// serve tick, (f - thr_table[slot]) > 0, a slot outside the table reading
+// zero thresholds; templates as t != 0. One warp binarises a row: lane j
+// reads feature 32 w + j, one coalesced 128-byte load per word, and
 // __ballot_sync forms word w.
 //
 //   big_bank_kernel  B2: one cooperative launch. Pack the
@@ -30,13 +30,17 @@
 //                    tile) items; the last class tile of a query tile to
 //                    arrive (an atomic counter) merges its rows' summaries
 //                    and writes pred and margin = min(top1 - top2, N).
-//   tiled_kernel     B1 and B3. An item is gq query rows x gc class tiles
-//                    (gc the power of two up to 8 that covers the bank, gq
-//                    the warps left): a block merges its gc tiles'
-//                    summaries itself, so no counter is needed up to 8
-//                    tiles (256 classes). Staging loads of a round are all
-//                    in flight before the first store; pred, margin and
-//                    escalate = margin < tau are written by the block.
+//   tiled_kernel     B1, B3, B4 and B7a. An item is gq query rows x gc
+//                    class tiles (gc the power of two up to 8 that covers
+//                    the bank, gq the warps left): a block merges its gc
+//                    tiles' summaries itself, so no counter is needed up to
+//                    8 tiles (256 classes). Staging loads of a round are
+//                    all in flight before the first store; pred, margin
+//                    (B3, B4) and escalate = margin < tau (B3) are written
+//                    by the block. kRaw (B7a) counts every row of an
+//                    unpadded (M, N) bank as a K = 1, C = M bank with no
+//                    valid mask and writes the (B, M) counts as per_class:
+//                    no summary, no decision, so no merge at any M.
 //                    Two designs, picked by the wrapper (LOCAL_ROWS):
 //     cooperative    B2's pack and grid sync, then the items stage bits
 //                    through L2 (__ldcg: other SMs wrote them); past 8
@@ -47,20 +51,6 @@
 //                    no query). It reads the bank once per block, so it
 //                    suits small banks (predict's 10 classes), and it needs
 //                    neither a grid sync nor a counter.
-//
-// B4 and B7a keep the first design (one C entry each, two launches):
-//
-//   pack_kernel    binarise every query row (f > thr) and every template
-//                  row (t != 0) into 32-bit words, one thread per word.
-//                  Queries land row-major (B, W), templates word-major
-//                  (W, K * Cp) so a warp's lanes read neighbouring rows.
-//   select_kernel  one warp per query row, lanes over classes: match count
-//                  (exact in int32), invalid rows -inf, max over K,
-//                  per-class scores written out, then the windowed (top1,
-//                  argmax, runner-up) merged across lanes with shuffles;
-//                  lane 0 writes pred and margin = min(top1 - top2, cap).
-//   counts_kernel  the raw (B, M) counts of B7a: one warp per query row,
-//                  lanes over template rows, written as f32.
 //
 // Precondition: templates are {0, 1}. Every producer binarises them; the
 // TPU kernels' bipolar bf16 product equals the count only under it, and
@@ -79,11 +69,13 @@
 // Bounds on this card (bytes: each input read once, each output written
 // once, at 3.35 TB/s; the 2 B K C N bit operations at 1,979 TOP/s are far
 // smaller):
-//   B1 at predict (B 256, C 10, K 1, N 784): 0.85 MB, 0.25 us.
+//   B1 at predict and B7a at ACAMHead.scores (B 256, C 10, K 1, N 784):
+//      0.85 MB, 0.25 us.
 //   B3 at the serve tick (B 64, C 128, K 2, N 784, 8 tenants): 1.06 MB,
-//      0.32 us.
+//      0.32 us; B4 at the compose tick (the same bank, one threshold row):
+//      1.04 MB, 0.31 us.
 //   B2 on the big bank (B 64, C 1,100, K 2, N 784): 7.4 MB, 2.2 us.
-// B1's and B3's bounds lie below the fixed cost of a launch (about 1 us
+// The tiled faces' bounds lie below the fixed cost of a launch (about 1 us
 // of device time for an empty one), so their design is about launches and
 // dependent round trips: one launch per call (the first design made two,
 // with a pack of 32 cache lines per warp load and one warp walking every
@@ -91,11 +83,11 @@
 // together, and no cross-block merge at these banks. What is left is the
 // cooperative design's pack (two dependent rounds for the serve tick:
 // slot, then its threshold row), grid sync, L2 staging and a count bound
-// by popc (16 per clock per SM) on B3's 32 blocks; the local design's
-// binarising rounds on B1. B2 is bound by bytes: it reads its bank once,
-// coalesced, with every SM busy in each phase. At these sizes a call is
-// bound by its host cost: a second launch costs more host time than a
-// grid sync costs device time.
+// by popc (16 per clock per SM) on the serve and compose ticks' 32 blocks;
+// the local design's binarising rounds on B1 and B7a. B2 is bound by
+// bytes: it reads its bank once, coalesced, with every SM busy in each
+// phase. At these sizes a call is bound by its host cost: a second launch
+// costs more host time than a grid sync costs device time.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC. No --use_fast_math: it flushes subnormals to
@@ -110,96 +102,7 @@
 
 namespace {
 
-constexpr int kPackThreads = 256;
-constexpr int kSelectWarps = 4;
-
-// One thread per 32-bit word. Words [0, B * W) are query words (row-major),
-// words [B * W, (B + R) * W) template words (word-major: w * R + r).
-__global__ void pack_kernel(const float* __restrict__ f,
-                            const float* __restrict__ thr,
-                            const float* __restrict__ t, int B, int N, int R,
-                            int Cp, int C, int W, uint32_t* __restrict__ qbits,
-                            uint32_t* __restrict__ tbits) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t q_words = (int64_t)B * W;
-  if (idx >= q_words + (int64_t)R * W) return;
-  uint32_t word = 0;
-  if (idx < q_words) {
-    const int b = (int)(idx / W), w = (int)(idx % W);
-    const float* row = f + (int64_t)b * N;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int i = w * 32 + j;
-      if (i < N) word |= (uint32_t)(row[i] > thr[i]) << j;
-    }
-    qbits[idx] = word;
-  } else {
-    const int64_t k = idx - q_words;
-    const int w = (int)(k / R), r = (int)(k % R);
-    // padded class columns hold zeros and are invalid: skip their reads
-    if (r % Cp < C) {
-      const float* row = t + (int64_t)r * N;
-#pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        const int i = w * 32 + j;
-        if (i < N) word |= (uint32_t)(row[i] != 0.0f) << j;
-      }
-    }
-    tbits[k] = word;
-  }
-}
-
-__global__ void select_kernel(const uint32_t* __restrict__ qbits,
-                              const uint32_t* __restrict__ tbits,
-                              const float* __restrict__ valid,
-                              const int* __restrict__ lo,
-                              const int* __restrict__ hi, int B, int N,
-                              int K, int Cp, int C, int W,
-                              int* __restrict__ pred,
-                              float* __restrict__ per_class,
-                              float* __restrict__ margin) {
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kSelectWarps + (threadIdx.x >> 5);
-  if (b >= B) return;  // whole warps leave together
-  const int R = K * Cp;
-  const int wlo = max(lo[b], 0), whi = min(hi[b], C);
-  const uint32_t* q = qbits + (int64_t)b * W;
-
-  acam::Top top = acam::top_empty();
-  for (int c = lane; c < C; c += 32) {
-    float best = -CUDART_INF_F;
-    for (int kk = 0; kk < K; ++kk) {
-      const int r = kk * Cp + c;
-      if (valid[r] > 0.0f) {
-        int diff = 0;
-        for (int w = 0; w < W; ++w) diff += __popc(q[w] ^ tbits[(int64_t)w * R + r]);
-        best = fmaxf(best, (float)(N - diff));
-      }
-    }
-    per_class[(int64_t)b * C + c] = best;
-    // a lane's classes arrive in increasing order (top_push's precondition)
-    if (c >= wlo && c < whi) acam::top_push(top, best, c);
-  }
-  top = acam::top_warp_merge(top);
-  if (lane == 0) acam::top_finish(top, (float)N, nullptr, b, pred, margin,
-                                  nullptr);
-}
-
-__global__ void counts_kernel(const uint32_t* __restrict__ qbits,
-                              const uint32_t* __restrict__ tbits, int B,
-                              int N, int M, int W, float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kSelectWarps + (threadIdx.x >> 5);
-  if (b >= B) return;
-  const uint32_t* q = qbits + (int64_t)b * W;
-  for (int r = lane; r < M; r += 32) {
-    int diff = 0;
-    for (int w = 0; w < W; ++w) diff += __popc(q[w] ^ tbits[(int64_t)w * M + r]);
-    out[(int64_t)b * M + r] = (float)(N - diff);
-  }
-}
-
-// ---- B1, B2, B3: the tiled designs ---------------------------------------
+// ---- the tiled designs ---------------------------------------------------
 
 constexpr int kTileWarps = 8;  // warps per block
 constexpr int kCT = 32;        // classes per tile (one per lane)
@@ -252,9 +155,10 @@ __device__ __forceinline__ acam::Top load_top(const acam::Top* p) {
 }
 
 // One call's operands. Null `lo`/`hi` mean the window [0, C); null
-// `margin`, `tau`/`esc` are not written. `slot` (the serve tick) picks each
-// row's threshold row of `thr` (thr_rows rows); otherwise `thr` is one row.
-// The scratch pointers are used by the cooperative designs only.
+// `margin`, `tau`/`esc` are not written; `valid` and `pred` are null in
+// raw mode. `slot` (the serve tick) picks each row's threshold row of
+// `thr` (thr_rows rows); otherwise `thr` is one row. The scratch pointers
+// are used by the cooperative designs only.
 struct TileArgs {
   const float* f;
   const float* thr;
@@ -286,10 +190,11 @@ __device__ __forceinline__ const float* thr_row(const TileArgs& a, int b) {
 }
 
 // The cooperative pack phase: one warp per row, grid-stride, binarises the
-// B query rows (kQU words a round) and the valid template rows into
-// row-major bit words; padded class rows and invalid rows are never
-// counted, so never packed. Block 0 zeroes `counters` arrival counters.
-template <int kQU, bool kServe>
+// B query rows (kQU words a round) and the valid template rows (kRaw:
+// every row) into row-major bit words; padded class rows and invalid rows
+// are never counted, so never packed. Block 0 zeroes `counters` arrival
+// counters.
+template <int kQU, bool kServe, bool kRaw = false>
 __device__ __forceinline__ void pack_rows(const TileArgs& a, int counters) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int N = a.N, W = (N + 31) / 32, R = a.K * a.Cp;
@@ -308,7 +213,7 @@ __device__ __forceinline__ void pack_rows(const TileArgs& a, int counters) {
       }
     } else {
       const int r = row - a.B;
-      if (r % a.Cp >= a.C || !(a.valid[r] > 0.0f)) continue;
+      if (r % a.Cp >= a.C || (!kRaw && !(a.valid[r] > 0.0f))) continue;
       const float* src = a.t + (int64_t)r * N;
       for (int w0 = 0; w0 < W; w0 += 32) {
         const uint32_t mine =
@@ -432,15 +337,15 @@ __host__ __device__ __forceinline__ int group_rows(int gc, bool local) {
   return local && gq > 4 ? 4 : gq;
 }
 
-// B1 and B3 in one launch (see the head of this file); kLocal picks the
-// design. An item is gq query rows x gc class tiles (group_rows,
-// group_tiles): warp (qi, gt) counts query qi of the item against the 32
-// classes of tile gt, one per lane, and a block merge of the gc warps'
-// summaries decides each row unless the bank has more than 8 tiles (the
-// cooperative decide then merges the groups). One block per SM is enough
-// (the grid is small): the full register file keeps the unrolled staging
-// and count out of local memory.
-template <bool kServe, bool kLocal>
+// B1, B3, B4 and B7a (kRaw) in one launch (see the head of this file);
+// kLocal picks the design. An item is gq query rows x gc class tiles
+// (group_rows, group_tiles): warp (qi, gt) counts query qi of the item
+// against the 32 classes of tile gt, one per lane, and a block merge of
+// the gc warps' summaries decides each row unless the bank has more than 8
+// tiles (the cooperative decide then merges the groups). One block per SM
+// is enough (the grid is small): the full register file keeps the
+// unrolled staging and count out of local memory.
+template <bool kServe, bool kLocal, bool kRaw>
 __global__ void __launch_bounds__(kTileWarps * 32, 1)
     tiled_kernel(const TileArgs a) {
   // slab rows padded to kSW + 1 words: lane c reads ts[.][c][w],
@@ -459,7 +364,7 @@ __global__ void __launch_bounds__(kTileWarps * 32, 1)
   const int qi = warp / gc, gt = warp % gc;
 
   if (!kLocal) {
-    pack_rows<32, kServe>(a, q_groups);
+    pack_rows<32, kServe, kRaw>(a, kRaw ? 0 : q_groups);
     cooperative_groups::this_grid().sync();
   }
 
@@ -485,7 +390,7 @@ __global__ void __launch_bounds__(kTileWarps * 32, 1)
 #pragma unroll
         for (int u = 0; u < kSlabs; ++u) {
           vf[u] = b < B && u < kr && k0 + u < K && c < C
-                      ? a.valid[(k0 + u) * Cp + c] : 0.0f;
+                      ? (kRaw ? 1.0f : a.valid[(k0 + u) * Cp + c]) : 0.0f;
           diff[u] = 0;
         }
         for (int w0 = 0; w0 < W; w0 += kSW) {
@@ -565,9 +470,10 @@ __global__ void __launch_bounds__(kTileWarps * 32, 1)
         if (c < C) a.per_class[(int64_t)b * C + c] = best;
         // a lane's classes arrive in increasing order (top_push's
         // precondition), also across the local design's groups
-        if (c >= wlo && c < whi) acam::top_push(top, best, c);
+        if (!kRaw && c >= wlo && c < whi) acam::top_push(top, best, c);
       }
     }
+    if (kRaw) continue;  // the counts are the output: no decision
     top = acam::top_warp_merge(top);  // exact in any lane order
     if (gc > 1) {  // merge the item's gc class tiles of each row
       if (lane == 0) warp_top[warp] = top;
@@ -607,7 +513,8 @@ cudaError_t resident_blocks(Kernel kernel, int dev, int* cache,
 // One cooperative launch of `kernel` on min(want, co-resident) blocks,
 // `scratch` holding B * W query words, K * Cp * W template words,
 // B * ceil(C / 32) acam::Top summaries (3 words each) and the arrival
-// counters, in that order.
+// counters, in that order (raw mode: the bits alone; it never reaches the
+// summaries or the counters).
 template <typename Kernel>
 int launch_cooperative(Kernel kernel, int* cache, TileArgs a,
                        uint32_t* scratch, int64_t want, cudaStream_t stream) {
@@ -628,9 +535,10 @@ int launch_cooperative(Kernel kernel, int* cache, TileArgs a,
   return (int)cudaGetLastError();
 }
 
-// B1 or B3 in one launch: the local design when `scratch` is null (one
-// block per query group), else the cooperative one (B arrival counters).
-template <bool kServe>
+// A tiled face in one launch: the local design when `scratch` is null
+// (one block per query group), else the cooperative one (B arrival
+// counters).
+template <bool kServe, bool kRaw = false>
 int launch_tiled(TileArgs a, uint32_t* scratch, cudaStream_t stream) {
   static int resident_of[64] = {};  // co-resident blocks per device
   if (a.Cp % kCT != 0) return (int)cudaErrorInvalidValue;
@@ -638,49 +546,33 @@ int launch_tiled(TileArgs a, uint32_t* scratch, cudaStream_t stream) {
   const int gc = group_tiles(tiles), gq = group_rows(gc, !scratch);
   const int64_t q_groups = (a.B + gq - 1) / gq;
   if (!scratch) {
-    tiled_kernel<kServe, true><<<(int)q_groups, kTileWarps * 32, 0,
-                                 stream>>>(a);
+    tiled_kernel<kServe, true, kRaw><<<(int)q_groups, kTileWarps * 32, 0,
+                                       stream>>>(a);
     return (int)cudaGetLastError();
   }
   const int64_t want =
       max((int64_t)(a.B + a.K * a.Cp + kTileWarps - 1) / kTileWarps,
           (tiles + gc - 1) / gc * q_groups);
-  return launch_cooperative(tiled_kernel<kServe, false>, resident_of, a,
-                            scratch, want, stream);
-}
-
-// Pack B query rows and R template rows (padded classes: r % Cp >= C).
-int pack(const float* f, const float* thr, const float* t, int B, int N,
-         int R, int Cp, int C, uint32_t* qbits, uint32_t* tbits,
-         cudaStream_t stream) {
-  const int W = (N + 31) / 32;
-  const int64_t words = (int64_t)(B + R) * W;
-  const int pack_blocks = (int)((words + kPackThreads - 1) / kPackThreads);
-  pack_kernel<<<pack_blocks, kPackThreads, 0, stream>>>(
-      f, thr, t, B, N, R, Cp, C, W, qbits, tbits);
-  return (int)cudaGetLastError();
+  return launch_cooperative(tiled_kernel<kServe, false, kRaw>, resident_of,
+                            a, scratch, want, stream);
 }
 
 }  // namespace
 
 // The C interface, one entry per TPU kernel face. Pointers are device
 // pointers; `stream` is a cudaStream_t. Each returns cudaGetLastError() (or
-// the launch's own error). B4's qbits holds B * ceil(N/32) words and its
-// tbits K * Cp * ceil(N/32) (M * ceil(N/32) for acam_match); the tiled
-// faces' `scratch` is laid out as launch_cooperative says, with
-// ceil(B / 8) arrival counters for B2 and B for B1 and B3, and null picks
-// B1's and B3's local design.
+// the launch's own error). `scratch` is laid out as launch_cooperative
+// says, with ceil(B / 8) arrival counters for B2 and B for the other
+// faces (none for acam_match); null picks the tiled kernel's local design.
 
 extern "C" int acam_match(const float* f, const float* thr, const float* t,
-                          int B, int N, int M, uint32_t* qbits,
-                          uint32_t* tbits, float* out, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int err = pack(f, thr, t, B, N, M, M, M, qbits, tbits, s);
-  if (err != 0) return err;
-  const int blocks = (B + kSelectWarps - 1) / kSelectWarps;
-  counts_kernel<<<blocks, kSelectWarps * 32, 0, s>>>(qbits, tbits, B, N, M,
-                                                     (N + 31) / 32, out);
-  return (int)cudaGetLastError();
+                          int B, int N, int M, uint32_t* scratch, float* out,
+                          void* stream) {
+  TileArgs a{};
+  a.f = f, a.thr = thr, a.t = t;
+  a.B = B, a.N = N, a.K = 1, a.Cp = (M + kCT - 1) / kCT * kCT, a.C = M;
+  a.per_class = out;
+  return launch_tiled<false, true>(a, scratch, (cudaStream_t)stream);
 }
 
 extern "C" int acam_match_classify(const float* f, const float* thr,
@@ -698,17 +590,13 @@ extern "C" int acam_match_classify(const float* f, const float* thr,
 extern "C" int acam_match_classify_margins(
     const float* f, const float* thr, const float* t, const float* valid,
     const int* lo, const int* hi, int B, int N, int K, int Cp, int C,
-    uint32_t* qbits, uint32_t* tbits, int* pred, float* per_class,
-    float* margin, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int W = (N + 31) / 32;
-  const int err = pack(f, thr, t, B, N, K * Cp, Cp, C, qbits, tbits, s);
-  if (err != 0) return err;
-  const int select_blocks = (B + kSelectWarps - 1) / kSelectWarps;
-  select_kernel<<<select_blocks, kSelectWarps * 32, 0, s>>>(
-      qbits, tbits, valid, lo, hi, B, N, K, Cp, C, W, pred, per_class,
-      margin);
-  return (int)cudaGetLastError();
+    uint32_t* scratch, int* pred, float* per_class, float* margin,
+    void* stream) {
+  TileArgs a{};
+  a.f = f, a.thr = thr, a.t = t, a.valid = valid, a.lo = lo, a.hi = hi;
+  a.B = B, a.N = N, a.K = K, a.Cp = Cp, a.C = C;
+  a.pred = pred, a.per_class = per_class, a.margin = margin;
+  return launch_tiled<false>(a, scratch, (cudaStream_t)stream);
 }
 
 extern "C" int acam_match_classify_margins_chunked(

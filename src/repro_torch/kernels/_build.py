@@ -96,3 +96,16 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def bind(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
+    """`load` with the argument types of each C entry set (``signatures``:
+    entry -> ctypes types, the trailing stream included) and an int (a
+    CUDA error code) returned. ctypes checks only the count of arguments
+    against these, so they must match the source's declarations."""
+    lib = load(name)
+    for entry, argtypes in signatures.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

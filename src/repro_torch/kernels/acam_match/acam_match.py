@@ -25,18 +25,19 @@ kernels.
 Templates must be {0, 1} (every producer binarises them). The chunked faces
 accept ``chunk`` for signature parity; on the card it changes nothing.
 
-B1, B2 and B3 are one launch each of the tiled design: a warp counts one
-query against `CLASS_TILE` classes, one per lane, and window summaries
-merge exactly across tiles. B2 (its own kernel, `QUERY_TILE` queries by one
-class tile per block), and B1 and B3 on banks past `LOCAL_ROWS` template
+Every face is one launch of the tiled design: a warp counts one query
+against `CLASS_TILE` classes, one per lane, and window summaries merge
+exactly across tiles. B2 (its own kernel, `QUERY_TILE` queries by one class
+tile per block), and B1, B3, B4 and B7a on banks past `LOCAL_ROWS` template
 rows, take the cooperative design: a pack into bit scratch, a grid sync,
 the count, and a merge of the class tiles' summaries (inside the block up
-to 8 tiles for B1 and B3; past that the last tile to arrive merges). B1
-and B3 on smaller banks take the local design: one block per query group
-binarises straight into shared memory, with no grid sync and no scratch.
-Their wrappers make one allocation (outputs, then scratch, then B3's
-escalate bytes; `tiled_layout`) and take the output views after the
-launch. B4 and B7a keep the two-launch pack + select / counts design.
+to 8 tiles; past that the last tile to arrive merges). On smaller banks
+they take the local design: one block per query group binarises straight
+into shared memory, with no grid sync and no scratch. B7a is the same
+kernel's raw mode: every row of its unpadded (M, N) bank counts, and the
+counts are the output. Each wrapper makes one allocation (outputs, then
+scratch, then B3's escalate bytes; `tiled_layout`) and takes the output
+views after the launch.
 """
 from __future__ import annotations
 
@@ -150,28 +151,23 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # f, thr, t, valid, B, N, K, Cp, C, scratch, pred, per_class, stream
     "acam_match_classify": [_P] * 4 + [_I] * 5 + [_P] * 4,
-    # f, thr, t, valid, lo, hi, B, N, K, Cp, C, qbits, tbits, pred,
-    # per_class, margin, stream
-    "acam_match_classify_margins": [_P] * 6 + [_I] * 5 + [_P] * 6,
+    # f, thr, t, valid, lo, hi, B, N, K, Cp, C, scratch, pred, per_class,
+    # margin, stream
+    "acam_match_classify_margins": [_P] * 6 + [_I] * 5 + [_P] * 5,
     # f, thr, t, valid, lo, hi, B, N, K, Cp, C, chunk, scratch, pred,
     # per_class, margin, stream
     "acam_match_classify_margins_chunked": [_P] * 6 + [_I] * 6 + [_P] * 5,
     # f, thr_table, thr_rows, slot, t, valid, lo, hi, tau, B, N, K, Cp, C,
     # chunk, scratch, pred, per_class, margin, esc, stream
     "acam_match_serve": [_P, _P, _I] + [_P] * 6 + [_I] * 6 + [_P] * 6,
-    # f, thr, t, B, N, M, qbits, tbits, out, stream
-    "acam_match": [_P] * 3 + [_I] * 3 + [_P] * 4,
+    # f, thr, t, B, N, M, scratch, out, stream
+    "acam_match": [_P] * 3 + [_I] * 3 + [_P] * 3,
 }
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("acam_match")
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    return _build.bind("acam_match", _SIGNATURES)
 
 
 def _check_chunk(cp: int, chunk: int) -> None:
@@ -193,31 +189,6 @@ def _check(name: str, x: torch.Tensor, device: torch.device,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _kernel_operands(features, templates, num_classes):
-    """Validate the shared operands; allocate outputs and bit scratch."""
-    device = features.device
-    if device.type != "cuda":
-        raise ValueError(f"features on {device}: the kernels take CUDA or "
-                         "CPU tensors")
-    b, n = features.shape
-    cp = layout.padded_classes(num_classes)
-    rows = templates.numel() // max(n, 1)
-    if n < 1 or rows % cp or rows == 0:
-        raise ValueError(f"templates {tuple(templates.shape)} are not a "
-                         f"K-major bank of {num_classes} classes over {n} "
-                         "features")
-    _check("features", features, device, torch.float32, (b, n))
-    w = -(-n // 32)
-    return dict(
-        b=b, n=n, k=rows // cp, cp=cp, device=device,
-        qbits=torch.empty(b * w, dtype=torch.int32, device=device),
-        tbits=torch.empty(rows * w, dtype=torch.int32, device=device),
-        pred=torch.empty(b, dtype=torch.int32, device=device),
-        per_class=torch.empty((b, num_classes), dtype=torch.float32,
-                              device=device),
-        margin=torch.empty(b, dtype=torch.float32, device=device))
-
-
 def _launch(name: str, device: torch.device, *args) -> None:
     """Call face ``name`` (pointers and ints) on ``device``'s current
     stream; raise on a CUDA error."""
@@ -230,67 +201,6 @@ def _launch(name: str, device: torch.device, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
     LAUNCHES[name] += 1
-
-
-def _run(name: str, device: torch.device, *args) -> None:
-    """`_launch` with tensors passed as their device pointers."""
-    _launch(name, device, *(a.data_ptr() if isinstance(a, torch.Tensor)
-                            else a for a in args))
-
-
-def acam_match(features, thresholds, templates, *, block=None,
-               interpret: bool = False):
-    """Raw Eq. 8 match counts (B7a): features (B, N) f32, thresholds (N,),
-    templates (M, N) {0,1} -> (B, M) f32. ``block`` and ``interpret`` are
-    the Pallas tiling arguments, accepted for signature parity and
-    ignored."""
-    if features.device.type == "cpu":
-        return match_plain(features, thresholds, templates)
-    device = features.device
-    if device.type != "cuda":
-        raise ValueError(f"features on {device}: the kernels take CUDA or "
-                         "CPU tensors")
-    if features.dim() != 2 or features.shape[1] < 1:
-        raise ValueError(f"features must be (B, N) with N >= 1, got "
-                         f"{tuple(features.shape)}")
-    b, n = features.shape
-    m = templates.shape[0]
-    _check("features", features, device, torch.float32, (b, n))
-    _check("thresholds", thresholds, device, torch.float32, (n,))
-    _check("templates", templates, device, torch.float32, (m, n))
-    w = -(-n // 32)
-    out = torch.empty((b, m), dtype=torch.float32, device=device)
-    if b and m:
-        _run("acam_match", device, features, thresholds, templates, b, n, m,
-             torch.empty(b * w, dtype=torch.int32, device=device),
-             torch.empty(m * w, dtype=torch.int32, device=device), out)
-    return out
-
-
-def acam_match_classify_margins(features, thresholds, templates_kmajor,
-                                valid_row, class_lo, class_hi,
-                                num_classes: int):
-    """B1 plus per-row class windows [class_lo, class_hi) and the Eq. 12
-    winner-vs-runner-up margin clamped to N (B4). Returns (pred, per_class,
-    margin (B,) f32)."""
-    if features.device.type == "cpu":
-        return classify_margins_plain(features, thresholds, templates_kmajor,
-                                      valid_row, class_lo, class_hi,
-                                      num_classes)
-    o = _kernel_operands(features, templates_kmajor, num_classes)
-    rows = o["k"] * o["cp"]
-    _check("thresholds", thresholds, o["device"], torch.float32, (o["n"],))
-    _check("templates_kmajor", templates_kmajor, o["device"], torch.float32,
-           (rows, o["n"]))
-    _check("valid_row", valid_row, o["device"], torch.float32, (rows,))
-    _check("class_lo", class_lo, o["device"], torch.int32, (o["b"],))
-    _check("class_hi", class_hi, o["device"], torch.int32, (o["b"],))
-    if o["b"]:
-        _run("acam_match_classify_margins", o["device"], features,
-             thresholds, templates_kmajor, valid_row, class_lo, class_hi,
-             o["b"], o["n"], o["k"], o["cp"], num_classes, o["qbits"],
-             o["tbits"], o["pred"], o["per_class"], o["margin"])
-    return o["pred"], o["per_class"], o["margin"]
 
 
 def scratch_words(b: int, n: int, k: int, cp: int, c: int,
@@ -308,8 +218,9 @@ def b2_scratch_words(b: int, n: int, k: int, cp: int, c: int) -> int:
 
 
 class TiledLayout(NamedTuple):
-    """Byte offsets into a tiled face's one int32 buffer (pred, int32, at
-    0), None where the face has no such view, and its length in words."""
+    """Byte offsets into a tiled face's one buffer of 4-byte words (pred,
+    int32, at 0 where it is laid out), None where the face has no such
+    view, and its length in words."""
     words: int
     per_class: int
     margin: int | None
@@ -319,25 +230,32 @@ class TiledLayout(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def tiled_layout(b: int, c: int, *, margin: bool, scratch: int,
-                 escalate: bool) -> TiledLayout:
-    """pred (B,) int32, per_class (B, C) f32, margin (B,) f32, ``scratch``
-    words of cooperative scratch and escalate (B,) bytes, in that order:
-    every view but escalate starts on a word."""
-    words = b + b * c
+                 escalate: bool, pred: bool = True) -> TiledLayout:
+    """pred (B,) int32 (not for B7a's raw counts: ``pred=False``),
+    per_class (B, C) f32 (B7a's counts), margin (B,) f32, ``scratch`` words
+    of cooperative scratch and escalate (B,) bytes, in that order: every
+    view but escalate starts on a word."""
+    per_class_at = 4 * b if pred else 0
+    words = per_class_at // 4 + b * c
     margin_at = 4 * words if margin else None
     words += b if margin else 0
     scratch_at = 4 * words if scratch else None
     words += scratch
     escalate_at = 4 * words if escalate else None
     words += -(-b // 4) if escalate else 0
-    return TiledLayout(words, 4 * b, margin_at, scratch_at, escalate_at)
+    return TiledLayout(words, per_class_at, margin_at, scratch_at,
+                       escalate_at)
 
 
-def _scratch(b: int, n: int, k: int, cp: int, c: int) -> int:
-    """B1's and B3's scratch words: none for the local design, else one
-    arrival counter per row (at least one per query group)."""
+def _scratch(b: int, n: int, k: int, cp: int, c: int, *,
+             raw: bool = False) -> int:
+    """The tiled kernel's scratch words: none for the local design, else
+    the bits and, unless ``raw`` (B7a, no decision), one arrival counter
+    per row (at least one per query group) after the summaries."""
     if k * c <= LOCAL_ROWS:
         return 0
+    if raw:
+        return (b + k * cp) * -(-n // 32)
     return scratch_words(b, n, k, cp, c, b)
 
 
@@ -413,6 +331,77 @@ def acam_match_classify(features, thresholds, templates_kmajor, valid_row,
                 None if lay.scratch is None else base + lay.scratch, base,
                 base + lay.per_class)
     return _outputs(buf, lay, b, num_classes)
+
+
+def acam_match_classify_margins(features, thresholds, templates_kmajor,
+                                valid_row, class_lo, class_hi,
+                                num_classes: int):
+    """B1 plus per-row class windows [class_lo, class_hi) and the Eq. 12
+    winner-vs-runner-up margin clamped to N (B4). class_lo/hi (B,) int32.
+    Returns (pred, per_class, margin (B,) f32)."""
+    if features.device.type == "cpu":
+        return classify_margins_plain(features, thresholds, templates_kmajor,
+                                      valid_row, class_lo, class_hi,
+                                      num_classes)
+    device, b, n, k, cp = _tiled_shape(features, templates_kmajor,
+                                       num_classes)
+    f32, i32 = torch.float32, torch.int32
+    _require(device, (("features", features, f32, (b, n)),
+                      ("thresholds", thresholds, f32, (n,)),
+                      ("templates_kmajor", templates_kmajor, f32,
+                       (k * cp, n)),
+                      ("valid_row", valid_row, f32, (k * cp,)),
+                      ("class_lo", class_lo, i32, (b,)),
+                      ("class_hi", class_hi, i32, (b,))))
+    lay = tiled_layout(b, num_classes, margin=True,
+                       scratch=_scratch(b, n, k, cp, num_classes),
+                       escalate=False)
+    buf = torch.empty(lay.words, dtype=i32, device=device)
+    if b:
+        base = buf.data_ptr()
+        _launch("acam_match_classify_margins", device, features.data_ptr(),
+                thresholds.data_ptr(), templates_kmajor.data_ptr(),
+                valid_row.data_ptr(), class_lo.data_ptr(),
+                class_hi.data_ptr(), b, n, k, cp, num_classes,
+                None if lay.scratch is None else base + lay.scratch, base,
+                base + lay.per_class, base + lay.margin)
+    return _outputs(buf, lay, b, num_classes)
+
+
+def acam_match(features, thresholds, templates, *, block=None,
+               interpret: bool = False):
+    """Raw Eq. 8 match counts (B7a): features (B, N) f32, thresholds (N,),
+    templates (M, N) {0,1} -> (B, M) f32, every row counted (no valid
+    mask). ``block`` and ``interpret`` are the Pallas tiling arguments,
+    accepted for signature parity and ignored."""
+    if features.device.type == "cpu":
+        return match_plain(features, thresholds, templates)
+    device = features.device
+    if device.type != "cuda":
+        raise ValueError(f"features on {device}: the kernels take CUDA or "
+                         "CPU tensors")
+    if features.dim() != 2 or features.shape[1] < 1:
+        raise ValueError(f"features must be (B, N) with N >= 1, got "
+                         f"{tuple(features.shape)}")
+    b, n = features.shape
+    m = templates.shape[0]
+    f32 = torch.float32
+    _require(device, (("features", features, f32, (b, n)),
+                      ("thresholds", thresholds, f32, (n,)),
+                      ("templates", templates, f32, (m, n))))
+    # one K = 1 slice of M classes, padded to whole class tiles only in the
+    # kernel's bit scratch: the bank itself is read as it is
+    cp = -(-m // CLASS_TILE) * CLASS_TILE
+    lay = tiled_layout(b, m, margin=False,
+                       scratch=_scratch(b, n, 1, cp, m, raw=True),
+                       escalate=False, pred=False)
+    buf = torch.empty(lay.words, dtype=f32, device=device)
+    if b and m:
+        base = buf.data_ptr()
+        _launch("acam_match", device, features.data_ptr(),
+                thresholds.data_ptr(), templates.data_ptr(), b, n, m,
+                None if lay.scratch is None else base + lay.scratch, base)
+    return buf.as_strided((b, m), (m, 1), 0)
 
 
 def acam_match_classify_margins_chunked(features, thresholds, templates_kcp,

@@ -107,12 +107,7 @@ _SIGNATURES = {
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("acam_similarity")
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    return _build.bind("acam_similarity", _SIGNATURES)
 
 
 def _run(name: str, device: torch.device, *args) -> None:

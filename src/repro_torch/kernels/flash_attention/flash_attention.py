@@ -98,14 +98,16 @@ def flash_attention_gqa_plain(q: torch.Tensor, k: torch.Tensor,
     return o.reshape(b, h, sq, d).permute(0, 2, 1, 3)
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    # q, k, v, o, B, Sq, Sk, H, KV, D, dtype, causal, scale, stream
+    "flash_attention": [_P] * 4 + [_I] * 8 + [ctypes.c_float, _P],
+}
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
-    _P, _I = ctypes.c_void_p, ctypes.c_int
-    # q, k, v, o, B, Sq, Sk, H, KV, D, dtype, causal, scale, stream
-    lib.flash_attention.argtypes = [_P] * 4 + [_I] * 8 + [ctypes.c_float, _P]
-    lib.flash_attention.restype = ctypes.c_int
-    return lib
+    return _build.bind("flash_attention", _SIGNATURES)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

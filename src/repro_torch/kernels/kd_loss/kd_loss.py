@@ -57,14 +57,16 @@ def kd_loss_plain(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
     return (alpha * temperature**2) * kl + (1.0 - alpha) * ce
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # zs, zt, labels, B, V, dtype, temperature, coef_kl, coef_ce, out, stream
+    "kd_loss": [_P] * 3 + [_I] * 3 + [_F] * 3 + [_P] * 2,
+}
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("kd_loss")
-    _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # zs, zt, labels, B, V, dtype, temperature, coef_kl, coef_ce, out, stream
-    lib.kd_loss.argtypes = [_P] * 3 + [_I] * 3 + [_F] * 3 + [_P] * 2
-    lib.kd_loss.restype = ctypes.c_int
-    return lib
+    return _build.bind("kd_loss", _SIGNATURES)
 
 
 def kd_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,

@@ -5,6 +5,11 @@ interpret mode on the CPU) and `repro_torch.kernels.acam_match.ops` (the
 plain PyTorch versions on the CPU). Match counts are integers, so pred,
 per_class, margin and escalate must be bit-identical.
 """
+import ctypes
+import importlib
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -330,6 +335,47 @@ def test_serve_bit_identical_at_class_tile_boundaries(b, c, k, n):
     assert not esc[0] and any(esc) and not all(esc[1:])
 
 
+@pytest.mark.parametrize("b,c,k,n", TILED_SHAPES)
+def test_classify_margins_bit_identical_at_class_tile_boundaries(b, c, k, n):
+    """B4's plain route against the JAX package's fused classify with
+    margins (Pallas, interpret mode), with ties and windows on the
+    class-tile boundaries; the decisions match the expected winners."""
+    x, want = _tiled_case(b + 11 * c + k, b, c, k, n)
+    jax_out, got = _faces(x)["margins"]
+    assert_equal_outputs(got, jax_out, names=("pred", "per_class", "margin"))
+    pred, margin = got[0].tolist(), got[2].tolist()
+    for row, (want_pred, want_margin) in want.items():
+        assert pred[row] == want_pred, (row, pred[row], want_pred)
+        assert want_margin is None or margin[row] == want_margin, row
+
+
+# (b, m, n): one to nine of the card kernel's 32-row class tiles and more
+# (M past 256 needs several class groups per query group), the last tile
+# ragged, B no multiple of the query tile
+@pytest.mark.parametrize("b,m,n", [(21, 100, 784), (37, 260, 64),
+                                   (13, 771, 1000), (5, 2200, 64)])
+def test_raw_counts_bit_identical_across_class_tiles(b, m, n):
+    """B7a's plain route against the JAX package's `match_scores` (Pallas,
+    interpret mode) over an (M, N) bank whose rows e - 1 and e of every
+    class-tile boundary e duplicate row 1's binarised query: those columns
+    count N on rows 1-3, which share that query."""
+    rng = np.random.default_rng(m + n)
+    f = rng.standard_normal((b, n), dtype=np.float32)
+    thr = rng.standard_normal(n, dtype=np.float32) * 0.1
+    f[1:4] = f[1]
+    bank = (rng.random((m, n)) > 0.5).astype(np.float32)
+    ties = [r for e in range(am.CLASS_TILE, m, am.CLASS_TILE)
+            for r in (e - 1, e)]
+    bank[ties] = (f[1] > thr).astype(np.float32)
+    got = tops.match_scores(t(f), t(thr), t(bank)).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.match_scores(jnp.asarray(f), jnp.asarray(thr),
+                                          jnp.asarray(bank))))
+    assert got.shape == (b, m)
+    assert (got[1:4][:, ties] == n).all()
+    assert (got[0] < n).any()
+
+
 @pytest.mark.parametrize("c,k", [(128, 2), (10, 1)])
 def test_serve_out_of_table_slots_read_zero_thresholds(c, k):
     """Slots -1, T and T + 5 lie outside the (T, N) thresholds table: both
@@ -352,16 +398,31 @@ def test_serve_out_of_table_slots_read_zero_thresholds(c, k):
     (256, 784, 1, 10, True),   # predict (B1), local: no scratch
     (21, 1000, 3, 130, False), (1, 1, 1, 1, True)])
 def test_tiled_layout_words_and_alignment(b, n, k, c, local):
-    """B1's and B3's one buffer: pred, per_class, margin, the cooperative
-    scratch and escalate's bytes, each view aligned to its element size
-    (the scratch to the 4-byte acam::Top it holds) and inside the buffer."""
+    """The tiled faces' one buffer: pred, per_class, margin, the
+    cooperative scratch and escalate's bytes (B1: no margin; B4: no
+    escalate; B3 both), each view aligned to its element size (the scratch
+    to the 4-byte acam::Top it holds) and inside the buffer; B7a's raw
+    counts over the flattened (C K, N) bank, then its bits-only scratch.
+    `_scratch` picks the design: the compose tick (64, 128, 2) cooperative,
+    `ACAMHead.scores` (256, 10, 1) local."""
     cp = layout.padded_classes(c)
     w, tiles = -(-n // 32), -(-c // am.CLASS_TILE)
-    scratch = 0 if local else am.scratch_words(b, n, k, cp, c, b)
+    scratch = am._scratch(b, n, k, cp, c)
     assert scratch == (0 if local else (b + k * cp) * w + 3 * b * tiles + b)
+    assert scratch == (0 if local else am.scratch_words(b, n, k, cp, c, b))
     assert am.b2_scratch_words(b, n, k, cp, c) == \
         am.scratch_words(b, n, k, cp, c, -(-b // am.QUERY_TILE))
-    for margin, escalate in ((False, False), (True, True)):
+    m = k * c
+    m_cp = -(-m // am.CLASS_TILE) * am.CLASS_TILE
+    raw_scratch = am._scratch(b, n, 1, m_cp, m, raw=True)
+    assert raw_scratch == (0 if local else (b + m_cp) * w)
+    raw = am.tiled_layout(b, m, margin=False, scratch=raw_scratch,
+                          escalate=False, pred=False)
+    assert raw.per_class == 0 and raw.margin is None and raw.escalate is None
+    assert raw.words == b * m + raw_scratch
+    assert (raw.scratch is None) == local
+    assert local or raw.scratch == 4 * b * m
+    for margin, escalate in ((False, False), (True, False), (True, True)):
         lay = am.tiled_layout(b, c, margin=margin, scratch=scratch,
                               escalate=escalate)
         ends = [(0, 4 * b), (lay.per_class, lay.per_class + 4 * b * c)]
@@ -378,3 +439,38 @@ def test_tiled_layout_words_and_alignment(b, n, k, c, local):
         assert (lay.margin is None) != margin
         assert (lay.scratch is None) != bool(scratch)
         assert (lay.escalate is None) != escalate
+
+
+def _c_entries(source: Path) -> dict[str, list]:
+    """Each ``extern "C"`` entry of a CUDA source -> the ctypes type of
+    each argument: a pointer as c_void_p, an int as c_int, a float as
+    c_float."""
+    kinds = {"int": ctypes.c_int, "float": ctypes.c_float}
+    entries = {}
+    for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                   source.read_text()):
+        types = []
+        for param in params.split(","):
+            decl = " ".join(param.split()[:-1])
+            types.append(ctypes.c_void_p if "*" in param else kinds[decl])
+        entries[name] = types
+    return entries
+
+
+CSRC = Path(am.__file__).resolve().parents[2] / "csrc"
+
+
+@pytest.mark.parametrize("source", ["acam_match", "acam_similarity",
+                                    "kd_loss", "flash_attention"])
+def test_ctypes_signatures_match_the_cuda_entry_points(source):
+    """Every C entry of ``csrc/<source>.cu`` has a ctypes signature in its
+    wrapper module with the same count and kinds of arguments, the stream
+    last: ctypes raises on a wrong count only, and a wrong kind launches on
+    garbage."""
+    entries = _c_entries(CSRC / f"{source}.cu")
+    module = importlib.import_module(
+        f"repro_torch.kernels.{source}.{source}")
+    assert entries and set(entries) == set(module._SIGNATURES)
+    for name, types in entries.items():
+        assert module._SIGNATURES[name] == types, name
+        assert types[-1] is ctypes.c_void_p, name  # the stream
