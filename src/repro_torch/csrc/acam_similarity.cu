@@ -8,20 +8,28 @@
 //   acam_similarity           (_kernel)          raw (B, M) scores     B7b
 //   acam_similarity_classify  (_classify_kernel) binarise -> WTA       B5
 //   acam_similarity_serve     (_serve_kernel)    the serving tick      B6
-// as one design with three faces (one C entry each):
 //
-//   score_kernel  one block per query row. Its threads stage the row in
-//                 shared memory: raw (B7b), binarised f > thr (B5), or
-//                 binarised (f - thr_table[slot]) > 0 (B6). Its warps
-//                 split the template rows (B7b) or the classes (B5, B6).
-//                 For each valid row the lanes stride N with coalesced
-//                 lower/upper loads, each accumulating D (f32) and the hit
-//                 count H (int32); shuffles reduce both, and lane 0 forms
-//                 S = (H * inv_n) / (1 + alpha * D), the max over K, the
-//                 per-class score and the warp's windowed (top1, argmax,
-//                 runner-up) summary (acam_epilogue.cuh). Thread 0 merges
-//                 the warps' summaries and writes pred, the margin clamped
-//                 at 1.0 and escalate = margin < tau.
+//   tiled_kernel  B5 and B6, one launch each: the tiled design of
+//                 acam_tiled.cuh with its similarity scorer (kSimilarity).
+//                 The queries binarise (f > thr for B5, (f - thr_table[slot])
+//                 > 0 for B6), so a feature hits iff the window's plane of
+//                 the query's bit holds it: H is two popc per 32 features
+//                 on the bit planes h0 = (lo <= 0 <= hi) and h1 = (lo <= 1
+//                 <= hi), exact for any window, and on a binary window
+//                 (lo, hi in {0, 1}, as generate_templates builds them)
+//                 D = N - H exactly. A row that is not binary (real
+//                 windows) sums D in float over its raw windows, the warp
+//                 on one row at a time with coalesced loads, in
+//                 score_row's order. B5 takes the local
+//                 design at predict's 10 classes, B6 the cooperative one
+//                 (the tick's 128 classes, the 1,100-class big bank, whose
+//                 35 tiles merge through arrival counters).
+//   score_kernel  B7b: raw (unbinarised) queries, one block per query row.
+//                 Its threads stage the row in shared memory and its warps
+//                 split the template rows; for each row the lanes stride N
+//                 with coalesced lower/upper loads, each accumulating D
+//                 (f32) and the hit count H (int32), and shuffles reduce
+//                 both.
 //
 // Arithmetic equal to the JAX package's, as XLA compiles its kernels: the
 // division by the constant N becomes a multiplication by the f32
@@ -34,40 +42,34 @@
 // other real windows it agrees to rounding.
 //
 // Semantics kept exactly: invalid rows and padded classes score -inf; an
-// empty or all-invalid window gives pred 0 and margin 0; ties go to the
-// lowest class index (acam_epilogue.cuh). `chunk` (B6) is accepted for
-// signature parity with the TPU kernel, whose VMEM budget walked the bank
-// in class chunks; no block here holds the bank, so outputs never depend
-// on it.
+// empty or all-invalid window gives pred 0 and margin 0 (capped at 1.0);
+// ties go to the lowest class index (acam_epilogue.cuh). `chunk` (B6) is
+// accepted for signature parity with the TPU kernel, whose VMEM budget
+// walked the bank in class chunks; outputs never depend on it.
 //
-// Bound on this card. Each (query, valid template row, feature) cell costs
-// about ten FP32 / int instructions (two subtractions, two maxima, two
-// multiplies, two adds, two compares, an integer add) and moves no bytes of
-// its own once the windows sit in L2, so the kernels are bound by
-// operations, not bytes: the serving tick (64 slots x 80 valid rows x 784)
-// needs about 1.2 us at 132 SMs x 128 lanes x 1.98 GHz, its bytes about
-// 0.6 us at 3.35 TB/s. This simple design is latency bound instead: one
-// warp walks its classes one row at a time, and a row's 784 features are
-// 25 strided loads per lane plus two 5-step shuffle reductions. A
-// bit-packed path for binary windows is later work.
+// Bounds on this card. On binary windows B5 and B6 are bound by bytes: the
+// windows of the valid rows read once, both planes derived from them, and
+// their two popc per 32 cells (132 SMs x 16 a clock) far cheaper: the tick
+// (64 x 128 x 2, 8 tenants) about 1.5 MB, 0.45 us; the big bank (64 x
+// 1,100 x 2) about 11.7 MB, 3.5 us; predict's B5 about 0.8 MB, 0.25 us. As
+// with the feature count (acam_match.cu) a launch costs more than that, so
+// the design is one launch with each round's loads issued together. B7b
+// scores raw queries, about ten FP32 / int instructions per (query, row,
+// feature) cell, so it is bound by operations; its one-block-per-row
+// design is latency bound instead (25 strided loads per lane and two
+// shuffle reductions per row).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC. No --use_fast_math: it flushes subnormals to
 // zero (the serve tick's (f - thr) > 0 must keep a subnormal difference),
 // and it would allow contracted and approximate arithmetic.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
-
-#include "acam_epilogue.cuh"
+#include "acam_tiled.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-
-enum Mode { kRaw = 0, kClassify = 1, kServe = 2 };
 
 // S of the staged query row q against template row r (lane 0's value).
 __device__ __forceinline__ float score_row(const float* q,
@@ -97,137 +99,76 @@ __device__ __forceinline__ float score_row(const float* q,
   return __fdiv_rn(__fmul_rn((float)h, inv_n), __fmaf_rn(alpha, d, 1.0f));
 }
 
-template <int kMode>
+// B7b: the (B, M) scores of raw queries, one block per query row.
 __global__ void score_kernel(const float* __restrict__ f,
-                             const float* __restrict__ thr, int thr_rows,
-                             const int* __restrict__ slot,
                              const float* __restrict__ lower,
-                             const float* __restrict__ upper,
-                             const float* __restrict__ valid,
-                             const int* __restrict__ lo,
-                             const int* __restrict__ hi,
-                             const float* __restrict__ tau, int N, int M,
-                             int K, int Cp, int C, float alpha, float inv_n,
-                             float* __restrict__ scores,
-                             int* __restrict__ pred,
-                             float* __restrict__ per_class,
-                             float* __restrict__ margin,
-                             unsigned char* __restrict__ esc) {
+                             const float* __restrict__ upper, int N, int M,
+                             float alpha, float inv_n,
+                             float* __restrict__ scores) {
   extern __shared__ float q[];
-  __shared__ acam::Top tops[kWarps];
   const int b = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const float* row = f + (int64_t)b * N;
-
-  const float* th = thr;
-  bool zero_thr = false;
-  if (kMode == kServe) {
-    const int s = slot[b];
-    // a slot outside the table reads zero thresholds, as the TPU kernel's
-    // one-hot select does
-    zero_thr = s < 0 || s >= thr_rows;
-    th = thr + (int64_t)(zero_thr ? 0 : s) * N;
-  }
-  for (int i = threadIdx.x; i < N; i += kThreads) {
-    float x = row[i];
-    if (kMode == kClassify) x = x > th[i] ? 1.0f : 0.0f;
-    if (kMode == kServe)
-      x = __fsub_rn(x, zero_thr ? 0.0f : th[i]) > 0.0f ? 1.0f : 0.0f;
-    q[i] = x;
-  }
+  for (int i = threadIdx.x; i < N; i += kThreads) q[i] = row[i];
   __syncthreads();
-
-  if (kMode == kRaw) {
-    for (int r = warp; r < M; r += kWarps) {
-      const float s = score_row(q, lower, upper, r, N, alpha, inv_n, lane);
-      if (lane == 0) scores[(int64_t)b * M + r] = s;
-    }
-    return;
+  for (int r = warp; r < M; r += kWarps) {
+    const float s = score_row(q, lower, upper, r, N, alpha, inv_n, lane);
+    if (lane == 0) scores[(int64_t)b * M + r] = s;
   }
-
-  const int wlo = kMode == kServe ? max(lo[b], 0) : 0;
-  const int whi = kMode == kServe ? min(hi[b], C) : C;
-  acam::Top top = acam::top_empty();
-  for (int c = warp; c < C; c += kWarps) {
-    float best = -CUDART_INF_F;
-    for (int kk = 0; kk < K; ++kk) {
-      const int64_t r = (int64_t)kk * Cp + c;
-      if (valid[r] > 0.0f)
-        best = fmaxf(best,
-                     score_row(q, lower, upper, r, N, alpha, inv_n, lane));
-    }
-    if (lane == 0) {
-      per_class[(int64_t)b * C + c] = best;
-      // a warp's classes arrive in increasing order (top_push's
-      // precondition)
-      if (c >= wlo && c < whi) acam::top_push(top, best, c);
-    }
-  }
-  if (lane == 0) tops[warp] = top;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < kWarps; ++w) top = acam::top_merge(top, tops[w]);
-    acam::top_finish(top, kMode == kServe ? 1.0f : CUDART_INF_F, tau, b,
-                     pred, kMode == kServe ? margin : nullptr,
-                     kMode == kServe ? esc : nullptr);
-  }
-}
-
-template <int kMode>
-int launch(const float* f, const float* thr, int thr_rows, const int* slot,
-           const float* lower, const float* upper, const float* valid,
-           const int* lo, const int* hi, const float* tau, int B, int N,
-           int M, int K, int Cp, int C, float alpha, float inv_n,
-           float* scores, int* pred, float* per_class, float* margin,
-           unsigned char* esc, cudaStream_t stream) {
-  const size_t smem = (size_t)N * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        score_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  score_kernel<kMode><<<B, kThreads, smem, stream>>>(
-      f, thr, thr_rows, slot, lower, upper, valid, lo, hi, tau, N, M, K, Cp,
-      C, alpha, inv_n, scores, pred, per_class, margin, esc);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // The C interface, one entry per TPU kernel face. Pointers are device
 // pointers; `stream` is a cudaStream_t; alpha and inv_n = 1.f / N are f32
-// (bind them as ctypes.c_float). Each returns cudaGetLastError().
+// (bind them as ctypes.c_float). Each returns cudaGetLastError() (or the
+// launch's own error). `scratch` (B5, B6) is laid out as the header's
+// launch_cooperative says, with B arrival counters; null picks the tiled
+// kernel's local design.
 
 extern "C" int acam_similarity(const float* q, const float* lower,
                                const float* upper, int B, int M, int N,
                                float alpha, float inv_n, float* scores,
                                void* stream) {
-  return launch<kRaw>(q, nullptr, 0, nullptr, lower, upper, nullptr, nullptr,
-                      nullptr, nullptr, B, N, M, 1, M, M, alpha, inv_n,
-                      scores, nullptr, nullptr, nullptr, nullptr,
-                      (cudaStream_t)stream);
+  const size_t smem = (size_t)N * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  score_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
+      q, lower, upper, N, M, alpha, inv_n, scores);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int acam_similarity_classify(
     const float* f, const float* thr, const float* lower, const float* upper,
     const float* valid, int B, int N, int K, int Cp, int C, float alpha,
-    float inv_n, int* pred, float* per_class, void* stream) {
-  return launch<kClassify>(f, thr, 0, nullptr, lower, upper, valid, nullptr,
-                           nullptr, nullptr, B, N, K * Cp, K, Cp, C, alpha,
-                           inv_n, nullptr, pred, per_class, nullptr, nullptr,
-                           (cudaStream_t)stream);
+    float inv_n, uint32_t* scratch, int* pred, float* per_class,
+    void* stream) {
+  TileArgs a{};
+  a.f = f, a.thr = thr, a.t = lower, a.t2 = upper, a.valid = valid;
+  a.B = B, a.N = N, a.K = K, a.Cp = Cp, a.C = C;
+  a.alpha = alpha, a.inv_n = inv_n;
+  a.pred = pred, a.per_class = per_class;
+  return launch_tiled<kSimilarity, false>(a, scratch, (cudaStream_t)stream);
 }
 
 extern "C" int acam_similarity_serve(
     const float* f, const float* thr_table, int thr_rows, const int* slot,
     const float* lower, const float* upper, const float* valid,
     const int* lo, const int* hi, const float* tau, int B, int N, int K,
-    int Cp, int C, int chunk, float alpha, float inv_n, int* pred,
-    float* per_class, float* margin, unsigned char* esc, void* stream) {
+    int Cp, int C, int chunk, float alpha, float inv_n, uint32_t* scratch,
+    int* pred, float* per_class, float* margin, unsigned char* esc,
+    void* stream) {
   (void)chunk;
-  return launch<kServe>(f, thr_table, thr_rows, slot, lower, upper, valid,
-                        lo, hi, tau, B, N, K * Cp, K, Cp, C, alpha, inv_n,
-                        nullptr, pred, per_class, margin, esc,
-                        (cudaStream_t)stream);
+  TileArgs a{};
+  a.f = f, a.thr = thr_table, a.slot = slot, a.thr_rows = thr_rows;
+  a.t = lower, a.t2 = upper, a.valid = valid, a.lo = lo, a.hi = hi;
+  a.tau = tau;
+  a.B = B, a.N = N, a.K = K, a.Cp = Cp, a.C = C;
+  a.alpha = alpha, a.inv_n = inv_n;
+  a.pred = pred, a.per_class = per_class, a.margin = margin, a.esc = esc;
+  return launch_tiled<kSimilarity, true>(a, scratch, (cudaStream_t)stream);
 }

@@ -89,6 +89,24 @@ def stream(device) -> int:
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
+def launch(lib: ctypes.CDLL, name: str, device, launches: dict,
+           *args) -> None:
+    """Call C entry ``name`` of ``lib`` with ``args`` and ``device``'s
+    current stream; raise on the CUDA error it returns, else add one to
+    ``launches[name]``."""
+    import torch
+
+    fn = getattr(lib, name)
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, stream(device))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream(device))
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+    launches[name] += 1
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     lib = _loaded.get(name)

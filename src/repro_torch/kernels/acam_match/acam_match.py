@@ -192,15 +192,7 @@ def _check(name: str, x: torch.Tensor, device: torch.device,
 def _launch(name: str, device: torch.device, *args) -> None:
     """Call face ``name`` (pointers and ints) on ``device``'s current
     stream; raise on a CUDA error."""
-    fn = getattr(_lib(), name)
-    if device.index == torch.cuda.current_device():
-        rc = fn(*args, _build.stream(device))
-    else:
-        with torch.cuda.device(device):
-            rc = fn(*args, _build.stream(device))
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
-    LAUNCHES[name] += 1
+    _build.launch(_lib(), name, device, LAUNCHES, *args)
 
 
 def scratch_words(b: int, n: int, k: int, cp: int, c: int,

@@ -20,6 +20,15 @@ arguments, accepted for signature parity and ignored.
     acam_similarity           _kernel                                 B7b
     acam_similarity_classify  _classify_kernel                        B5
     acam_similarity_serve     _serve_kernel                           B6
+
+B5 and B6 are one launch each of the feature-count faces' tiled kernel
+(`csrc/acam_tiled.cuh`) with its similarity scorer: binarised queries
+against two bit planes of each window row, exact hit counts by popc, and
+D = N - H on binary windows (a float sum of D on other rows). They share
+the feature-count faces' design choice (`acam_match.LOCAL_ROWS`: local for
+predict's small bank, cooperative past it), their one allocation per call
+(`acam_match.tiled_layout`, with `scratch_words` here) and their output
+views. B7b scores raw queries in its own kernel.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build, layout
+from repro_torch.kernels.acam_match import acam_match as am
 from repro_torch.kernels.acam_match.acam_match import (_check, _check_chunk,
                                                        _slot_thresholds)
 from repro_torch.kernels.acam_similarity.ref import (acam_similarity_ref,
@@ -95,13 +105,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # q, lower, upper, B, M, N, alpha, inv_n, scores, stream
     "acam_similarity": [_P] * 3 + [_I] * 3 + [_F] * 2 + [_P] * 2,
-    # f, thr, lower, upper, valid, B, N, K, Cp, C, alpha, inv_n, pred,
-    # per_class, stream
-    "acam_similarity_classify": [_P] * 5 + [_I] * 5 + [_F] * 2 + [_P] * 3,
+    # f, thr, lower, upper, valid, B, N, K, Cp, C, alpha, inv_n, scratch,
+    # pred, per_class, stream
+    "acam_similarity_classify": [_P] * 5 + [_I] * 5 + [_F] * 2 + [_P] * 4,
     # f, thr_table, thr_rows, slot, lower, upper, valid, lo, hi, tau, B, N,
-    # K, Cp, C, chunk, alpha, inv_n, pred, per_class, margin, esc, stream
+    # K, Cp, C, chunk, alpha, inv_n, scratch, pred, per_class, margin, esc,
+    # stream
     "acam_similarity_serve": [_P, _P, _I] + [_P] * 7 + [_I] * 6 + [_F] * 2
-    + [_P] * 5,
+    + [_P] * 6,
 }
 
 
@@ -111,19 +122,13 @@ def _lib() -> ctypes.CDLL:
 
 
 def _run(name: str, device: torch.device, *args) -> None:
-    """Launch a face on ``device``'s current stream (tensors pass as their
-    device pointers, floats as f32); raise on a CUDA error."""
-    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        rc = getattr(_lib(), name)(
-            *args, torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
-    LAUNCHES[name] += 1
+    """Call face ``name`` (pointers, ints and f32 floats) on ``device``'s
+    current stream; raise on a CUDA error."""
+    _build.launch(_lib(), name, device, LAUNCHES, *args)
 
 
 def _cuda_operands(features, lower, upper):
-    """Validate the query and window operands of a CUDA launch."""
+    """Validate the query and window operands of a B7b launch."""
     device = features.device
     if device.type != "cuda":
         raise ValueError(f"features on {device}: the kernels take CUDA or "
@@ -141,14 +146,16 @@ def _cuda_operands(features, lower, upper):
     return device, b, n
 
 
-def _bank_shape(lower, n: int, num_classes: int) -> tuple[int, int]:
-    """(K, Cp) of a K-major window bank of ``num_classes`` classes."""
-    cp = layout.padded_classes(num_classes)
-    rows = lower.numel() // n
-    if rows % cp or rows == 0:
-        raise ValueError(f"windows {tuple(lower.shape)} are not a K-major "
-                         f"bank of {num_classes} classes over {n} features")
-    return rows // cp, cp
+def scratch_words(b: int, n: int, k: int, cp: int, c: int) -> int:
+    """int32 words of B5's and B6's tiled scratch: none in the local design
+    (`acam_match.LOCAL_ROWS`, read at each call), else the feature count's
+    (query bits, one template plane, summaries, B arrival counters) plus
+    the second plane (K * Cp rows of W words), one binary flag per
+    template row and one f32 distance per (query, template row)."""
+    if k * c <= am.LOCAL_ROWS:
+        return 0
+    return (am.scratch_words(b, n, k, cp, c, b)
+            + k * cp * (-(-n // 32) + 1 + b))
 
 
 def acam_similarity(queries, lower, upper, *, alpha: float = 1.0,
@@ -162,8 +169,9 @@ def acam_similarity(queries, lower, upper, *, alpha: float = 1.0,
     _check("lower", lower, device, torch.float32, (m, n))
     out = torch.empty((b, m), dtype=torch.float32, device=device)
     if b and m:
-        _run("acam_similarity", device, queries, lower, upper, b, m, n,
-             alpha, inv_n(n), out)
+        _run("acam_similarity", device, queries.data_ptr(),
+             lower.data_ptr(), upper.data_ptr(), b, m, n, alpha, inv_n(n),
+             out.data_ptr())
     return out
 
 
@@ -181,19 +189,27 @@ def acam_similarity_classify(features, thresholds, lower_kmajor,
         return classify_plain(features, thresholds, lower_kmajor,
                               upper_kmajor, valid_row, num_classes,
                               alpha=alpha)
-    device, b, n = _cuda_operands(features, lower_kmajor, upper_kmajor)
-    k, cp = _bank_shape(lower_kmajor, n, num_classes)
-    _check("thresholds", thresholds, device, torch.float32, (n,))
-    _check("lower_kmajor", lower_kmajor, device, torch.float32, (k * cp, n))
-    _check("valid_row", valid_row, device, torch.float32, (k * cp,))
-    pred = torch.empty(b, dtype=torch.int32, device=device)
-    per_class = torch.empty((b, num_classes), dtype=torch.float32,
-                            device=device)
+    device, b, n, k, cp = am._tiled_shape(features, lower_kmajor,
+                                          num_classes)
+    f32 = torch.float32
+    am._require(device, (("features", features, f32, (b, n)),
+                         ("thresholds", thresholds, f32, (n,)),
+                         ("lower_kmajor", lower_kmajor, f32, (k * cp, n)),
+                         ("upper_kmajor", upper_kmajor, f32, (k * cp, n)),
+                         ("valid_row", valid_row, f32, (k * cp,))))
+    lay = am.tiled_layout(b, num_classes, margin=False,
+                          scratch=scratch_words(b, n, k, cp, num_classes),
+                          escalate=False)
+    buf = torch.empty(lay.words, dtype=torch.int32, device=device)
     if b:
-        _run("acam_similarity_classify", device, features, thresholds,
-             lower_kmajor, upper_kmajor, valid_row, b, n, k, cp, num_classes,
-             alpha, inv_n(n), pred, per_class)
-    return pred, per_class
+        base = buf.data_ptr()
+        _run("acam_similarity_classify", device, features.data_ptr(),
+             thresholds.data_ptr(), lower_kmajor.data_ptr(),
+             upper_kmajor.data_ptr(), valid_row.data_ptr(), b, n, k, cp,
+             num_classes, alpha, inv_n(n),
+             None if lay.scratch is None else base + lay.scratch, base,
+             base + lay.per_class)
+    return am._outputs(buf, lay, b, num_classes)
 
 
 def acam_similarity_serve(features, thr_table, tenant_slot, lower_kcp,
@@ -213,25 +229,30 @@ def acam_similarity_serve(features, thr_table, tenant_slot, lower_kcp,
         return serve_plain(features, thr_table, tenant_slot, lower_kcp,
                            upper_kcp, valid_kcp, class_lo, class_hi, tau,
                            num_classes, alpha=alpha, chunk=chunk)
-    device, b, n = _cuda_operands(features, lower_kcp, upper_kcp)
-    k, cp = _bank_shape(lower_kcp, n, num_classes)
+    device, b, n, k, cp = am._tiled_shape(features, lower_kcp, num_classes)
     _check_chunk(cp, chunk)
+    f32, i32 = torch.float32, torch.int32
     t_rows = thr_table.shape[0] if thr_table.dim() == 2 else -1
-    _check("thr_table", thr_table, device, torch.float32, (t_rows, n))
-    _check("tenant_slot", tenant_slot, device, torch.int32, (b,))
-    _check("lower_kcp", lower_kcp, device, torch.float32, (k, cp, n))
-    _check("valid_kcp", valid_kcp, device, torch.float32, (k, cp))
-    _check("class_lo", class_lo, device, torch.int32, (b,))
-    _check("class_hi", class_hi, device, torch.int32, (b,))
-    _check("tau", tau, device, torch.float32, (b,))
-    pred = torch.empty(b, dtype=torch.int32, device=device)
-    per_class = torch.empty((b, num_classes), dtype=torch.float32,
-                            device=device)
-    margin = torch.empty(b, dtype=torch.float32, device=device)
-    esc = torch.empty(b, dtype=torch.bool, device=device)
+    am._require(device, (("features", features, f32, (b, n)),
+                         ("thr_table", thr_table, f32, (t_rows, n)),
+                         ("tenant_slot", tenant_slot, i32, (b,)),
+                         ("lower_kcp", lower_kcp, f32, (k, cp, n)),
+                         ("upper_kcp", upper_kcp, f32, (k, cp, n)),
+                         ("valid_kcp", valid_kcp, f32, (k, cp)),
+                         ("class_lo", class_lo, i32, (b,)),
+                         ("class_hi", class_hi, i32, (b,)),
+                         ("tau", tau, f32, (b,))))
+    lay = am.tiled_layout(b, num_classes, margin=True,
+                          scratch=scratch_words(b, n, k, cp, num_classes),
+                          escalate=True)
+    buf = torch.empty(lay.words, dtype=i32, device=device)
     if b:
-        _run("acam_similarity_serve", device, features, thr_table, t_rows,
-             tenant_slot, lower_kcp, upper_kcp, valid_kcp, class_lo,
-             class_hi, tau, b, n, k, cp, num_classes, chunk, alpha, inv_n(n),
-             pred, per_class, margin, esc)
-    return pred, per_class, margin, esc
+        base = buf.data_ptr()
+        _run("acam_similarity_serve", device, features.data_ptr(),
+             thr_table.data_ptr(), t_rows, tenant_slot.data_ptr(),
+             lower_kcp.data_ptr(), upper_kcp.data_ptr(), valid_kcp.data_ptr(),
+             class_lo.data_ptr(), class_hi.data_ptr(), tau.data_ptr(), b, n,
+             k, cp, num_classes, chunk, alpha, inv_n(n),
+             None if lay.scratch is None else base + lay.scratch, base,
+             base + lay.per_class, base + lay.margin, base + lay.escalate)
+    return am._outputs(buf, lay, b, num_classes)

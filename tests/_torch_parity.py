@@ -69,3 +69,46 @@ def assert_equal_outputs(got, want, names=("pred", "per_class", "margin",
     assert len(got) == len(want)
     for name, g, w in zip(names, got, want):
         np.testing.assert_array_equal(to_np(g), to_np(w), err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# A plain mirror of the similarity kernels' bit-packed arithmetic
+# (csrc/acam_tiled.cuh, the kSimilarity scorer)
+# ---------------------------------------------------------------------------
+
+def pack_words(bits: torch.Tensor) -> torch.Tensor:
+    """(R, N) bools -> (R, ceil(N / 32)) int32 words: bit j of word w is
+    feature 32 w + j, the bits past N zero (as `__ballot_sync` packs)."""
+    r, n = bits.shape
+    w = -(-n // 32)
+    padded = torch.zeros((r, w * 32), dtype=torch.int64)
+    padded[:, :n] = bits.to(torch.int64)
+    words = (padded.view(r, w, 32) << torch.arange(32)).sum(-1)
+    return (words - (words >> 31 << 32)).to(torch.int32)  # two's complement
+
+
+def popc(words: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 word (as `__popc` counts them), int64."""
+    x = words.to(torch.int64) & 0xFFFFFFFF
+    return ((x[..., None] >> torch.arange(32)) & 1).sum(-1)
+
+
+def window_planes(lower: torch.Tensor, upper: torch.Tensor):
+    """Window rows (M, N) -> (h0, h1, binary): the planes h0 = (lo <= 0 <=
+    hi) and h1 = (lo <= 1 <= hi) as packed words, and each row's flag that
+    every lo and hi is exactly 0 or 1 (-0 counts as 0, a NaN does not)."""
+    def is_bit(x):
+        return (x == 0) | (x == 1)
+
+    h0 = pack_words((lower <= 0) & (upper >= 0))
+    h1 = pack_words((lower <= 1) & (upper >= 1))
+    return h0, h1, (is_bit(lower) & is_bit(upper)).all(dim=-1)
+
+
+def packed_hits(q: torch.Tensor, h0: torch.Tensor,
+                h1: torch.Tensor) -> torch.Tensor:
+    """(B, M) Eq. 10 hit counts of binary queries (B, N) against packed
+    window planes: sum_w popc(~q_w & h0_w) + popc(q_w & h1_w). ``~q`` is
+    1 past N, so the count is exact only because h0 is 0 there."""
+    qw = pack_words(q.to(torch.bool))[:, None, :]
+    return (popc(~qw & h0[None]) + popc(qw & h1[None])).sum(-1)

@@ -18,14 +18,17 @@ import pytest
 import torch
 
 from _torch_parity import (assert_equal_outputs, binary_windows, dyadic,
-                           dyadic_windows, t)
+                           dyadic_windows, pack_words, packed_hits, t,
+                           window_planes)
 from repro.kernels.acam_similarity import ops as jops
 from repro.kernels.acam_similarity.ref import acam_similarity_ref as jref
 from repro_torch.kernels import layout
 from repro_torch.kernels.acam_similarity import acam_similarity as asim
 from repro_torch.kernels.acam_similarity import ops as tops
+from repro_torch.kernels.acam_match import acam_match as am
 from repro_torch.kernels.acam_similarity.ref import (acam_similarity_ref,
-                                                     fma_one)
+                                                     eq11, fma_one,
+                                                     hits_and_distance)
 
 N = 100
 MAX_ROWS = 2048
@@ -263,3 +266,109 @@ def test_wrapper_rejects_bad_chunk():
             t(x["f"]), t(x["table"]), t(x["slot"]), lo_kcp, lo_kcp,
             layout.valid_kcp(t(x["valid"]), 3), t(x["lo"]), t(x["hi"]),
             torch.zeros(4), 3, chunk=100)
+
+
+# ---------------------------------------------------------------------------
+# The bit-packed arithmetic of the B5 / B6 kernels (`csrc/acam_tiled.cuh`).
+# These cases check an identity on a plain mirror of that arithmetic
+# (`_torch_parity.packed_hits`), not the kernel, which runs only on the card
+# (chip_smoke.py holds it to the plain versions there).
+# ---------------------------------------------------------------------------
+
+WINDOW_KINDS = ("binary", "dyadic", "real", "negative_zero", "nan", "mixed")
+
+
+def _windows(rng, m, n, kind):
+    """(lower, upper) (M, N) window rows of ``kind``, and each row's truth:
+    is every bound exactly 0 or 1. "negative_zero" is binary with -0.0
+    bounds, "nan" real with a NaN bound in each row, "mixed" alternates
+    binary and dyadic rows (as a bank can)."""
+    lower, upper = binary_windows(rng, m, 1, n)
+    lower, upper = lower[:, 0], upper[:, 0]
+    binary = np.ones(m, bool)
+    if kind == "negative_zero":  # every zero bound is -0.0
+        lower = np.where(lower == 0, np.float32(-0.0), lower)
+        upper = np.where(upper == 0, np.float32(-0.0), upper)
+        assert np.signbit(lower).any() and np.signbit(upper).any()
+    elif kind in ("dyadic", "real", "nan", "mixed"):
+        if kind == "real":
+            lo = rng.standard_normal((m, n), dtype=np.float32) * 0.5
+            hi = lo + np.abs(rng.standard_normal((m, n), dtype=np.float32))
+        else:
+            lo, hi = (w[:, 0] for w in dyadic_windows(rng, m, 1, n))
+        if kind == "nan":
+            lo[np.arange(m), rng.integers(0, n, m)] = np.nan
+        rows = np.arange(m) % 2 == 1 if kind == "mixed" else np.ones(m, bool)
+        lower[rows], upper[rows] = lo[rows], hi[rows]
+        binary = ~rows | np.array([
+            np.isin(lower[i], (0, 1)).all() and np.isin(upper[i], (0, 1)).all()
+            for i in range(m)])
+    return lower, upper, binary
+
+
+@pytest.mark.parametrize("n", [1, 64, 300, 1000])
+@pytest.mark.parametrize("kind", WINDOW_KINDS)
+def test_packed_hits_are_exact(kind, n):
+    """The identity the kernels rest on, checked on the mirror: H =
+    popc(~q & h0) + popc(q & h1) over the packed planes equals the plain hit
+    count for every window kind, the flag is true exactly for the rows whose
+    bounds are all 0 or 1, and on those D = N - H exactly, so S from H alone
+    is bit-identical to the JAX reference (as XLA compiles it) on the same
+    inputs."""
+    rng = np.random.default_rng(n + len(kind))
+    m = 13
+    lower, upper, truth = _windows(rng, m, n, kind)
+    q = (rng.random((9, n)) > 0.5).astype(np.float32)
+    h0, h1, binary = window_planes(t(lower), t(upper))
+    assert binary.tolist() == truth.tolist()
+    if kind in ("real", "nan"):
+        assert not binary.any()
+    if kind == "mixed":
+        assert binary.any() and not binary.all()
+    hits, dist = hits_and_distance(t(q), t(lower), t(upper))
+    got = packed_hits(t(q), h0, h1)
+    np.testing.assert_array_equal(got.numpy(), hits.numpy())
+    rows = binary.numpy()
+    d_bits = (n - got[:, rows]).to(torch.float32)
+    np.testing.assert_array_equal(d_bits.numpy(), dist[:, rows].numpy())
+    for alpha in ALPHAS:
+        want = jax.jit(lambda a, b, c, al=alpha: jref(a, b, c, alpha=al))(
+            jnp.asarray(q), jnp.asarray(lower[rows]),
+            jnp.asarray(upper[rows]))
+        np.testing.assert_array_equal(
+            eq11(got[:, rows], d_bits, n, alpha).numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("n", [1, 64, 300, 1000])
+def test_packed_planes_mask_the_bits_past_n(n):
+    """Bits past N are 0 in both planes and in the query words: ``~q`` is
+    1 there, so an unmasked h0 would count the padding as hits."""
+    rng = np.random.default_rng(n)
+    lower = np.zeros((3, n), np.float32)  # [0, 1] windows: every bit set
+    upper = np.ones((3, n), np.float32)
+    h0, h1, binary = window_planes(t(lower), t(upper))
+    q = pack_words(t(rng.random((2, n)) > 0.5))
+    w = -(-n // 32)
+    tail = n - 32 * (w - 1)  # valid bits of the last word
+    mask = (1 << tail) - 1
+    for words in (h0, h1, q):
+        last = words[:, -1].to(torch.int64) & 0xFFFFFFFF
+        assert bool(((last & ~mask) == 0).all())
+    assert bool(((h0[:, -1].to(torch.int64) & 0xFFFFFFFF) == mask).all())
+    assert binary.all()
+    hits = packed_hits(t(rng.random((2, n)) > 0.5), h0, h1)
+    assert bool((hits == n).all())  # every feature hits [0, 1], no more
+
+
+@pytest.mark.parametrize("b,n,k,c", [(64, 784, 2, 128), (64, 784, 2, 1100),
+                                     (256, 784, 1, 10), (5, 100, 3, 7)])
+def test_scratch_words_hold_both_planes(b, n, k, c):
+    """B5 / B6 scratch: none in the local design (K C up to
+    `acam_match.LOCAL_ROWS`), else the feature count's (query bits, one
+    plane, window summaries, B counters) plus the second plane, one binary
+    flag per template row and one distance per (query, template row)."""
+    cp = layout.padded_classes(c)
+    w = -(-n // 32)
+    want = 0 if k * c <= am.LOCAL_ROWS else (
+        (b + 2 * k * cp) * w + k * cp + b * k * cp + 3 * b * -(-c // 32) + b)
+    assert asim.scratch_words(b, n, k, cp, c) == want
