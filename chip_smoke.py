@@ -38,13 +38,27 @@ JAX:
               in turns; one kernel name per B5 / B6 call in the profile;
               B6 also timed on the big bank (64, 1,100, 2, 784), B5 and B6
               also on real windows at those three shapes (every row
-              through the float sum of D). B8 (`kd_loss.cu`) within rel 1e-4, abs
-              1e-5
-              at the trainer's (128, 10), the bench (64, 32000), (13, 5000),
-              (3, 17) and (8, 152064), bf16 logits, a T/alpha sweep and
-              out-of-range labels. B9 (`flash_attention.cu`) within 2e-3 in
-              f32 (the FP32 route) at the JAX test shapes, D = 96 and the
-              (BH, S, D) face, and within 2^-6 (at unit scale, relative
+              through the float sum of D); B5 and B6 under both designs
+              (B6 also on 1,100 classes) on banks with NaN bounds, equal to
+              the plain versions with NaN in the same places. B7b (the
+              register-tiled kernel) at one either side of its query,
+              row and slice tiles under both tilings, B, M or N of 1 and
+              N = 1000: bit-identical on binary and dyadic windows, within
+              rtol 1e-5 / atol 1e-6 on real ones, with operands one float
+              off alignment (4-byte staging) and with NaN bounds and a NaN
+              query; timed at (256, 10, 784) and on the big bank as raw
+              scores (64, 2,200, 784). B8 (`kd_loss.cu`) within rel 1e-4,
+              abs 1e-5 at the trainer's (128, 10), the bench (64, 32000),
+              the Qwen vocabulary (8, 152064) (all three timed), (13,
+              5000) and (3, 17), bf16 logits, a T/alpha sweep and
+              out-of-range labels; its split design at V 1, 17, 1025, 4999
+              (unaligned rows), 32000 and 152064 (B 8 and 1) in f32, bf16
+              and f16, labels on the first and last column of each split
+              and the row maximum in each split in turn, a student buffer
+              off the teacher's alignment, two calls bitwise equal. B9
+              (`flash_attention.cu`) within 2e-3 in f32 (the FP32 route)
+              at the JAX test shapes, D = 96 and the (BH, S, D) face, and
+              within 2^-6 (at unit scale, relative
               above it) in bf16 and f16 (the tensor-core route) at every
               head dim 32-128, GQA groups 1, 2 and 8, causal and not,
               ragged and unequal Sq and Sk, the bench shape (1, 1024, 8, 2,
@@ -996,6 +1010,169 @@ def real_window_times(device) -> dict:
     return out
 
 
+#: B7b probe shapes (B, M, N), one either side of the tiles and slices of
+#: both tilings of csrc/acam_similarity.cu (narrow: 2 queries x 12 rows,
+#: 128-feature slices; wide: 8 x 16, 64 features, taken where it gives two
+#: blocks an SM: the last five shapes), B, M or N of 1, and N = 1000
+B7B_PROBES = [(1, 1, 1), (1, 12, 128), (2, 11, 127), (3, 13, 129),
+              (1, 1, 1000), (2, 24, 255), (3, 25, 257), (5, 2, 100),
+              (37, 30, 1000), (256, 10, 784), (65, 529, 100),
+              (63, 543, 64), (64, 1056, 65), (72, 480, 129),
+              (64, 2200, 784)]
+
+
+def nan_compare(name: str, got, want) -> None:
+    """Every output equal to the plain version's, NaN in the same places
+    and bit-identical elsewhere."""
+    import torch
+
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"{name} output {i}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
+        if g.dtype.is_floating_point:
+            check(torch.equal(torch.isnan(g), torch.isnan(w)),
+                  f"{name} output {i}: NaN at other positions than the "
+                  "plain version's")
+            g, w = g[~torch.isnan(g)], w[~torch.isnan(w)]
+        check(torch.equal(g, w), f"{name} output {i} differs from its "
+              "plain version away from the NaNs")
+
+
+def b7b_probes(device) -> dict:
+    """B7b against its plain version at `B7B_PROBES`: bit-identical on
+    binary and dyadic windows at alpha 1.0 and 0.37, within rtol 1e-5 /
+    atol 1e-6 on real windows; with misaligned operands (bases one float
+    off, so the kernel stages with 4-byte copies) where N is small; and
+    the NaN probes: a NaN lower bound, a NaN upper bound and a NaN query,
+    NaN in the same cells as the plain version's. Returns case counts."""
+    import torch
+
+    from repro_torch.kernels.acam_similarity import acam_similarity as asim
+
+    def misaligned(x):
+        buf = torch.empty(x.numel() + 1, device=device)
+        out = buf[1:].view(x.shape)
+        out.copy_(x)
+        return out
+
+    counts = {"exact": 0, "real": 0, "misaligned": 0, "nan": 0}
+    for seed, (b, m, n) in enumerate(B7B_PROBES):
+        rng = np.random.default_rng(600 + seed)
+        q = torch_tensor((rng.integers(-8, 9, (b, n)) / 4).astype(np.float32),
+                         device)
+        label = f"acam_similarity probe {b}x{m}x{n}"
+        for kind in ("binary", "dyadic"):
+            lo, hi = (torch_tensor(w[:, 0], device)
+                      for w in windows(rng, m, 1, n, kind))
+            for alpha in (1.0, 0.37):
+                want = (asim.similarity_plain(q, lo, hi, alpha=alpha),)
+                compare(f"{label} {kind} a={alpha}",
+                        (asim.acam_similarity(q, lo, hi, alpha=alpha),), want)
+                counts["exact"] += 1
+                if b * m * n <= 1 << 20:
+                    compare(f"{label} {kind} a={alpha} misaligned",
+                            (asim.acam_similarity(
+                                misaligned(q), misaligned(lo),
+                                misaligned(hi), alpha=alpha),), want)
+                    counts["misaligned"] += 1
+            lo_n, hi_n, q_n = lo.clone(), hi.clone(), q.clone()
+            lo_n[m // 2, n // 3] = float("nan")
+            hi_n[m - 1, n - 1] = float("nan")
+            q_n[b - 1, 0] = float("nan")
+            nan_compare(f"{label} {kind} NaN", (asim.acam_similarity(
+                q_n, lo_n, hi_n),), (asim.similarity_plain(q_n, lo_n, hi_n),))
+            counts["nan"] += 1
+        lo, hi = (torch_tensor(w[:, 0], device)
+                  for w in windows(rng, m, 1, n, "real"))
+        qr = torch_tensor(rng.standard_normal((b, n), dtype=np.float32),
+                          device)
+        compare_close(f"{label} real", (asim.acam_similarity(
+            qr, lo, hi, alpha=0.37),), (asim.similarity_plain(
+                qr, lo, hi, alpha=0.37),))
+        counts["real"] += 1
+    return counts
+
+
+def nan_bank_probes(device) -> int:
+    """B5 and B6 under both designs (B6 also on the 1,100-class bank) on
+    binary and dyadic banks with a NaN lower bound in class 1 (slice 0) and
+    a NaN upper bound in class 5 (slice 1), every row valid, and windows
+    that hold class 1, skip it, or hold class 0 alone: equal to the plain
+    versions with NaN in the same places (per_class NaN at classes 1 and
+    5, pred the lowest NaN class of the window, margin 0 there). Returns
+    the number of cases."""
+    import torch
+
+    runs = [(face, c, how) for face in SIM_DESIGN_FACES for c in (10, 130)
+            for how in DESIGNS] + [("acam_similarity_serve", 1100, "default")]
+    cases = 0
+    for name, c, how in runs:
+        for kind in ("binary", "dyadic"):
+            x = sim_case(970 + c, 21, c, 2, N, device, kind)
+            x["valid"].fill_(True)
+            x["lower"][1, 0, 7] = float("nan")
+            x["upper"][5, 1, 40] = float("nan")
+            x["lo"][:6] = torch.tensor([0, 0, 2, 6, 0, 1], device=device)
+            x["hi"][:6] = torch.tensor([c, 3, 5, c, 1, 2], device=device)
+            wrapper, plain, args, kw = sim_faces(x, c, 2, 1.0)[name]
+            want = plain(*args, **kw)
+            label = f"{name} NaN bank ({how}) C={c} {kind}"
+            with design(how):
+                got = wrapper(*args, **kw)
+            nan_compare(label, got, want)
+            check(bool(torch.isnan(got[1][:, [1, 5]]).all()),
+                  f"{label}: per_class not NaN at the NaN classes")
+            cases += 1
+    return cases
+
+
+def redesign_times(device) -> dict:
+    """B7b at (256, 10, 784) on binary windows and on the big bank as raw
+    scores (64, 2,200, 784) on real ones, and B8 in f32 at the trainer's
+    (128, 10), the bench (64, 32000) and the Qwen vocabulary (8, 152064):
+    checked against the plain version, then call time (CUDA events),
+    device time and the bound of each. Uses only the wrappers' Python
+    interface, so it times any checkout's port alike
+    (tools/sim_real_windows.py --what redesign_times runs it on two in
+    turns)."""
+    import torch
+
+    from repro_torch.kernels.acam_similarity import acam_similarity as asim
+    from repro_torch.kernels.kd_loss import kd_loss as kd
+
+    out = {}
+    for seed, (b, m, kind) in enumerate([(256, 10, "binary"),
+                                         (64, 2200, "real")]):
+        rng = np.random.default_rng(420 + seed)
+        lo, hi = (torch_tensor(w[:, 0], device)
+                  for w in windows(rng, m, 1, N, kind))
+        q = torch_tensor(rng.standard_normal((b, N), dtype=np.float32),
+                         device)
+        compare_close(f"acam_similarity {b}x{m}", (asim.acam_similarity(
+            q, lo, hi),), (asim.similarity_plain(q, lo, hi),))
+
+        def call():
+            return asim.acam_similarity(q, lo, hi)
+
+        ms, by, _ = sim_bound("acam_similarity", b, m, 1, N, m, 1)
+        out[f"acam_similarity {b}x{m}x{N}"] = dict(
+            ms=time_ms(call), device_ms=profile(call, reps=20)["device_ms"],
+            bound_ms=ms, bound_by=by)
+    for seed, (b, v) in enumerate([(128, 10), (64, 32000), (8, 152064)]):
+        zs, zt, y = kd_case(430 + seed, b, v, device)
+        kd_compare(f"kd_loss {b}x{v}", kd.kd_loss(zs, zt, y),
+                   kd.kd_loss_plain(zs, zt, y))
+
+        def call():
+            return kd.kd_loss(zs, zt, y)
+
+        ms, by, _ = kd_bound(b, v, 4)
+        out[f"kd_loss {b}x{v}"] = dict(
+            ms=time_ms(call), device_ms=profile(call, reps=20)["device_ms"],
+            bound_ms=ms, bound_by=by)
+    return out
+
+
 def similarity_phase(device) -> dict:
     from repro_torch.kernels import layout
     from repro_torch.kernels.acam_match import acam_match as am
@@ -1022,10 +1199,10 @@ def similarity_phase(device) -> dict:
             bound_ms=ms, bound_by=by, bound_bytes=nbytes,
             host_us=host_us(lambda: wrapper(*args, **kw)),
             profile=profile(lambda: wrapper(*args, **kw), reps=20))
+        kernels_seen = out[name]["profile"]["by_kernel"]
+        check(len(kernels_seen) == 1, f"{name}: one kernel per call, "
+              f"the profile shows {list(kernels_seen)}")
         if name in SIM_DESIGN_FACES:
-            kernels_seen = out[name]["profile"]["by_kernel"]
-            check(len(kernels_seen) == 1, f"{name}: one kernel per call, "
-                  f"the profile shows {list(kernels_seen)}")
             out[name]["design"] = ("local" if k * c <= am.LOCAL_ROWS
                                    else "cooperative")
             out[name]["designs"] = design_times(wrapper, plain, args, kw,
@@ -1050,6 +1227,26 @@ def similarity_phase(device) -> dict:
     check(len(big["profile"]["by_kernel"]) == 1, "acam_similarity_serve big "
           f"bank: one kernel per call, the profile shows "
           f"{list(big['profile']['by_kernel'])}")
+    # B7b on the same bank as raw scores (M = C K = 2,200 window rows, real
+    # queries): the wide tiling
+    m = c * k
+    x = sim_case(204, b, c, k, n, device, "real")
+    wrapper, plain, args, kw = sim_faces(x, c, k, 1.0)["acam_similarity"]
+    err = compare_close("acam_similarity big bank", wrapper(*args, **kw),
+                        plain(*args, **kw))
+    ms, by, nbytes = sim_bound("acam_similarity", b, c, k, n, m, 1)
+    raw = out["acam_similarity"]["big_bank"] = dict(
+        shape=dict(B=b, M=m, N=n, windows="real"), max_abs_err=err,
+        ms=time_ms(lambda: wrapper(*args, **kw)),
+        plain_ms=time_ms(lambda: plain(*args, **kw), 10), library_ms=None,
+        bound_ms=ms, bound_by=by, bound_bytes=nbytes,
+        host_us=host_us(lambda: wrapper(*args, **kw)),
+        profile=profile(lambda: wrapper(*args, **kw), reps=20))
+    check(len(raw["profile"]["by_kernel"]) == 1, "acam_similarity big bank: "
+          f"one kernel per call, the profile shows "
+          f"{list(raw['profile']['by_kernel'])}")
+    out["acam_similarity"]["probes"] = b7b_probes(device)
+    out["acam_similarity_serve"]["nan_probes"] = nan_bank_probes(device)
     # bit-identity: binary and dyadic windows, both alphas, main shapes,
     # ragged shapes and the edge cases; B6 at two chunks; B5 and B6 under
     # both designs
@@ -1173,6 +1370,52 @@ def kd_bound(b: int, v: int, itemsize: int):
             "bytes" if t_bytes >= t_ops else "operations", nbytes)
 
 
+def kd_split_probes(device) -> int:
+    """B8's split design at its edges, f32, bf16 and f16 at V 1, 17, 1025,
+    4999 (rows not 16-byte aligned: scalar heads and tails), 32000 and
+    152064 (B 8 and 1) and the trainer's (128, 10): row i's label on the
+    first (even i) or last (odd i) column of split i mod S, and its maximum
+    in split (i + 1) mod S (both logits), so the label and the maximum visit
+    every split; then a student buffer one element off the teacher's
+    alignment (every column scalar). Within rel 1e-4 / abs 1e-5 of the
+    plain version and two calls bitwise equal. Returns the number of
+    cases."""
+    import torch
+
+    from repro_torch.kernels.kd_loss import kd_loss as kd
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    cases = 0
+    for seed, (b, v) in enumerate([(2, 1), (3, 17), (4, 1025), (5, 4999),
+                                   (128, 10), (64, 32000), (8, 152064),
+                                   (1, 152064)]):
+        splits, cols = ((1, v) if v <= kd.WARP_ROW_COLS
+                        else kd.split_plan(b, v, sms))
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            zs, zt, y = kd_case(540 + seed, b, v, device, dtype)
+            for i in range(b):
+                sp, hot = i % splits, (i + 1) % splits
+                c0, c1 = sp * cols, min(sp * cols + cols, v)
+                y[i] = c0 if i % 2 == 0 else c1 - 1
+                col = min(hot * cols + (i * 7) % cols, v - 1)
+                zs[i, col] = 30.0
+                zt[i, col] = 30.0
+            label = f"kd_loss split probe {b}x{v} {dtype} ({splits} splits)"
+            got = kd.kd_loss(zs, zt, y)
+            kd_compare(label, got, kd.kd_loss_plain(zs, zt, y))
+            check(torch.equal(got, kd.kd_loss(zs, zt, y)),
+                  f"{label}: two calls differ")
+            cases += 1
+            if v > 1:
+                buf = torch.empty(b * v + 1, dtype=dtype, device=device)
+                zs_off = buf[1:].view(b, v)
+                zs_off.copy_(zs)
+                kd_compare(f"{label} misaligned", kd.kd_loss(zs_off, zt, y),
+                           kd.kd_loss_plain(zs, zt, y))
+                cases += 1
+    return cases
+
+
 def kd_phase(device) -> dict:
     """B8 at the trainer's shape (128 x 10, T 4, alpha 0.5: the timed main
     path), the bench shape 64 x 32000 (timed too), (13, 5000), (3, 17) and
@@ -1182,9 +1425,8 @@ def kd_phase(device) -> dict:
     from repro_torch.kernels.kd_loss import kd_loss as kd
 
     out, err = {}, 0.0
-    timed = {"main": (128, 10), "bench": (64, 32000)}
-    for seed, (b, v) in enumerate([*timed.values(), (13, 5000), (3, 17),
-                                   (8, 152064)]):
+    timed = {"main": (128, 10), "bench": (64, 32000), "vocab": (8, 152064)}
+    for seed, (b, v) in enumerate([*timed.values(), (13, 5000), (3, 17)]):
         zs, zt, y = kd_case(500 + seed, b, v, device)
         err = max(err, kd_compare(f"kd_loss {b}x{v}", kd.kd_loss(zs, zt, y),
                                   kd.kd_loss_plain(zs, zt, y)))
@@ -1225,7 +1467,8 @@ def kd_phase(device) -> dict:
         if key == "main":
             out["kd_loss"] = dict(row, max_abs_err=err)
         else:
-            out["kd_loss"]["bench"] = row
+            out["kd_loss"][key] = row
+    out["kd_loss"]["split_probes"] = kd_split_probes(device)
     kd.reset_launches()
     return out
 
@@ -2094,6 +2337,18 @@ def main(argv: list[str]) -> int:
           f"with {st['branch_flips_card_vs_cpu']} branch flips")
     print(f"kd_loss bench 64x32000 (per call): "
           f"{json.dumps(kernels['kd_loss']['bench'])}")
+    print(f"kd_loss vocab 8x152064 (per call): "
+          f"{json.dumps(kernels['kd_loss']['vocab'])}")
+    print(f"kd_loss split probes: {kernels['kd_loss']['split_probes']} cases "
+          "within tolerance, two calls equal")
+    print("acam_similarity big bank 64x2200x784 (per call): "
+          f"{json.dumps(kernels['acam_similarity']['big_bank'])}")
+    print("acam_similarity probes (bit-identical / real windows / "
+          "misaligned / NaN): "
+          f"{json.dumps(kernels['acam_similarity']['probes'])}")
+    print("B5 / B6 NaN bank probes: "
+          f"{kernels['acam_similarity_serve']['nan_probes']} cases equal "
+          "(NaN in the same places)")
     print(f"flash_attention at {FA_MODEL_SHAPE} (per call): "
           f"{json.dumps(kernels['flash_attention']['model_shape'])}")
     for name in ("acam_match_classify_margins_chunked", *DESIGN_FACES):

@@ -27,7 +27,7 @@
 //                generate_templates(binary_windows=False), or any bank sent
 //                in) sums D in float over its raw windows and the query
 //                bits, lane j over features 32 w + j and a shuffle tree
-//                over the lanes (B7b's order), each feature's two cells
+//                over the lanes, each feature's two cells
 //                (x = 0, 1) computed once for all the queries it meets:
 //                the cooperative design in a distance phase of its own,
 //                the local one as it packs the row. A row scores
@@ -36,7 +36,12 @@
 //                is taken on S, never on H (a negative alpha reverses H's
 //                order). Two planes of 4 slabs a round (against the count's
 //                one plane of 8) keep the staging in the same 33.8 KB of
-//                static shared memory; items then span at most 4 tiles.
+//                static shared memory; items then span at most 4 tiles. A
+//                NaN bound makes its row not binary, and its NaN reaches S
+//                as the plain version's does: Eq. 9's max(x, 0) keeps it
+//                (relu_nan), and so do the max over K and the epilogue
+//                (acam_epilogue.cuh, kNaN). These are the similarity's
+//                branches only; the count compiles as before.
 //
 // tiled_kernel: an item is gq query rows x gc class tiles (gc the power of
 // two up to kSlabs, 8 for the count and 4 for the similarity, that covers
@@ -128,14 +133,22 @@ __device__ __forceinline__ bool is_bit(float x) {
   return x == 0.0f || x == 1.0f;  // -0 == 0; a NaN is neither
 }
 
+// Eq. 9's max(x, 0), NaN kept as torch.clamp and jnp.maximum keep it
+// (fmaxf would drop it): one max.NaN instruction.
+__device__ __forceinline__ float relu_nan(float x) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(x), "f"(0.0f));
+  return r;
+}
+
 // Eq. 9's two cells of one feature, for x = 0 and x = 1, each in the plain
 // version's order of operations: cell[x] = max(x - hi, 0)^2 +
-// max(lo - x, 0)^2.
+// max(lo - x, 0)^2 (NaN if a bound is NaN).
 __device__ __forceinline__ void window_cells(float l, float h, float* cell) {
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
-    const float above = fmaxf(__fsub_rn((float)x, h), 0.0f);
-    const float below = fmaxf(__fsub_rn(l, (float)x), 0.0f);
+    const float above = relu_nan(__fsub_rn((float)x, h));
+    const float below = relu_nan(__fsub_rn(l, (float)x));
     cell[x] = __fadd_rn(__fmul_rn(above, above), __fmul_rn(below, below));
   }
 }
@@ -190,7 +203,7 @@ __device__ __forceinline__ bool pack_window_words(
 // Eq. 9's D of one window row [lo, hi] against nq query rows, features of
 // words [w0, w0 + wn): query j's bit of word w0 + u is bit `lane` of
 // q[j * stride + u]. Lane j sums features 32 w + j in w's order into
-// acc[j] (B7b's score_row order; the caller's shuffle tree sums the lanes),
+// acc[j] (the caller's shuffle tree sums the lanes),
 // each feature's two cells computed once for every query. The loop stays
 // rolled: unrolled or batched, the H100 ran it slower.
 template <int kQ>
@@ -321,7 +334,9 @@ __device__ __forceinline__ void pack_rows(const TileArgs& a, int counters) {
 // `qg` to arrive (an atomic counter) merges the `parts` summaries of each
 // of its rows (exact in any order) and writes the decision, the margin
 // clamped at `cap`; the warps with `decides` set each decide their row b.
-// Every thread of the block calls.
+// Every thread of the block calls. kNaN: the similarity's epilogue
+// (acam_epilogue.cuh).
+template <bool kNaN = false>
 __device__ __forceinline__ void decide_last(const TileArgs& a, int qg,
                                             int parts, int b, bool decides,
                                             float cap, bool* last) {
@@ -335,10 +350,11 @@ __device__ __forceinline__ void decide_last(const TileArgs& a, int qg,
     __threadfence();
     acam::Top top = acam::top_empty();
     for (int i = lane; i < parts; i += 32)
-      top = acam::top_merge(top, load_top(a.tops + (int64_t)b * parts + i));
-    top = acam::top_warp_merge(top);
-    if (lane == 0) acam::top_finish(top, cap, a.tau, b, a.pred, a.margin,
-                                    a.esc);
+      top = acam::top_merge<kNaN>(top,
+                                  load_top(a.tops + (int64_t)b * parts + i));
+    top = acam::top_warp_merge<kNaN>(top);
+    if (lane == 0) acam::top_finish<kNaN>(top, cap, a.tau, b, a.pred,
+                                          a.margin, a.esc);
   }
 }
 
@@ -612,10 +628,12 @@ __global__ void __launch_bounds__(kTileWarps * 32, 1)
 #pragma unroll
         for (int u = 0; u < kS; ++u) {
           if (vf[u] > 0.0f) {
-            if constexpr (kSim)
-              best = fmaxf(best, __fdiv_rn(__fmul_rn((float)diff[u], a.inv_n),
-                                           __fmaf_rn(a.alpha, dist[u], 1.0f)));
-            else
+            if constexpr (kSim) {
+              // the max over K keeps a NaN, as the plain amax does
+              const float s = __fdiv_rn(__fmul_rn((float)diff[u], a.inv_n),
+                                        __fmaf_rn(a.alpha, dist[u], 1.0f));
+              best = s > best || acam::is_nan(s) ? s : best;
+            } else
               best = fmaxf(best, (float)(N - diff[u]));
           }
         }
@@ -624,25 +642,25 @@ __global__ void __launch_bounds__(kTileWarps * 32, 1)
         if (c < C) a.per_class[(int64_t)b * C + c] = best;
         // a lane's classes arrive in increasing order (top_push's
         // precondition), also across the local design's groups
-        if (!kRaw && c >= wlo && c < whi) acam::top_push(top, best, c);
+        if (!kRaw && c >= wlo && c < whi) acam::top_push<kSim>(top, best, c);
       }
     }
     if (kRaw) continue;  // the counts are the output: no decision
-    top = acam::top_warp_merge(top);  // exact in any lane order
+    top = acam::top_warp_merge<kSim>(top);  // exact in any lane order
     if (gc > 1) {  // merge the item's gc class tiles of each row
       if (lane == 0) warp_top[warp] = top;
       __syncthreads();
       if (gt == 0)
         for (int j = 1; j < gc; ++j)
-          top = acam::top_merge(top, warp_top[warp + j]);
+          top = acam::top_merge<kSim>(top, warp_top[warp + j]);
     }
     if (kLocal || groups == 1) {  // the item held every class of its rows
       if (gt == 0 && lane == 0 && b < B)
-        acam::top_finish(top, cap, tau_b, b, a.pred, a.margin, a.esc);
+        acam::top_finish<kSim>(top, cap, tau_b, b, a.pred, a.margin, a.esc);
       continue;
     }
     if (gt == 0 && lane == 0 && b < B) a.tops[(int64_t)b * groups + g0] = top;
-    decide_last(a, qg, groups, b, gt == 0, cap, &last);
+    decide_last<kSim>(a, qg, groups, b, gt == 0, cap, &last);
   }
 }
 

@@ -11,9 +11,11 @@ and comes in two versions in this module:
   * a **plain PyTorch** version (`kd_loss_plain`): log-softmaxes in f32,
     with the TPU kernel's CE pick: a one-hot over the V columns, so a label
     outside ``[0, V)`` picks 0 (and its CE is the log-sum-exp alone);
-  * a **CUDA wrapper** (`kd_loss`) over `csrc/kd_loss.cu`: one block per
-    row streams the row once with the kernel's online (rescaled)
-    accumulators.
+  * a **CUDA wrapper** (`kd_loss`) over `csrc/kd_loss.cu`, one launch per
+    call: a warp per row for short rows (up to `WARP_ROW_COLS` columns, the
+    trainer's V = 10), else each row split into `split_plan` runs of
+    columns, a block each, whose partial accumulators the last block of the
+    row merges in a fixed order (deterministic).
 
 The wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises. Each launch adds one to
@@ -33,6 +35,19 @@ DEFAULT_BLOCK = (256, 2048)  # the TPU kernel's (rows, vocab tile)
 
 #: kernel launches since the last `reset_launches()`
 LAUNCHES = {"kd_loss": 0}
+
+#: rows of at most this many columns take a warp each (the kernel's
+#: rows_kernel); longer ones are split across blocks (split_kernel)
+WARP_ROW_COLS = 1024
+#: a split keeps at least this many columns ...
+MIN_SPLIT_COLS = 1024
+#: ... and the splits aim at no more than this many blocks per SM (the
+#: split kernel's residency on the H100: a second wave would double the time)
+SPLIT_BLOCKS_PER_SM = 2
+#: split lengths are multiples of one 16-byte vector of 16-bit logits
+SPLIT_ALIGN = 8
+#: the H100's SMs (`split_plan`'s default; the wrapper reads the card's)
+H100_SMS = 132
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -57,10 +72,48 @@ def kd_loss_plain(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
     return (alpha * temperature**2) * kl + (1.0 - alpha) * ce
 
 
+def split_cols(v: int, splits: int) -> int:
+    """Columns per split of a V-column row in ``splits`` runs: ceil(V / S)
+    rounded up to `SPLIT_ALIGN` (the last runs may be short or empty)."""
+    cols = -(-v // max(splits, 1))
+    return -(-cols // SPLIT_ALIGN) * SPLIT_ALIGN
+
+
+def split_plan(b: int, v: int, sms: int = H100_SMS) -> tuple[int, int]:
+    """(S, L): the split kernel's S runs of L columns per row. S fills up
+    to `SPLIT_BLOCKS_PER_SM` blocks per SM over the B rows, keeps
+    `MIN_SPLIT_COLS` columns a run, and is at least 1; L is `split_cols`,
+    and S = ceil(V / L), so no run starts past V."""
+    s = max(1, min(SPLIT_BLOCKS_PER_SM * sms // max(b, 1),
+                   v // MIN_SPLIT_COLS))
+    cols = split_cols(v, s)
+    return -(-v // cols), cols
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+#: arrival counters of the split kernel per (device, stream): zero between
+#: launches (the last block of each row resets its own)
+_COUNTERS: dict = {}
+
+
+def _counters(device: torch.device, stream: int, rows: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < rows:
+        buf = _COUNTERS[key] = torch.zeros(max(rows, 256), dtype=torch.int32,
+                                           device=device)
+    return buf
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # zs, zt, labels, B, V, dtype, temperature, coef_kl, coef_ce, out, stream
-    "kd_loss": [_P] * 3 + [_I] * 3 + [_F] * 3 + [_P] * 2,
+    # zs, zt, labels, B, V, dtype, splits, split_cols, temperature,
+    # coef_kl, coef_ce, work, counters, out, stream
+    "kd_loss": [_P] * 3 + [_I] * 5 + [_F] * 3 + [_P] * 4,
 }
 
 
@@ -102,15 +155,17 @@ def kd_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
     if v < 1:
         raise ValueError("logits need at least one column")
     labels = labels.to(torch.int32).contiguous()
-    out = torch.empty(b, dtype=torch.float32, device=device)
+    splits, cols = ((0, v) if v <= WARP_ROW_COLS
+                    else split_plan(b, v, _sms(device.index)))
+    work = b * splits * 8 if splits > 1 else 0  # one Partial a split
+    buf = torch.empty(b + work, dtype=torch.float32, device=device)
     if b:
-        with torch.cuda.device(device):
-            rc = _lib().kd_loss(
-                student_logits.data_ptr(), teacher_logits.data_ptr(),
-                labels.data_ptr(), b, v, _DTYPES[student_logits.dtype],
-                temperature, alpha * temperature**2, 1.0 - alpha,
-                out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"kd_loss: CUDA error {rc} at launch")
-        LAUNCHES["kd_loss"] += 1
-    return out
+        counters = (_counters(device, _build.stream(device), b).data_ptr()
+                    if work else None)
+        _build.launch(_lib(), "kd_loss", device, LAUNCHES,
+                      student_logits.data_ptr(), teacher_logits.data_ptr(),
+                      labels.data_ptr(), b, v, _DTYPES[student_logits.dtype],
+                      splits, cols, temperature, alpha * temperature**2,
+                      1.0 - alpha, buf.data_ptr() + 4 * b if work else None,
+                      counters, buf.data_ptr())
+    return buf[:b]

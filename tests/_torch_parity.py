@@ -112,3 +112,64 @@ def packed_hits(q: torch.Tensor, h0: torch.Tensor,
     1 past N, so the count is exact only because h0 is 0 there."""
     qw = pack_words(q.to(torch.bool))[:, None, :]
     return (popc(~qw & h0[None]) + popc(qw & h1[None])).sum(-1)
+
+
+# ---------------------------------------------------------------------------
+# A plain mirror of the kd_loss kernel's split design (csrc/kd_loss.cu,
+# split_kernel): each row's columns in runs, one partial per run, the
+# partials merged in run order
+# ---------------------------------------------------------------------------
+
+KD_NEG = -1e30  # the identity's running maxima, as in the kernel
+
+
+def kd_split_partials(zs: torch.Tensor, zt: torch.Tensor,
+                      labels: torch.Tensor, splits: int, cols: int,
+                      temperature: float) -> torch.Tensor:
+    """(B, splits, 8) f32 partials (m_u, l_u, a, m_v, l_v, m_w, l_w, pick)
+    of runs [s cols, s cols + cols) of the (B, V) logits (clipped at V; an
+    empty run is the identity: maxima -1e30, sums 0). A run's maxima start
+    at -1e30; pick is z_s[label] for the one run holding the label."""
+    zs, zt = zs.to(torch.float32), zt.to(torch.float32)
+    b, v = zs.shape
+    inv_t = torch.tensor(1.0, dtype=torch.float32) / temperature
+    neg = torch.full((b,), KD_NEG, dtype=torch.float32)
+    rows = torch.arange(b)
+    lab = labels.long()
+    parts = []
+    for s in range(splits):
+        c0, c1 = min(s * cols, v), min(s * cols + cols, v)
+        u, w = zt[:, c0:c1] * inv_t, zs[:, c0:c1]
+        vv = w * inv_t
+        mu, mv, mw = (torch.maximum(neg, x.amax(-1)) if c1 > c0 else neg
+                      for x in (u, vv, w))
+        eu = torch.exp(u - mu[:, None])
+        inside = (lab >= c0) & (lab < c1)
+        pick = torch.where(inside, zs[rows, lab.clamp(0, v - 1)],
+                           torch.zeros(()))
+        parts.append(torch.stack([
+            mu, eu.sum(-1), (eu * (u - vv)).sum(-1),
+            mv, torch.exp(vv - mv[:, None]).sum(-1),
+            mw, torch.exp(w - mw[:, None]).sum(-1), pick], dim=-1))
+    return torch.stack(parts, dim=1)
+
+
+def kd_merge_splits(parts: torch.Tensor, temperature: float,
+                    alpha: float) -> torch.Tensor:
+    """Per-row Eq. 1 (B,) from `kd_split_partials`, merged in run order by
+    the rescale rule, then the kernel's epilogue."""
+    p = parts[:, 0].unbind(-1)
+    mu, lu, a, mv, lv, mw, lw, pick = p
+    for s in range(1, parts.shape[1]):
+        q = parts[:, s].unbind(-1)
+        mn = torch.maximum(mu, q[0])
+        s1, s2 = torch.exp(mu - mn), torch.exp(q[0] - mn)
+        lu, a, mu = lu * s1 + q[1] * s2, a * s1 + q[2] * s2, mn
+        mn = torch.maximum(mv, q[3])
+        lv, mv = lv * torch.exp(mv - mn) + q[4] * torch.exp(q[3] - mn), mn
+        mn = torch.maximum(mw, q[5])
+        lw, mw = lw * torch.exp(mw - mn) + q[6] * torch.exp(q[5] - mn), mn
+        pick = pick + q[7]
+    kl = a / lu - (mu + torch.log(lu)) + (mv + torch.log(lv))
+    ce = (mw + torch.log(lw)) - pick
+    return (alpha * temperature**2) * kl + (1.0 - alpha) * ce

@@ -21,6 +21,8 @@ from _torch_parity import (assert_equal_outputs, binary_windows, dyadic,
                            dyadic_windows, pack_words, packed_hits, t,
                            window_planes)
 from repro.kernels.acam_similarity import ops as jops
+from repro.kernels.acam_similarity.acam_similarity import (
+    acam_similarity as jsim)
 from repro.kernels.acam_similarity.ref import acam_similarity_ref as jref
 from repro_torch.kernels import layout
 from repro_torch.kernels.acam_similarity import acam_similarity as asim
@@ -372,3 +374,107 @@ def test_scratch_words_hold_both_planes(b, n, k, c):
     want = 0 if k * c <= am.LOCAL_ROWS else (
         (b + 2 * k * cp) * w + k * cp + b * k * cp + 3 * b * -(-c // 32) + b)
     assert asim.scratch_words(b, n, k, cp, c) == want
+
+
+# ---------------------------------------------------------------------------
+# NaN: Eq. 9's max(x, 0) keeps a NaN in both packages (jnp.maximum,
+# torch.clamp), so do the max over K and the argmax. The CUDA kernels follow
+# the plain versions (chip_smoke.py holds them there); these cases pin the
+# plain versions to the JAX package.
+# ---------------------------------------------------------------------------
+
+def _nan_case(kind):
+    """A (12, 2, N) bank of ``kind`` with a NaN lower bound in class 1 (slice
+    0) and a NaN upper bound in class 5 (slice 1), every row valid; windows
+    covering class 1, excluding it, or holding class 0 alone."""
+    x = _case(31 + len(kind), 6, 12, 2, N, kind)
+    x["lower"][1, 0, 7] = np.nan
+    x["upper"][5, 1, 40] = np.nan
+    x["valid"][:] = True
+    x["lo"][:] = [0, 0, 2, 6, 0, 1]
+    x["hi"][:] = [12, 12, 5, 12, 1, 2]
+    x["q"][2, 9] = np.nan
+    x["tau"] = np.full(6, 0.01, np.float32)
+    return x
+
+
+@pytest.mark.parametrize("kind", ["binary", "dyadic"])
+def test_nan_scores_match_jax(kind):
+    """B7b: a NaN window bound gives NaN in its template row's column for
+    every query, a NaN query NaN in its row; elsewhere bit-identical."""
+    x = _nan_case(kind)
+    n = x["lower"].shape[-1]
+    lo, hi = x["lower"].reshape(-1, n), x["upper"].reshape(-1, n)
+    want = np.asarray(jops.similarity_scores(
+        jnp.asarray(x["q"]), jnp.asarray(lo), jnp.asarray(hi)))
+    got = tops.similarity_scores(t(x["q"]), t(lo), t(hi)).numpy()
+    np.testing.assert_array_equal(got, want)  # NaN where NaN
+    nan_cols = [1 * 2 + 0, 5 * 2 + 1]  # class-major rows c * K + k
+    assert np.isnan(want[:, nan_cols]).all() and np.isnan(want[2]).all()
+    rest = np.delete(np.delete(want, nan_cols, axis=1), 2, axis=0)
+    assert not np.isnan(rest).any()
+
+
+@pytest.mark.parametrize("kind", ["binary", "dyadic"])
+@pytest.mark.parametrize("c,k", [RESIDENT, CHUNKED])
+def test_nan_bounds_classify_and_serve_match_jax(c, k, kind):
+    """B5 and B6 with NaN bounds in classes 1 and 5: per_class NaN there,
+    pred the lowest NaN class in the row's window, margin 0 and escalate
+    (margin < tau) wherever the window holds a NaN class, as in both
+    packages; windows without one decide as usual."""
+    x = _nan_case(kind)
+    if (c, k) == CHUNKED:  # the NaN classes inside a 1,100-class bank
+        big = _case(37, 6, c, k, N, kind)
+        for f in ("lower", "upper"):
+            big[f][:12] = x[f]
+        big["valid"][:] = True
+        x.update(lower=big["lower"], upper=big["upper"], valid=big["valid"])
+        x["hi"][:] = [12, c, 5, c, 1, 2]
+    faces = _faces(x, 1.0, fused=(c, k) == RESIDENT)
+    for name in ("classify", "margins", "serve"):
+        if name not in faces:
+            continue
+        want, got = faces[name]
+        assert_equal_outputs(got, want)
+        per_class = np.asarray(want[1])
+        assert np.isnan(per_class[:, [1, 5]]).all(), name
+        assert not np.isnan(np.delete(per_class, [1, 5], axis=1)).any()
+    pred, _, margin, esc = (np.asarray(v) for v in faces["serve"][0])
+    assert pred.tolist()[:3] == [1, 1, 2] and pred[5] == 1
+    assert (margin[[0, 1, 5]] == 0).all() and esc[[0, 1, 5]].all()
+    assert pred[4] == 0 and margin[4] == 1.0  # class 0 alone
+    assert np.isfinite(margin).all()
+
+
+# ---------------------------------------------------------------------------
+# B7b at the edges of the CUDA kernel's tiles (`csrc/acam_similarity.cu`,
+# sim_tile_kernel): 2 queries x 12 rows with 128-feature slices, or 8 x 16
+# with 64-feature slices where the grid fills the card. The plain version
+# the kernel is held to on the card, against the jitted JAX kernel.
+# ---------------------------------------------------------------------------
+
+TILE_EDGES = [(1, 1, 1), (1, 12, 128), (3, 11, 127), (2, 13, 129),
+              (7, 15, 63), (9, 17, 65), (8, 16, 64), (5, 2, 100)]
+
+
+@pytest.mark.parametrize("alpha", ALPHAS)
+@pytest.mark.parametrize("b,m,n", TILE_EDGES)
+def test_scores_at_tile_edges(b, m, n, alpha):
+    """Binary windows with -0.0 zero bounds, and dyadic windows: the plain
+    version equals the JAX Pallas kernel (interpret) bit for bit."""
+    rng = np.random.default_rng(b * 1000 + m * 10 + n)
+    q = dyadic(rng, (b, n))
+    for kind in ("negative_zero", "dyadic"):
+        if kind == "negative_zero":  # binary, every zero bound -0.0
+            lower, upper = (w[:, 0] for w in binary_windows(rng, m, 1, n))
+            lower.flat[0] = 0.0  # at least one zero bound
+            lower, upper = (np.where(w == 0, np.float32(-0.0), w)
+                            for w in (lower, upper))
+        else:
+            lower, upper, _ = _windows(rng, m, n, kind)
+        want = np.asarray(jsim(jnp.asarray(q), jnp.asarray(lower),
+                               jnp.asarray(upper), alpha=alpha,
+                               interpret=True))
+        got = asim.similarity_plain(t(q), t(lower), t(upper),
+                                    alpha=alpha).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=kind)

@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import t
+from _torch_parity import kd_merge_splits, kd_split_partials, t
+from repro.kernels.kd_loss import kd_loss as jkd
 from repro.kernels.kd_loss import ops as jkd_ops
 from repro.kernels.kd_loss.ref import kd_loss_ref as jkd_loss_ref
 from repro_torch.core import distill as tdistill
@@ -134,3 +135,85 @@ def test_cpu_tensors_take_the_plain_version():
     np.testing.assert_array_equal(
         got.numpy(), tkd.kd_loss_plain(t(zs), t(zt), t(y)).numpy())
     assert got.dtype == torch.float32 and got.shape == (4,)
+
+
+# ---------------------------------------------------------------------------
+# The split design of the B8 kernel (`csrc/kd_loss.cu`, split_kernel),
+# checked on its plain mirror (`_torch_parity.kd_split_partials` /
+# `kd_merge_splits`), not on the kernel, which runs only on the card
+# (chip_smoke.py holds it to the plain version there).
+# ---------------------------------------------------------------------------
+
+def _jax_rows(zs, zt, y, temperature=4.0, alpha=0.5):
+    """The JAX Pallas kernel (interpret mode), per row."""
+    return np.asarray(jkd.kd_loss(jnp.asarray(zs), jnp.asarray(zt),
+                                  jnp.asarray(y), temperature=temperature,
+                                  alpha=alpha, interpret=True))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 5, 8])
+@pytest.mark.parametrize("b,v", [(6, 3001), (3, 5), (4, 40)])
+def test_split_mirror_matches_jax(b, v, splits):
+    """Runs of `split_cols(V, S)` columns, merged in run order, equal the
+    JAX kernel within rel 1e-4; V < S leaves runs empty (the identity)."""
+    zs, zt, y = _case(b * v + splits, b, v)
+    cols = tkd.split_cols(v, splits)
+    assert cols % tkd.SPLIT_ALIGN == 0 and splits * cols >= v
+    parts = kd_split_partials(t(zs), t(zt), t(y), splits, cols, 2.0)
+    if v < splits:
+        empty = parts[:, -1]
+        assert bool((empty[:, [0, 3, 5]] == -1e30).all())
+        assert bool((empty[:, [1, 2, 4, 6, 7]] == 0).all())
+    got = kd_merge_splits(parts, 2.0, 0.3).numpy()
+    np.testing.assert_allclose(got, _jax_rows(zs, zt, y, 2.0, 0.3),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("splits", [1, 3, 8])
+def test_split_mirror_out_of_range_labels(splits):
+    """Labels -1, V and 4096 pick 0 in every run (CE = lse); an in-range
+    label is picked by exactly one run. -1 and 4096 are held to the JAX
+    kernel, V to the port's plain version (the JAX kernel pads V to its
+    2,048-column tile, so a label in [V, 2048) picks its -1e30 padding)."""
+    b, v = 5, 2050
+    zs, zt, y = _case(40 + splits, b, v)
+    y[1], y[2], y[3] = -1, v, 4096
+    cols = tkd.split_cols(v, splits)
+    parts = kd_split_partials(t(zs), t(zt), t(y), splits, cols, 4.0)
+    picked = (parts[:, :, 7] != 0).sum(-1).tolist()
+    assert picked == [1, 0, 0, 0, 1]
+    got = kd_merge_splits(parts, 4.0, 0.5).numpy()
+    want = _jax_rows(zs, zt, y)
+    rows = [0, 1, 3, 4]
+    np.testing.assert_allclose(got[rows], want[rows], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(
+        got, tkd.kd_loss_plain(t(zs), t(zt), t(y)).numpy(), rtol=1e-4,
+        atol=1e-5)
+
+
+def test_split_mirror_bf16():
+    zs, zt, y = _case(44, 4, 3000)
+    zs16, zt16 = (torch.from_numpy(a).to(torch.bfloat16) for a in (zs, zt))
+    got = kd_merge_splits(kd_split_partials(zs16, zt16, t(y), 5,
+                                            tkd.split_cols(3000, 5), 4.0),
+                          4.0, 0.5).numpy()
+    want = _jax_rows(jnp.asarray(zs, jnp.bfloat16),
+                     jnp.asarray(zt, jnp.bfloat16), y)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,v", [(64, 32000), (8, 152064), (1, 152064),
+                                 (128, 10), (13, 5000), (3, 1025),
+                                 (256, 2048), (1, 1), (4096, 2048),
+                                 (1024, 152064), (300, 8193)])
+def test_split_plan(b, v):
+    """S >= 1 runs of L columns (a multiple of 8) cover the row, none starts
+    past V, and B x S covers the H100's 132 SMs at the bench shape and the
+    Qwen vocabulary."""
+    s, cols = tkd.split_plan(b, v)
+    assert s >= 1 and cols % tkd.SPLIT_ALIGN == 0
+    assert (s - 1) * cols < v <= s * cols
+    assert s == 1 or cols >= tkd.MIN_SPLIT_COLS
+    if (b, v) in ((64, 32000), (8, 152064)):
+        assert b * s >= tkd.H100_SMS
+    assert tkd.split_plan(b, v, sms=264)[0] >= s
