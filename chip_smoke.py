@@ -111,7 +111,19 @@ JAX:
               student's logits against the trainer's Eq. 1 (rel 1e-4), and
               B9's `ops.attention` at the bench shape against
               `chunked_attention`.
- 3. report    the card's name and power limit, metrics and the energy
+ 3. device    the §III device-physics backend (`repro_torch.core.acam`,
+              plain PyTorch on the card, no kernel): the launcher booted
+              from a ``backend="device"`` spec (8 tenants x 10 classes, 64
+              slots, 256 requests, tau 200 counts) for both cells at sigma_program 0 and
+              0.05, bit-identical to the CPU at 0 (decisions equal and
+              margins within 1e-6 at 0.05); the big bank's
+              `classify_features_margin` equal to the CPU's, and
+              `sweep_program_noise` (8 draws, "global" and "per_shard" over
+              2 arrays) predicting as the CPU does draw by draw; `to_acam`
+              and 20 steps of `calibrate_windows` with a falling loss. Tick
+              and wall times, device time and idle share, and the bytes
+              bound of one sense pass are reported.
+ 4. report    the card's name and power limit, metrics and the energy
               split, the training step's time, device time and idle share,
               one ``{"kernels": [...]}`` line (ten kernels), and as the last
               line ``{"ok": true, "device": {...}}``. ``--report PATH``
@@ -2252,6 +2264,256 @@ def attention_path(device) -> dict:
     return {"attention": dict(launches=counts, wall_s=wall)}
 
 
+# ---------------------------------------------------------------------------
+# 3. the §III device physics (plain PyTorch on the card, no kernel)
+# ---------------------------------------------------------------------------
+
+DEVICE_CELLS = ("6T4R", "3T1R")
+DEVICE_SIGMAS = (0.0, 0.05)
+DEVICE_DRAWS = 8
+DEVICE_MARGIN_ATOL = 1e-6  # served margins card vs CPU at sigma > 0
+# the device service's cascade threshold in match-count units (tau / N in
+# matchline fractions): inside the ideal array's served margins (about 170
+# to 256 counts on these tenants), so some requests escalate at sigma 0
+DEVICE_TAU = 200.0
+CALIBRATION_STEPS = 20
+
+
+def sense_bound(b: int, rows: int, n: int) -> dict:
+    """The least time of one `acam.sense` pass over a programmed array:
+    each input read once (the binarised queries (B, N) f32, the programmed
+    lower and upper edges (rows, N) f32 each, valid (rows,) bool) and each
+    output written once (the (B, rows) f32 scores), over HBM_BYTES_PER_S;
+    against two compares, an AND and an add per (query, row, cell) at
+    INSTR_PER_S."""
+    nbytes = 4 * b * n + 8 * rows * n + rows + 4 * b * rows
+    ops = 4 * b * rows * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INSTR_PER_S * 1e3
+    return dict(bytes=nbytes, bytes_ms=t_bytes, operations=ops,
+                operations_ms=t_ops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def device_physics(device) -> dict:
+    """The device-physics backend (`repro_torch.core.acam`, RRAM-CMOS §III)
+    through its entry points at full width, held against the same calls on
+    the CPU: the served path (the launcher with a ``backend="device"`` spec,
+    both cells at sigma_program 0 and 0.05), the big bank's
+    `classify_features_margin` and `sweep_program_noise` (8 draws, "global"
+    and "per_shard" over 2 arrays), and `to_acam` + `calibrate_windows` on
+    the predict shape (the head and features of `paths`' predict, rebuilt
+    from the same seeds)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import match
+    from repro_torch.core import acam, quant
+    from repro_torch.core.hybrid import fit_acam_head
+    from repro_torch.core.templates import TemplateBank
+    from repro_torch.launch import serve as launcher
+    from repro_torch.match import EngineConfig
+    from repro_torch.models.cnn import StudentConfig, init_student, \
+        student_features
+    from repro_torch.serve import acam_service as svc_lib
+    from repro_torch.serve.control import HybridService
+    from repro_torch.serve.spec import (CascadeSpec, RegistrySpec,
+                                        SchedulerSpec, ServiceSpec)
+
+    model = init_student(torch.Generator().manual_seed(0), StudentConfig(),
+                         device=device)
+    rng = np.random.default_rng(0)
+    protos = rng.standard_normal((10, 32, 32, 1)).astype(np.float32)
+    cal_y = np.repeat(np.arange(10), 64)
+    head = fit_acam_head(student_features, model,
+                         class_images(rng, protos, cal_y, 0.5), cal_y, 10,
+                         device=device)
+    test_y = rng.integers(0, 10, 256)
+    with torch.no_grad():
+        feats = student_features(model, class_images(rng, protos, test_y,
+                                                     0.5))
+    n = feats.shape[1]
+    cpu = torch.device("cpu")
+    out = dict(served={}, sweep={})
+    for mod in launch_modules():
+        mod.reset_launches()
+    t_phase = time.perf_counter()
+
+    # -- the served path: launch.serve.main with a "device" spec ------------
+    reqs = []
+    for t in range(TENANTS):
+        _, _, protos = svc_lib.make_synthetic_tenant(
+            t, num_classes=10, num_features=n)
+        f, _ = svc_lib.sample_tenant_queries(7 * t, protos, 256 // TENANTS)
+        reqs += [svc_lib.ClassifyRequest(f"tenant-{t}", row) for row in f]
+    for cell in DEVICE_CELLS:
+        for sigma in DEVICE_SIGMAS:
+            spec = ServiceSpec(
+                registry=RegistrySpec(num_features=n),
+                engine=EngineConfig(backend="device", margin=True,
+                                    device=acam.ACAMConfig(
+                                        cell=cell, sigma_program=sigma)),
+                scheduler=SchedulerSpec(slots=64),
+                cascade=CascadeSpec(tau=DEVICE_TAU, tau_units="count"))
+            with tempfile.TemporaryDirectory() as tmp:
+                path = Path(tmp) / "device_service.json"
+                path.write_text(spec.to_json())
+                argv = ["--workload", "acam", "--spec", str(path),
+                        "--tenants", str(TENANTS), "--classes", "10",
+                        "--requests", "256"]
+                t0 = time.perf_counter()
+                got = launcher.main(argv, device=device)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                want = launcher.main(argv, device="cpu")
+            resp, cpu_resp = got.pop("responses"), want.pop("responses")
+            name = f"{cell} sigma {sigma}"
+            check(len(resp) == 256 and all(r.error is None for r in resp),
+                  f"device serve ({name}): every request answered")
+            check(all(np.isfinite(r.margin) and 0.0 <= r.margin <= 1.0
+                      for r in resp),
+                  f"device serve ({name}): margins in [0, 1] fractions")
+            same = all((a.pred, a.margin, a.escalated, a.energy_j) ==
+                       (b.pred, b.margin, b.escalated, b.energy_j)
+                       for a, b in zip(resp, cpu_resp))
+            if sigma == 0.0:
+                check(same, f"device serve ({name}): the card and the CPU "
+                      "answer differently")
+                check(0.0 < got["escalation_rate"] < 1.0,
+                      f"device serve ({name}): escalation rate "
+                      f"{got['escalation_rate']}")
+            check(all((a.pred, a.escalated) == (b.pred, b.escalated)
+                      and abs(a.margin - b.margin) <= DEVICE_MARGIN_ATOL
+                      for a, b in zip(resp, cpu_resp)),
+                  f"device serve ({name}): card and CPU decisions differ")
+            svc = HybridService.from_spec(spec, device=device)
+            for t in range(TENANTS):
+                bnk, hwb, _ = svc_lib.make_synthetic_tenant(
+                    t, num_classes=10, num_features=n)
+                svc.register_tenant(f"tenant-{t}", bnk, head=hwb)
+            out["served"][name] = dict(
+                wall_s=wall, bit_identical_to_cpu=same,
+                tick_ms=got["tick_time_s"] / got["ticks"] * 1e3,
+                ticks=got["ticks"],
+                escalation_rate=got["escalation_rate"],
+                accuracy=got["accuracy"], metrics=got,
+                profile=profile(lambda: svc.serve(reqs)))
+
+    # -- the big bank: classify_features_margin, then the sweep -------------
+    x = case(17, 64, 1100, 2, n, device)
+    big = TemplateBank(x["t"], x["t"], x["t"], x["valid"], x["thr"])
+    big_cpu = TemplateBank(*(v.cpu() for v in big))
+    eng = match.engine_for(backend="device")
+    t0 = time.perf_counter()
+    got = eng.classify_features_margin(x["f"], big)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want = eng.classify_features_margin(x["f"].cpu(), big_cpu)
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+          "device big bank: the card and the CPU answer differently")
+    check(got[1].shape == (64, 1100) and bool(torch.isfinite(got[2]).all()),
+          "device big bank: (64, 1100) scores, finite margins")
+    ideal = got[0]
+    out["big_bank"] = dict(
+        wall_s=wall, shape=dict(B=64, C=1100, K=2, N=n),
+        sense_bound=sense_bound(64, 2200, n),
+        profile=profile(lambda: eng.classify_features_margin(x["f"], big),
+                        reps=5))
+    noisy = acam.ACAMConfig(sigma_program=0.05)
+    fields = {}
+    for mode, shards in (("global", None), ("per_shard", 2)):
+        eng = match.engine_for(backend="device", device=noisy,
+                               device_noise=mode)
+
+        def sweep(on, eng=eng, shards=shards):
+            return eng.sweep_program_noise(
+                x["f"].to(on), big if on == device else big_cpu,
+                DEVICE_DRAWS, bank_shards=shards, device=on)
+
+        t0 = time.perf_counter()
+        pred, per_class = sweep(device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cpu_pred, cpu_pc = sweep(cpu)
+        check(pred.shape == (DEVICE_DRAWS, 64),
+              f"sweep ({mode}): (draws, B) preds")
+        for m in range(DEVICE_DRAWS):
+            check(torch.equal(pred[m].cpu(), cpu_pred[m]),
+                  f"sweep ({mode}): draw {m} predicts differently on the "
+                  "card and the CPU")
+        check(not torch.equal(per_class[0], per_class[1]),
+              f"sweep ({mode}): draws 0 and 1 programmed the same array")
+        fields[mode] = per_class
+        agree = (pred == ideal[None]).float().mean(1)
+        out["sweep"][mode] = dict(
+            wall_s=wall, draws=DEVICE_DRAWS, bank_shards=shards or 1,
+            per_class_bit_identical_to_cpu=torch.equal(per_class.cpu(),
+                                                       cpu_pc),
+            agreement_with_ideal=agree.cpu().tolist(),
+            profile=profile(lambda: sweep(device)))
+    check(not torch.equal(fields["global"], fields["per_shard"]),
+          'sweep: "global" and "per_shard" programmed the same arrays')
+
+    # -- to_acam + calibrate_windows on the predict shape -------------------
+    q = quant.binarize(feats, head.bank.thresholds)
+    labels = torch.as_tensor(test_y, device=device)
+    prog = head.to_acam(device=device)
+    losses = [float(acam.calibration_loss(prog, q, labels))]
+    stepped = prog
+    for _ in range(CALIBRATION_STEPS):
+        stepped = acam.calibrate_windows(stepped, q, labels, steps=1)
+        losses.append(float(acam.calibration_loss(stepped, q, labels)))
+    t0 = time.perf_counter()
+    cal = acam.calibrate_windows(prog, q, labels, steps=CALIBRATION_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    final = float(acam.calibration_loss(cal, q, labels))
+    check(all(np.isfinite(v) for v in losses + [final]),
+          "calibration: finite losses")
+    check(final < losses[0] and losses[-1] < losses[0],
+          f"calibration: loss {losses[0]} -> {final} is not falling")
+    check(bool((cal.upper >= cal.lower).all()),
+          "calibration: inverted windows")
+    out["calibration"] = dict(
+        wall_s=wall, steps=CALIBRATION_STEPS, rows=int(prog.lower.shape[0]),
+        features=n, losses=losses, final_loss=final)
+    for mod in launch_modules():
+        check(not any(mod.LAUNCHES.values()),
+              "device physics: a kernel launched on the device path")
+    return dict(launches=launch_counts(),
+                wall_s=time.perf_counter() - t_phase, **out)
+
+
+def print_device_physics(dp: dict, mega: dict) -> None:
+    """The device-physics phase's numbers, beside the kernel backend's
+    serve ticks (``mega``) of the same run."""
+    print(f"kernel backend serve ticks (mega, this run): tick "
+          f"{mega['tick_ms']:.4f} ms, profile {json.dumps(mega['profile'])}")
+    for name, r in dp["served"].items():
+        print(f"device_physics serve ({name}): tick {r['tick_ms']:.4f} ms "
+              f"over {r['ticks']} ticks, escalation rate "
+              f"{r['escalation_rate']:.4f}, card == CPU bitwise "
+              f"{r['bit_identical_to_cpu']}, profile "
+              f"{json.dumps(r['profile'])}")
+    bb = dp["big_bank"]
+    print(f"device_physics big bank {json.dumps(bb['shape'])}: "
+          f"classify_features_margin wall {bb['wall_s'] * 1e3:.3f} ms, "
+          f"profile {json.dumps(bb['profile'])}, one sense pass "
+          f"{json.dumps(bb['sense_bound'])}")
+    for mode, r in dp["sweep"].items():
+        print(f"device_physics sweep ({mode}, {r['draws']} draws, "
+              f"{r['bank_shards']} arrays): wall {r['wall_s'] * 1e3:.3f} ms, "
+              "per_class card == CPU bitwise "
+              f"{r['per_class_bit_identical_to_cpu']}, profile "
+              f"{json.dumps(r['profile'])}")
+    cal = dp["calibration"]
+    print(f"device_physics calibration ({cal['rows']} rows x "
+          f"{cal['features']}): {cal['steps']} steps in "
+          f"{cal['wall_s'] * 1e3:.3f} ms, loss {cal['losses'][0]:.6f} -> "
+          f"{cal['final_loss']:.6f}")
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -2299,6 +2561,7 @@ def main(argv: list[str]) -> int:
     trained, training = training_paths(device)
     report.update(trained)
     report.update(attention_path(device))
+    report["device_physics"] = device_physics(device)
     launches = {}
     for path in report.values():
         for k, v in path["launches"].items():
@@ -2378,6 +2641,7 @@ def main(argv: list[str]) -> int:
           + json.dumps(kernels["acam_similarity_serve"]["big_bank"]
                        ["real_windows"]))
     print(f"profile sessions retried: {json.dumps(PROFILE_RETRIES)}")
+    print_device_physics(report["device_physics"], report["serve_mega"])
     check(set(kernels) == set(KERNELS), "every ported kernel measured")
 
     line = {"kernels": [

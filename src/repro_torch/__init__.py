@@ -13,9 +13,11 @@ where a reader expects it:
     kernels/kd_loss/           the fused Eq. 1-3 distillation loss (B8)
     kernels/flash_attention/   attention forward, online softmax, GQA (B9)
     kernels/_build.py          nvcc build + ctypes loader for `csrc/*.cu`
-    core/                      quant (STE), templates, energy, acam config,
-                               hybrid, distill (Eq. 1-4), prune (Eq. 5-7)
-    match/                     EngineConfig, backends, MatchEngine
+    core/                      quant (STE), templates, energy, acam (the
+                               §III device models), hybrid, distill (Eq.
+                               1-4), prune (Eq. 5-7), matching (shims)
+    match/                     EngineConfig, backends (reference, kernel,
+                               device), MatchEngine
     models/cnn.py              the Fig. 5 student and the ResNet teacher
     models/layers.py           chunked_attention
     data/, optim/, train/      synthetic data + pipeline, AdamW/SGD, trainer

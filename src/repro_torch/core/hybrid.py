@@ -6,7 +6,9 @@
 
 `ACAMHead` replaces a model's dense softmax head with template matching;
 all matching routes through `repro_torch.match.MatchEngine`, so the head
-runs on the CUDA kernels (the default on the card) or the plain reference.
+runs on the CUDA kernels (the default on the card), the plain reference, or
+the RRAM device-physics models (``backend="device"``); `ACAMHead.to_acam`
+programs its bank into a `repro_torch.core.acam` array.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch import match as match_lib
+from repro_torch.core import acam as acam_lib
 from repro_torch.core import energy as energy_lib
 from repro_torch.core import quant, templates
 from repro_torch.device import resolve
@@ -46,10 +49,16 @@ class ACAMHead(NamedTuple):
         q = quant.binarize(features, self.bank.thresholds)
         return self.engine().scores(q, self.bank).amax(dim=-1)
 
-    def to_acam(self, config=None, key=None):
-        raise NotImplementedError(
-            "programming the bank into an ACAM array (core/acam.program) "
-            "comes with the device-physics slice of the port")
+    def to_acam(self, config: acam_lib.ACAMConfig | None = None, key=None,
+                *, device=None) -> acam_lib.ProgrammedACAM:
+        """Flatten the bank class-major into a programmed ACAM array on
+        ``device`` (the card unless the caller asks for the CPU)."""
+        cfg = config or acam_lib.ACAMConfig()
+        c, k, n = self.bank.templates.shape
+        return acam_lib.program(self.bank.lower.reshape(c * k, n),
+                                self.bank.upper.reshape(c * k, n),
+                                self.bank.valid.reshape(c * k), cfg, key,
+                                device=device)
 
     def energy_per_inference(self) -> float:
         rows = int(self.bank.valid.sum())

@@ -11,13 +11,18 @@ service metrics. It runs on the card unless the caller asks for the CPU
   python -m repro_torch.launch.serve --workload acam --spec service.json
   python -m repro_torch.launch.serve --workload acam --tenants 8 \\
       --requests 256 --slots 64 --print-spec
+  python -m repro_torch.launch.serve --workload acam \\
+      --backend device   # serve through the RRAM-CMOS physics models
 
-Not in the port yet, each raising `NotImplementedError`: the ``lm`` and
-``lm-cached`` workloads (the LM slice), ``--manifest`` and ``--autopilot``
-(the fleet slice), ``--snapshot-dir`` / ``--restore`` (snapshots),
-``--bank-shards > 1`` (the multi-GPU slice) and ``--backend device`` (the
-device-physics slice). ``--profile-annotations`` marks each fused dispatch
-with `torch.profiler.record_function`.
+Under ``--backend device`` the served margins are matchline fractions and
+the spec rescales the count-unit ``--margin-tau`` by 1/N itself
+(`ServiceSpec.tau_scale`); ``--device-noise`` picks the programming-noise
+semantics. Not in the port yet, each raising `NotImplementedError`: the
+``lm`` and ``lm-cached`` workloads (the LM slice), ``--manifest`` and
+``--autopilot`` (the fleet slice), ``--snapshot-dir`` / ``--restore``
+(snapshots) and ``--bank-shards > 1`` (the multi-GPU slice).
+``--profile-annotations`` marks each fused dispatch with
+`torch.profiler.record_function`.
 """
 from __future__ import annotations
 
@@ -76,10 +81,6 @@ def _unported(args) -> None:
         raise NotImplementedError(
             f"--bank-shards {args.bank_shards}: sharding the super-bank "
             "over several cards comes with the multi-GPU slice of the port")
-    if args.backend == "device":
-        raise NotImplementedError(
-            "--backend device: the RRAM-CMOS physics backend comes with the "
-            "device-physics slice of the port")
 
 
 def run_acam(args, device=None) -> dict:
@@ -195,8 +196,8 @@ def main(argv=None, *, device=None) -> dict:
     ap.add_argument("--backend", default=None,
                     choices=("auto", "kernel", "reference", "device"),
                     help="repro_torch.match engine backend for the ACAM "
-                         "service (device: not in the port yet); default: "
-                         "REPRO_MATCHING_BACKEND / auto")
+                         "service (device: the RRAM-CMOS physics models); "
+                         "default: REPRO_MATCHING_BACKEND / auto")
     ap.add_argument("--bank-shards", type=int, default=1,
                     help="shard the template super-bank's class rows over "
                          "this many cards (only 1 in the port yet)")

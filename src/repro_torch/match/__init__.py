@@ -6,16 +6,18 @@
     engine    MatchEngine(EngineConfig)   one hashable config
                  |
     backends  reference (plain PyTorch oracles) | kernel (the CUDA kernels
-              of repro_torch.kernels.acam_match)
+              of repro_torch.kernels) | device (repro_torch.core.acam
+              RRAM-CMOS physics)
 """
 from repro_torch.match.backends import (MAX_FUSED_ROWS, TINY_ELEMENTS,
                                         TINY_ELEMENTS_SIMILARITY,
-                                        KernelBackend, MatchBackend,
-                                        ReferenceBackend, backend_for,
-                                        backend_names, classify_scores,
+                                        DeviceBackend, KernelBackend,
+                                        MatchBackend, ReferenceBackend,
+                                        backend_for, backend_names,
+                                        classify_scores,
                                         feature_count_scores_ref,
                                         similarity_scores_ref, tiny_cutoff,
-                                        window_margin)
+                                        window_margin, winner_take_all)
 from repro_torch.match.config import EngineConfig
 from repro_torch.match.engine import (MatchEngine, default_backend,
                                       engine_for, engine_from_config,
@@ -23,9 +25,10 @@ from repro_torch.match.engine import (MatchEngine, default_backend,
 
 __all__ = [
     "MAX_FUSED_ROWS", "TINY_ELEMENTS", "TINY_ELEMENTS_SIMILARITY",
-    "KernelBackend", "MatchBackend", "ReferenceBackend", "backend_for",
-    "backend_names", "classify_scores", "feature_count_scores_ref",
-    "similarity_scores_ref", "tiny_cutoff",
-    "window_margin", "EngineConfig", "MatchEngine", "default_backend",
-    "engine_for", "engine_from_config", "set_default_backend", "use_backend",
+    "DeviceBackend", "KernelBackend", "MatchBackend", "ReferenceBackend",
+    "backend_for", "backend_names", "classify_scores",
+    "feature_count_scores_ref", "similarity_scores_ref", "tiny_cutoff",
+    "window_margin", "winner_take_all", "EngineConfig", "MatchEngine",
+    "default_backend", "engine_for", "engine_from_config",
+    "set_default_backend", "use_backend",
 ]

@@ -22,11 +22,19 @@ Backends:
              `acam_match_serve` / `acam_similarity_serve` (or the "compose"
              baseline); the ``*_scores`` entry points are the raw-score
              kernels. On CPU tensors each kernel runs its plain version.
+  device     the RRAM-CMOS physics models of `repro_torch.core.acam` (§III),
+             plain PyTorch on the operands' device: the bank is programmed
+             into a (C*K)-row TXL array (point templates become lower ==
+             upper windows), optionally with log-normal `sigma_program`
+             write noise, and scores are the sense-amplifier outputs in
+             matchline units (margins cap at 1.0, not N). `alpha` is ignored:
+             the Eq. 9 distance is digital post-processing the matchline
+             does not integrate.
 
 Similarity scores follow the arithmetic order of
 `repro_torch.kernels.acam_similarity.ref` everywhere (hit count, ``*
-inv_n``, ``/ (1 + alpha * D)``), so both backends give the JAX package's
-bits. The device-physics backend comes with a later slice of the port.
+inv_n``, ``/ (1 + alpha * D)``), so the reference and kernel backends give
+the JAX package's bits.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core import acam as acam_lib
 from repro_torch.core import quant
 from repro_torch.core.templates import TemplateBank
 from repro_torch.match.config import EngineConfig
@@ -72,6 +81,13 @@ def classify_scores(scores: torch.Tensor
     """Eq. 12 with multi-template max-pooling: (B, C, K) -> (pred, per_class)."""
     per_class = scores.amax(dim=-1)
     return torch.argmax(per_class, dim=-1).to(torch.int32), per_class
+
+
+def winner_take_all(per_class: torch.Tensor) -> torch.Tensor:
+    """One-hot WTA output (the analogue WTA network's digital semantics)."""
+    return torch.nn.functional.one_hot(
+        torch.argmax(per_class, dim=-1), per_class.shape[-1]).to(
+            torch.float32)
 
 
 def window_margin(per_class: torch.Tensor, class_lo=None, class_hi=None, *,
@@ -304,12 +320,147 @@ class KernelBackend(MatchBackend):
 
 
 # ---------------------------------------------------------------------------
+# device backend (RRAM-CMOS physics, repro_torch.core.acam)
+# ---------------------------------------------------------------------------
+
+class DeviceBackend(MatchBackend):
+    """Matching through the §III TXL-ACAM behavioural models.
+
+    The bank is flattened class-major into a (C*K, N) array and programmed
+    (`acam.program`) on the operands' device. ``sigma_program > 0`` applies
+    the log-normal RRAM write noise keyed by the engine config's seed
+    (`acam.prng_key`), so noisy-hardware sweeps run through the same API as
+    the ideal backends. Scores are `acam.sense` outputs: the matchline
+    charge fraction (6T4R) or dual-rail survival fraction (3T1R).
+    """
+
+    name = "device"
+
+    def __init__(self, config: EngineConfig):
+        super().__init__(config)
+        self.acam_config = config.device or acam_lib.ACAMConfig()
+
+    @property
+    def per_shard_noise(self) -> bool:
+        """Per-shard programming keys (`EngineConfig.device_noise`): array s
+        of an S-array tiling draws its noise from ``fold_in(key, s)``."""
+        return self.config.device_noise == "per_shard"
+
+    @property
+    def supports_bank_sharding(self) -> bool:
+        """Whether the bank may be cut into class-row shards (the JAX
+        package's `PartitionPlan`): "global" noise draws one field per
+        programmed array, so shards programmed apart would realise another
+        layout; the ideal array (sigma 0) is row-independent."""
+        return self.acam_config.sigma_program <= 0.0 or self.per_shard_noise
+
+    def _program_rows(self, lower, upper, valid_flat, key=None
+                      ) -> acam_lib.ProgrammedACAM:
+        if key is None and self.acam_config.sigma_program > 0.0:
+            key = acam_lib.prng_key(self.config.seed)
+        return acam_lib.program(lower, upper, valid_flat, self.acam_config,
+                                key, device=lower.device)
+
+    def _bank_rows(self, bank: TemplateBank):
+        c, k, n = bank.templates.shape
+        if self.config.method == "feature_count":
+            lo = hi = bank.templates.reshape(c * k, n)
+        else:
+            lo = bank.lower.reshape(c * k, n)
+            hi = bank.upper.reshape(c * k, n)
+        return lo, hi, bank.valid.reshape(c * k)
+
+    def program_bank(self, bank: TemplateBank, key=None, *,
+                     shard_index: int = 0, bank_shards: int = 1
+                     ) -> acam_lib.ProgrammedACAM:
+        """Bank -> the programmed (C*K, N) TXL array the engine matches
+        against (public for calibration flows). ``key`` overrides the
+        config-seed draw (the sweep's per-draw keys).
+
+        Under ``device_noise="per_shard"`` the key is ``fold_in(key,
+        shard_index)``, and ``bank_shards=S > 1`` emulates the S-array
+        tiling on one card: class rows are programmed in S groups keyed
+        ``fold_in(key, s)``.
+        """
+        lo, hi, valid = self._bank_rows(bank)
+        sigma = self.acam_config.sigma_program
+        if sigma <= 0.0 or not self.per_shard_noise:
+            return self._program_rows(lo, hi, valid, key)
+        base = (acam_lib.as_key(key) if key is not None
+                else acam_lib.prng_key(self.config.seed))
+        if bank_shards <= 1:
+            return self._program_rows(lo, hi, valid,
+                                      acam_lib.fold_in(base, shard_index))
+        c = bank.templates.shape[0]
+        if c % bank_shards:
+            raise ValueError(
+                f"per-shard programming emulation needs class rows ({c}) "
+                f"divisible by bank_shards ({bank_shards})")
+        rows = lo.shape[0] // bank_shards  # = (C/S) * K rows per array
+        progs = [self._program_rows(lo[s * rows:(s + 1) * rows],
+                                    hi[s * rows:(s + 1) * rows],
+                                    valid[s * rows:(s + 1) * rows],
+                                    acam_lib.fold_in(base, s))
+                 for s in range(bank_shards)]
+        return acam_lib.ProgrammedACAM(
+            lower=torch.cat([p.lower for p in progs]),
+            upper=torch.cat([p.upper for p in progs]),
+            valid=torch.cat([p.valid for p in progs]),
+            config=progs[0].config)
+
+    def _sense_rows(self, prog: acam_lib.ProgrammedACAM, queries, c: int,
+                    k: int) -> torch.Tensor:
+        s = acam_lib.sense(prog, queries)  # (B, C*K), invalid rows -inf
+        return s.reshape(queries.shape[0], c, k)
+
+    def _valid_rows(self, valid, c: int, k: int, device) -> torch.Tensor:
+        if valid is None:
+            return torch.ones((c * k,), dtype=torch.bool, device=device)
+        return valid.reshape(c * k)
+
+    def feature_count_scores(self, queries, templates, valid=None):
+        c, k, n = templates.shape
+        flat = templates.reshape(c * k, n)
+        prog = self._program_rows(
+            flat, flat, self._valid_rows(valid, c, k, flat.device))
+        return self._sense_rows(prog, queries, c, k)
+
+    def similarity_scores(self, queries, lower, upper, valid=None, *,
+                          alpha=1.0):
+        # alpha (the Eq. 9/11 distance weight) is digital post-processing
+        # the matchline does not integrate: the device senses Eq. 10's H
+        del alpha
+        c, k, n = lower.shape
+        prog = self._program_rows(
+            lower.reshape(c * k, n), upper.reshape(c * k, n),
+            self._valid_rows(valid, c, k, lower.device))
+        return self._sense_rows(prog, queries, c, k)
+
+    def scores(self, queries, bank: TemplateBank) -> torch.Tensor:
+        c, k, _ = bank.templates.shape
+        return self._sense_rows(self.program_bank(bank), queries, c, k)
+
+    def classify_features_keyed(self, features, bank: TemplateBank, key, *,
+                                bank_shards: int = 1):
+        """One Monte-Carlo draw: program the bank with an explicit key (not
+        the config seed's) and classify -> (pred, per_class)."""
+        c, k, _ = bank.templates.shape
+        prog = self.program_bank(bank, key, bank_shards=bank_shards)
+        q = quant.binarize(features, bank.thresholds)
+        return classify_scores(self._sense_rows(prog, q, c, k))
+
+    def margin_cap(self, num_features: int) -> float:
+        return 1.0  # sense outputs live in [0, 1] matchline units
+
+
+# ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
 
 _REGISTRY: dict[str, Callable[[EngineConfig], MatchBackend]] = {
     "reference": ReferenceBackend,
     "kernel": KernelBackend,
+    "device": DeviceBackend,
 }
 
 

@@ -5,14 +5,15 @@ serialises to the same JSON in both packages:
 
   method   "feature_count" (Eq. 8) or "similarity" (Eq. 9-11)
   alpha    Eq. 11 distance weight (similarity method only)
-  backend  "auto" | "reference" | "kernel" (or any registered name);
-           "auto" is "kernel" on the card
+  backend  "auto" | "reference" | "kernel" | "device" (or any registered
+           name); "auto" is "kernel" on the card
   block    the Pallas block override of the JAX package; the CUDA kernels
            take no block, so the port carries it for the spec and ignores it
   margin   `MatchEngine.__call__` returns (pred, per_class, margin)
-  device   `ACAMConfig` for the device-physics backend (later slice)
-  seed     PRNG seed for programming noise (device backend, later slice)
-  device_noise   "global" | "per_shard" (device backend, later slice)
+  device   `ACAMConfig` of the device-physics backend (None: the default)
+  seed     seed of the programming-noise key (`acam.prng_key`)
+  device_noise   "global" (one noise field per programmed array) or
+           "per_shard" (array s of a tiling keyed ``fold_in(key, s)``)
   serve_fusion   how the kernel backend runs the serving tick: "mega" (one
            kernel, `acam_match_serve`) or "compose" (gather + shift in
            PyTorch, then the margins kernel, then the tau compare) — the

@@ -11,8 +11,10 @@ Engines are memoised per `EngineConfig`. The process default backend (what
 "auto" otherwise; `use_backend` scopes a change to a ``with`` block. "auto"
 picks the kernel backend for CUDA operands at every shape; on the CPU it
 keeps the JAX package's tiny-shape rule (`backends.tiny_cutoff`), under
-which both backends give the same bits. Both methods run on both backends,
-through the classify entry points and the raw ``*_scores`` ones.
+which both backends give the same bits. Both methods run on every backend,
+through the classify entry points and the raw ``*_scores`` ones; the device
+backend also runs `MatchEngine.sweep_program_noise`, the Monte-Carlo sweep
+over programming draws.
 
 Sharded execution over several cards (the JAX package's `PartitionPlan`)
 comes with the multi-GPU slice of the port.
@@ -25,9 +27,12 @@ import os
 
 import torch
 
+from repro_torch.core import acam as acam_lib
 from repro_torch.core.templates import TemplateBank
-from repro_torch.match.backends import (MatchBackend, backend_for,
-                                        backend_names, tiny_cutoff)
+from repro_torch.device import resolve
+from repro_torch.match.backends import (DeviceBackend, MatchBackend,
+                                        backend_for, backend_names,
+                                        tiny_cutoff)
 from repro_torch.match.config import EngineConfig, validate
 
 _default_backend = os.environ.get("REPRO_MATCHING_BACKEND", "auto")
@@ -153,6 +158,49 @@ class MatchEngine:
                                                  class_hi)
         return self.classify_features(features, bank)
 
+    def sweep_program_noise(self, features, bank: TemplateBank, keys, *,
+                            bank_shards: int | None = None, device=None):
+        """Classify under M independent `sigma_program` programming draws,
+        on ``device`` (the card unless the caller asks for the CPU): point
+        accuracies become confidence intervals on noisy hardware.
+
+        keys: an int M (per-draw keys ``acam.split(prng_key(config.seed),
+        M)``), or a sequence of per-draw keys (seeds, key paths or
+        `torch.Generator`s). Returns (pred (M, B) int32, per_class (M, B,
+        C)). Requires ``backend="device"``; at ``sigma_program = 0`` every
+        draw is the ideal array. The draws run one after another, so one
+        (B, C*K, N) comparison is live at a time.
+
+        Under ``device_noise="per_shard"`` each draw programs the S-array
+        tiling (array s keyed ``fold_in(draw_key, s)``); ``bank_shards``
+        picks S (None: 1, one card), and a class count S does not divide
+        falls back to one array. Ignored under "global" noise.
+        """
+        name = self.config.backend
+        be = backend_for(name, self.config) if name != "auto" else None
+        if not isinstance(be, DeviceBackend):
+            raise ValueError(
+                "sweep_program_noise requires the device backend; build the "
+                'engine with engine_for(backend="device", device=ACAMConfig('
+                "sigma_program=...))")
+        dev = resolve(device)
+        features = torch.as_tensor(features, dtype=torch.float32, device=dev)
+        bank = TemplateBank(*(x.to(dev) for x in bank))
+        shards = 1
+        if be.per_shard_noise:
+            c = bank.templates.shape[0]
+            shards = bank_shards or 1
+            shards = shards if c % shards == 0 else 1
+        if isinstance(keys, int):
+            keys = acam_lib.split(acam_lib.prng_key(self.config.seed), keys)
+        preds, per_class = [], []
+        for key in keys:
+            p, pc = be.classify_features_keyed(features, bank, key,
+                                               bank_shards=shards)
+            preds.append(p)
+            per_class.append(pc)
+        return torch.stack(preds), torch.stack(per_class)
+
 
 @functools.lru_cache(maxsize=None)
 def engine_from_config(config: EngineConfig) -> MatchEngine:
@@ -161,8 +209,12 @@ def engine_from_config(config: EngineConfig) -> MatchEngine:
 
 
 def engine_for(method: str = "feature_count", alpha: float = 1.0,
-               backend: str | None = None) -> MatchEngine:
+               backend: str | None = None,
+               device: acam_lib.ACAMConfig | None = None, seed: int = 0,
+               device_noise: str = "global") -> MatchEngine:
     """Memoised engine per config; ``backend=None`` -> the process default,
-    resolved here at the caller boundary."""
+    resolved here at the caller boundary. ``device``, ``seed`` and
+    ``device_noise`` configure the device-physics backend."""
     return engine_from_config(EngineConfig(
-        method=method, alpha=alpha, backend=backend or default_backend()))
+        method=method, alpha=alpha, backend=backend or default_backend(),
+        device=device, seed=seed, device_noise=device_noise))

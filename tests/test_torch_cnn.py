@@ -233,5 +233,10 @@ def test_head_scores_and_similarity_predict(backend, method):
     tclf = thybrid.HybridClassifier(None, identity, thead, device="cpu")
     np.testing.assert_array_equal(tclf.predict(feats).numpy(),
                                   np.asarray(jclf.predict(jnp.asarray(feats))))
-    with pytest.raises(NotImplementedError, match="device-physics slice"):
-        thead.to_acam()
+    # the bank programmed into an ideal ACAM array: the same windows and
+    # the same calibrated matchline current
+    jprog, tprog = jhead.to_acam(), thead.to_acam(device="cpu")
+    for name in ("lower", "upper", "valid"):
+        np.testing.assert_array_equal(getattr(tprog, name).numpy(),
+                                      np.asarray(getattr(jprog, name)))
+    assert tuple(tprog.config) == tuple(jprog.config)

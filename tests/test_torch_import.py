@@ -32,6 +32,7 @@ slice3 = {"repro_torch.kernels.kd_loss.kd_loss", "repro_torch.kernels.kd_loss.op
           "repro_torch.data.pipeline", "repro_torch.optim.optimizers",
           "repro_torch.train.cnn_trainer"}
 assert slice3 <= set(names), sorted(slice3 - set(names))
+assert "repro_torch.core.matching" in names  # slice 4: the shims
 import chip_smoke
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
@@ -45,7 +46,7 @@ def test_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", BLOCKED_IMPORT], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 59  # every module of the three slices
+    assert int(out.stdout.strip()) >= 60  # every module of the four slices
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -90,6 +91,36 @@ def test_entry_points_need_the_card_or_an_explicit_cpu():
                      StudentConfig(filters=(2, 2, 2, 1)))
     svc = HybridService.from_spec(ServiceSpec(), device="cpu")
     assert svc.device == torch.device("cpu")
+
+
+def test_device_physics_entry_points_need_the_card_or_an_explicit_cpu():
+    """`acam.program`, `ACAMHead.to_acam` and
+    `MatchEngine.sweep_program_noise` resolve ``device=None`` to the card,
+    and raise without one."""
+    from repro_torch import match
+    from repro_torch.core import acam
+    from repro_torch.core.hybrid import ACAMHead
+    from repro_torch.core.templates import TemplateBank
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    rows = torch.zeros((2, 1, 4))
+    bank = TemplateBank(rows, rows, rows, torch.ones((2, 1), dtype=torch.bool),
+                        torch.zeros(4))
+    valid = torch.ones(2, dtype=torch.bool)
+    eng = match.engine_for(backend="device")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        acam.program(rows[:, 0], rows[:, 0], valid, acam.ACAMConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ACAMHead(bank).to_acam()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        eng.sweep_program_noise(torch.zeros((3, 4)), bank, 2)
+    assert acam.program(rows[:, 0], rows[:, 0], valid, acam.ACAMConfig(),
+                        device="cpu").lower.device == torch.device("cpu")
+    assert ACAMHead(bank).to_acam(device="cpu").valid.device.type == "cpu"
+    pred, _ = eng.sweep_program_noise(torch.zeros((3, 4)), bank, 2,
+                                      device="cpu")
+    assert pred.shape == (2, 3) and pred.device.type == "cpu"
 
 
 def test_training_entry_points_need_the_card_or_an_explicit_cpu():

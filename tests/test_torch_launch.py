@@ -5,7 +5,8 @@ multi-tenant service through `repro.launch.serve.main` and
 `repro_torch.launch.serve.main(..., device="cpu")` with the same flags (3
 synthetic tenants, N = 100). Both must report the same accuracy,
 completed, escalated, classify_dispatches and escalation rate, and print the
-same resolved spec. Flags whose machinery is not ported yet raise
+same resolved spec; so must the flag-built service under ``--backend
+device``. Flags whose machinery is not ported yet raise
 `NotImplementedError`.
 """
 import numpy as np
@@ -79,6 +80,28 @@ def test_launcher_flags_build_the_same_spec(capsys, jax_mesh_cleared):
         assert got[key] == want[key], key
 
 
+@pytest.mark.parametrize("noise", ["global", "per_shard"])
+def test_backend_device_flag_matches_jax(capsys, jax_mesh_cleared, noise):
+    """``--backend device`` (and ``--device-noise``) reach the spec's
+    engine in both launchers; the RRAM-physics service serves the same
+    requests with the same decisions, its count-unit tau rescaled to
+    matchline fractions (14.5 counts: between two count steps)."""
+    argv = ["--workload", "acam", "--tenants", "2", "--requests", "24",
+            "--features", str(N), "--slots", "8", "--backend", "device",
+            "--device-noise", noise, "--margin-tau", "14.5", "--noise", "1.2",
+            "--print-spec"]
+    want = jserve.main(argv)
+    jax_out = capsys.readouterr().out
+    got = tserve.main(argv, device="cpu")
+    torch_out = capsys.readouterr().out
+    spec_t = torch_out.split("acam service:")[0]
+    assert spec_t == jax_out.split("acam service:")[0]
+    assert '"backend": "device"' in spec_t and f'"{noise}"' in spec_t
+    for key in KEYS:
+        assert got[key] == want[key], key
+    assert 0.0 < got["escalation_rate"] < 1.0
+
+
 @pytest.mark.parametrize("flags,match", [
     (["--workload", "lm"], "LM slice"),
     (["--workload", "lm-cached"], "LM slice"),
@@ -88,7 +111,6 @@ def test_launcher_flags_build_the_same_spec(capsys, jax_mesh_cleared):
     (["--workload", "acam", "--snapshot-dir", "ckpt", "--restore"],
      "snapshot slice"),
     (["--workload", "acam", "--bank-shards", "2"], "multi-GPU slice"),
-    (["--workload", "acam", "--backend", "device"], "device-physics slice"),
 ])
 def test_unported_flags_raise(flags, match):
     with pytest.raises(NotImplementedError, match=match):

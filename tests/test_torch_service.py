@@ -97,11 +97,16 @@ def test_spec_json_is_the_same_text():
 
 
 def test_spec_refuses_what_the_port_lacks():
-    _, ts = _specs()
+    js, ts = _specs()
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         ts._replace(mesh=ts.mesh._replace(bank_shards=2)).validate()
-    with pytest.raises(ValueError, match="unknown matching backend"):
-        ts._replace(engine=ts.engine._replace(backend="device")).validate()
+    # a "device" spec validates in both packages, and both serve its
+    # margins in matchline fractions with tau rescaled by 1/N
+    jd = js._replace(engine=js.engine._replace(backend="device")).validate()
+    td = ts._replace(engine=ts.engine._replace(backend="device")).validate()
+    assert td.to_json() == jd.to_json()
+    assert td.native_tau_units == jd.native_tau_units == "fraction"
+    assert td.tau_scale() == jd.tau_scale() == 1.0 / N
 
 
 @pytest.mark.parametrize("backend,fusion", [("kernel", "mega"),
