@@ -123,11 +123,31 @@ JAX:
               and 20 steps of `calibrate_windows` with a falling loss. Tick
               and wall times, device time and idle share, and the bytes
               bound of one sense pass are reported.
- 4. report    the card's name and power limit, metrics and the energy
+ 4. paper_eval the paper's evaluation: on the trained
+              student's 640 training features, `kmeans`,
+              `generate_templates` (k 2 and 3) and `select_k_by_silhouette`
+              on the card against the CPU (assignments equal, a flip only at
+              a tie and then printed and replayed; centroids within rtol
+              1e-5; banks bit for bit; silhouette within 1e-5, the same
+              best k); `predict` with K = 2 and 3 heads (B1, equal to its
+              plain version); `repro_torch.benchmarks.run` at the
+              REPRO_BENCH_FAST scale with its kernel bench at B 1 and 256
+              (every number finite, the energy rows the analytic ones,
+              Table I's parameters and MACs `cnn`'s); the tuning table's
+              `autotune_acam` at (1 | 256, 10, 784) into a cache of its own
+              (every candidate bit-identical, `get_block` the winner, each
+              candidate's device time), every earlier phase having run on
+              an empty cache (the designs it took before the table); and
+              `quickstart.main(["--fast", "--mc", "4"])` (B1 and B3
+              launched, every number finite).
+ 5. report    the card's name and power limit, metrics and the energy
               split, the training step's time, device time and idle share,
-              one ``{"kernels": [...]}`` line (ten kernels), and as the last
+              the paper's tables and the tuning winners, one
+              ``{"kernels": [...]}`` line (ten kernels), and as the last
               line ``{"ok": true, "device": {...}}``. ``--report PATH``
-              also writes every measurement to PATH as JSON.
+              also writes every measurement to PATH as JSON, and the
+              tables' `bench_details.json` and `BENCH_torch_kernels.json`
+              beside it in ``paper_eval/``.
 
 Every failed check raises, so the run exits non-zero. Without a CUDA card,
 or without the repository beside it, it exits non-zero before any result.
@@ -136,9 +156,11 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2038,7 +2060,8 @@ def training_paths(device) -> dict:
     trained front end, all on the card. Also the fused loss (B8) on the
     trained student's logits against the trainer's Eq. 1, the first step's
     gradients on the card against the CPU's, and one traced train step.
-    Returns (the driven paths, the training measurements)."""
+    Returns (the driven paths, the training measurements, the trained
+    front end: its feature function, the student and the data)."""
     import copy
 
     import torch
@@ -2243,7 +2266,9 @@ def training_paths(device) -> dict:
         launches=counts, wall_s=wall,
         accuracy_vs_labels=float((pred.cpu().numpy() == test_y).mean()),
         profile=profile(lambda: clf.predict(test_x)))
-    return report, training
+    trained = dict(features=features, student=student, train=(x, y),
+                   test=(test_x, test_y))
+    return report, training, trained
 
 
 def attention_path(device) -> dict:
@@ -2514,6 +2539,351 @@ def print_device_physics(dp: dict, mega: dict) -> None:
           f"{cal['final_loss']:.6f}")
 
 
+# ---------------------------------------------------------------------------
+# 4. the paper's evaluation: k-means templates, tables, tuning, quickstart
+# ---------------------------------------------------------------------------
+
+CENTROID_RTOL, CENTROID_ATOL = 1e-5, 1e-6  # card vs CPU k-means centroids
+SILHOUETTE_ATOL = 1e-5  # card vs CPU silhouette scores
+TIE_RTOL = 1e-5  # an assignment may flip only where two distances tie
+BANK_FIELDS = ("templates", "lower", "upper", "valid")
+#: the designs the raw-score kernels took before the tuning table, at the
+#: earlier phases' shapes: (kernel, (B, M, N)) -> design
+TODAYS_DESIGNS = {("acam_match", (256, 10, N)): "local",
+                  ("acam_similarity", (256, 10, N)): "narrow",
+                  ("acam_similarity", (64, 2200, N)): "wide"}
+TUNE_SHAPES = ((1, 10, N), (256, 10, N))
+
+
+@contextlib.contextmanager
+def kmeans_calls(replay=None):
+    """Record every `templates.kmeans` call's (centroids, assignment) in
+    the yielded list; with ``replay`` (such a list), return its results in
+    turn instead, moved to the caller's device (the card's clustering
+    replayed on the CPU)."""
+    from repro_torch.core import templates
+
+    own = templates.kmeans
+    calls = []
+    it = iter(replay or ())
+
+    def kmeans(x, k, **kw):
+        if replay is None:
+            out = own(x, k, **kw)
+        else:
+            out = tuple(v.to(x.device) for v in next(it))
+        calls.append(out)
+        return out
+
+    templates.kmeans = kmeans
+    try:
+        yield calls
+    finally:
+        templates.kmeans = own
+
+
+def assignment_flips(name: str, xs, card_calls, cpu_calls) -> list:
+    """Points whose k-means assignment differs between the card and the
+    CPU, each with its distances to both clusters on both devices. A flip
+    is allowed only at a tie (the card's two distances within TIE_RTOL):
+    anything else is a fault."""
+    import torch
+
+    flips = []
+    for c, (x, (cc, ac), (cp, ap)) in enumerate(zip(xs, card_calls,
+                                                  cpu_calls)):
+        for i in torch.nonzero(ac.cpu() != ap).flatten().tolist():
+            a, b = int(ac[i]), int(ap[i])
+            d_card = ((x[i] - cc[[a, b]]) ** 2).sum(-1).tolist()
+            d_cpu = ((x[i].cpu() - cp[[a, b]]) ** 2).sum(-1).tolist()
+            flips.append(dict(class_=c, point=i, card=a, cpu=b,
+                              card_distances=d_card, cpu_distances=d_cpu))
+            print(f"{name}: class {c} point {i} assigned {a} on the card, "
+                  f"{b} on the CPU; distances card {d_card}, CPU {d_cpu}")
+            check(abs(d_card[0] - d_card[1]) <= TIE_RTOL * max(d_card),
+                  f"{name}: class {c} point {i} flips without a tie")
+    return flips
+
+
+def same_bank(name: str, got, want) -> None:
+    """The banks' templates, lower, upper and valid bit for bit; on a
+    difference, the first entries with each device's value."""
+    import torch
+
+    for field in BANK_FIELDS:
+        g, w = getattr(got, field).cpu(), getattr(want, field)
+        if not torch.equal(g, w):
+            where = torch.nonzero(g != w)[:4].tolist()
+            raise AssertionError(
+                f"{name}: {field} differs at {where} (card "
+                f"{[g[tuple(i)].item() for i in where]}, CPU "
+                f"{[w[tuple(i)].item() for i in where]}; thresholds card "
+                f"{[got.thresholds[i[-1]].item() for i in where]})")
+
+
+def templates_card_vs_cpu(device, feats, labels: np.ndarray) -> dict:
+    """`kmeans`, `generate_templates` (k 2 and 3) and
+    `select_k_by_silhouette` on the card and on the CPU with the same
+    features: assignments equal (a flip only at a tie, printed, and then
+    the CPU's pipeline replayed from the card's clustering), centroids
+    within rtol 1e-5 / atol 1e-6, banks bit for bit, silhouette scores
+    within 1e-5 and the same best k. Times each on the card."""
+    import torch
+
+    from repro_torch.core import templates
+
+    y_card = torch.as_tensor(labels, device=device)
+    cpu_feats, y_cpu = feats.cpu(), torch.as_tensor(labels)
+    out = {}
+    for k in (2, 3):
+        t0 = time.perf_counter()
+        with kmeans_calls() as card_calls:
+            bank = templates.generate_templates(feats, y_card, 10, k=k)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        with kmeans_calls() as cpu_calls:
+            cpu_bank = templates.generate_templates(cpu_feats, y_cpu, 10, k=k)
+        xs = [feats[y_card == c] for c in range(10)
+              if int((y_card == c).sum()) >= k]
+        check(len(card_calls) == len(cpu_calls) == len(xs),
+              f"k={k}: one k-means call per class with at least k samples")
+        flips = assignment_flips(f"k-means k={k}", xs, card_calls,
+                                 cpu_calls)
+        if flips:
+            with kmeans_calls(replay=card_calls):
+                cpu_bank = templates.generate_templates(cpu_feats, y_cpu,
+                                                        10, k=k)
+        else:
+            for (cc, _), (cp, _) in zip(card_calls, cpu_calls):
+                check(torch.allclose(cc.cpu(), cp, rtol=CENTROID_RTOL,
+                                     atol=CENTROID_ATOL),
+                      f"k={k}: centroids differ past rtol 1e-5")
+        same_bank(f"generate_templates k={k}", bank, cpu_bank)
+        t0 = time.perf_counter()
+        for x in xs:
+            templates.kmeans(x, k)
+        torch.cuda.synchronize()
+        out[f"k{k}"] = dict(bank=bank, generate_s=card_s, flips=flips,
+                            kmeans_s=time.perf_counter() - t0,
+                            valid_rows=int(bank.valid.sum()))
+    t0 = time.perf_counter()
+    with kmeans_calls() as card_calls:
+        best, scores = templates.select_k_by_silhouette(feats, y_card, 10)
+    select_s = time.perf_counter() - t0
+    replay = card_calls if any(out[f"k{k}"]["flips"] for k in (2, 3)) \
+        else None
+    with kmeans_calls(replay=replay):
+        cpu_best, cpu_scores = templates.select_k_by_silhouette(
+            cpu_feats, y_cpu, 10)
+    check(best == cpu_best, f"silhouette best k {best} on the card, "
+          f"{cpu_best} on the CPU")
+    for k, v in scores.items():
+        check(abs(v - cpu_scores[k]) <= SILHOUETTE_ATOL,
+              f"silhouette k={k}: {v} on the card, {cpu_scores[k]} CPU")
+    x = feats[y_card == 0]
+    _, assign = templates.kmeans(x, 3)
+    t0 = time.perf_counter()
+    templates.silhouette_score(x, assign, 3)
+    torch.cuda.synchronize()
+    out["silhouette"] = dict(best_k=best, scores=scores,
+                             cpu_scores=cpu_scores, select_s=select_s,
+                             one_score_s=time.perf_counter() - t0,
+                             replayed=replay is not None)
+    return out
+
+
+def paper_tables(device, out_dir: Path) -> tuple[dict, list]:
+    """`repro_torch.benchmarks.run` at the REPRO_BENCH_FAST scale (120
+    images a class, 2 epochs) with its kernel bench at B 1 and 256, into
+    ``out_dir``: every number finite, the energy rows the analytic ones,
+    Table I's parameters and MACs those of `cnn`."""
+    import math
+
+    from repro_torch.benchmarks import common
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.core import energy
+    from repro_torch.models import cnn
+
+    os.environ["REPRO_BENCH_FAST"] = "1"
+    os.environ.pop("REPRO_BENCH_SCALE", None)
+    rows = bench_run.main(["--out", str(out_dir)], device=device)
+    details = json.loads((out_dir / "bench_details.json").read_text())
+    bench = json.loads((out_dir / "BENCH_torch_kernels.json").read_text())
+
+    def finite(v):
+        if isinstance(v, dict):
+            return all(finite(u) for u in v.values())
+        if isinstance(v, list):
+            return all(finite(u) for u in v)
+        return not isinstance(v, float) or math.isfinite(v)
+
+    check(all(math.isfinite(us) for _, us, _ in rows),
+          "paper tables: every row's time finite")
+    check(finite(details) and finite(bench["entries"]),
+          "paper tables: every number finite")
+    check(bench["kernels"] == "cuda" and bench["card"],
+          "kernel bench: the CUDA kernels on the card")
+    want = {f"paper_{k}": round(v, 4)
+            for k, v in energy.paper_numbers().items()}
+    check(all(details["energy_model"][k] == v for k, v in want.items()),
+          f"energy rows {details['energy_model']} vs analytic {want}")
+    m = common.models(device)
+    t1 = {r["model"]: r for r in details["table1_compression"]}
+    s_macs = cnn.student_macs()["total"]
+    for model, params, macs in (
+            ("teacher_colour", cnn.count_params(m["teacher_color"]),
+             cnn.teacher_macs(common.TEACHER_CFG_COLOR)),
+            ("teacher_greyscale", cnn.count_params(m["teacher_gray"]),
+             cnn.teacher_macs(common.TEACHER_CFG_GRAY)),
+            ("student_base", cnn.count_params(m["student_base"]), s_macs),
+            ("student_optimised", cnn.count_params(m["student_opt"]),
+             int(s_macs * 0.2))):
+        check((t1[model]["params"], t1[model]["macs"]) == (params, macs),
+              f"table I {model}: params / MACs {t1[model]['params']} / "
+              f"{t1[model]['macs']}, analytic {params} / {macs}")
+    return dict(details, kernel_bench=bench), rows
+
+
+def tuning_phase(device, cache_dir: Path) -> dict:
+    """`tuning.autotune_acam` at (1, 10, 784) and (256, 10, 784) into a
+    cache of its own (each candidate bit-identical to the plain version,
+    or it raises), `get_block` returning each winner, every candidate's
+    device time; then, with the empty cache back, the designs of the
+    earlier phases' shapes those of the rule they took before the table."""
+    import torch
+
+    from repro_torch.kernels import tuning
+    from repro_torch.kernels.acam_match import acam_match as am
+    from repro_torch.kernels.acam_similarity import acam_similarity as asim
+
+    empty = os.environ["REPRO_TORCH_TUNING_CACHE"]
+    os.environ["REPRO_TORCH_TUNING_CACHE"] = str(cache_dir / "tuned.json")
+    tuning.clear_cache_for_tests()
+    try:
+        times: dict = {}
+        won = tuning.autotune_acam(TUNE_SHAPES, device=device, times=times)
+        tuning.clear_cache_for_tests()
+        device_ms = {}
+        for key, design in won.items():
+            kernel, _, shape, _ = key.split("|")
+            b, m, n = (int(v[1:]) for v in shape.split("_"))
+            check(tuning.get_block(kernel, (b, m, n), torch.float32,
+                                   device) == design,
+                  f"get_block {key}: not the winner {design}")
+            f = torch_tensor((np.random.default_rng(b).integers(
+                -8, 9, (b, n)) / 4).astype(np.float32), device)
+            bank = torch_tensor((np.random.default_rng(m).random((m, n))
+                                 > 0.5).astype(np.float32), device)
+            zero = torch_tensor(np.zeros((m, n), np.float32), device)
+            for blk in times[key]:
+                fn = (lambda: am.acam_match(f, zero[0], bank, block=blk)) \
+                    if kernel == "acam_match" else \
+                    (lambda: asim.acam_similarity(f, zero, bank, block=blk))
+                device_ms.setdefault(key, {})[blk] = profile(
+                    fn, reps=20)["device_ms"]
+    finally:
+        os.environ["REPRO_TORCH_TUNING_CACHE"] = empty
+        tuning.clear_cache_for_tests()
+    for (kernel, shape), design in TODAYS_DESIGNS.items():
+        got = tuning.get_block(kernel, shape, torch.float32, device)
+        check(got == design, f"empty cache: {kernel} at {shape} takes {got}, "
+              f"before the table {design}")
+    return dict(winners=won, device_us=times, device_ms=device_ms,
+                empty_cache=dict((f"{k}|{s}", d) for (k, s), d in
+                                 TODAYS_DESIGNS.items()))
+
+
+def paper_eval(device, trained: dict, out_dir: Path) -> tuple[dict, dict]:
+    """Phase 4: templates card vs CPU on the trained student's features,
+    K = 2 and 3 heads through B1, the paper's tables and the kernel bench,
+    the tuning table, and the quickstart. Returns (driven paths, the
+    phase's measurements)."""
+    import torch
+
+    from repro_torch.core.hybrid import ACAMHead, HybridClassifier
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import layout
+    from repro_torch.kernels.acam_match import acam_match as am
+
+    fn, student = trained["features"], trained["student"]
+    (x, y), (test_x, test_y) = trained["train"], trained["test"]
+    with torch.no_grad():
+        feats = fn(student, x)
+    t0 = time.perf_counter()
+    found = templates_card_vs_cpu(device, feats, y)
+    templates_s = time.perf_counter() - t0
+    report = {}
+    test_feats = fn(student, test_x)
+    for k in (2, 3):
+        bank = found[f"k{k}"]["bank"]
+        clf = HybridClassifier(student, fn, ACAMHead(bank), device=device)
+        pred, counts, wall = drive(f"predict_k{k}",
+                                   lambda: clf.predict(test_x),
+                                   ["acam_match_classify"])
+        want, _ = am.classify_plain(
+            test_feats, bank.thresholds,
+            layout.flatten_kmajor(bank.templates, 10),
+            layout.valid_kmajor(bank.valid, 10), 10)
+        check(torch.equal(pred, want), f"predict K={k}: B1 differs from "
+              "its plain version")
+        report[f"predict_k{k}"] = dict(
+            launches=counts, wall_s=wall, design=am.tiled_design(10 * k),
+            accuracy_vs_labels=float((pred.cpu().numpy() == test_y).mean()))
+    t0 = time.perf_counter()
+    tables, rows = paper_tables(device, out_dir)
+    tables_s = time.perf_counter() - t0
+    tuned = tuning_phase(device, out_dir)
+    got, counts, wall = drive(
+        "quickstart", lambda: quickstart.main(["--fast", "--mc", "4"],
+                                              device=device),
+        ["acam_match_classify", "acam_match_serve"])
+    numbers = [got["softmax_accuracy"], got["acam_accuracy"],
+               *got["device_accuracy"].values(), got["service"]["accuracy"],
+               got["ledger_total_nj"], *got["energy"].values()]
+    numbers += [a for accs in got["mc"].values() for a in accs]
+    check(all(np.isfinite(numbers)), "quickstart: every number finite")
+    report["quickstart"] = dict(launches=counts, wall_s=wall)
+    measured = dict(templates={k: {f: v for f, v in r.items() if f != "bank"}
+                               for k, r in found.items()},
+                    templates_s=templates_s, tables_s=tables_s,
+                    tables=tables, rows=rows, tuning=tuned, quickstart=got)
+    return report, measured
+
+
+def print_paper_eval(pe: dict) -> None:
+    print(f"paper_eval: {pe['wall_s']:.1f} s (templates card vs CPU "
+          f"{pe['templates_s']:.1f} s, tables {pe['tables_s']:.1f} s)")
+    t = pe["templates"]
+    for k in ("k2", "k3"):
+        print(f"templates {k}: card == CPU bit for bit, generate "
+              f"{t[k]['generate_s']:.3f} s, k-means {t[k]['kmeans_s']:.3f} "
+              f"s, {t[k]['valid_rows']} valid rows, "
+              f"{len(t[k]['flips'])} assignment flips at ties")
+    sil = t["silhouette"]
+    print(f"silhouette: best k {sil['best_k']}, scores {sil['scores']} "
+          f"(CPU {sil['cpu_scores']}), select {sil['select_s']:.3f} s, one "
+          f"score {sil['one_score_s']:.4f} s")
+    print(f"paper tables at REPRO_BENCH_FAST: {pe['tables_s']:.1f} s")
+    print("name,us_per_call,derived")
+    for name, us, derived in pe["rows"]:
+        print(f"{name},{us:.1f},{derived}")
+    for r in pe["tables"]["table1_compression"]:
+        print(f"table I: {json.dumps(r)}")
+    for r in pe["tables"]["table2_templates"]:
+        print(f"table II: {json.dumps(r)}")
+    print(f"fig 1: {json.dumps(pe['tables']['fig1_thresholds'])}")
+    print(f"fig 6/7 accuracy: {pe['tables']['fig6_7_confusion']['accuracy']}")
+    print(f"energy: {json.dumps(pe['tables']['energy_model'])}")
+    tu = pe["tuning"]
+    print(f"tuning winners: {json.dumps(tu['winners'])}")
+    print(f"tuning device us (queued calls): {json.dumps(tu['device_us'])}")
+    print(f"tuning device ms: {json.dumps(tu['device_ms'])}")
+    print(f"empty cache designs: {json.dumps(tu['empty_cache'])}")
+    q = pe["quickstart"]
+    print(f"quickstart: softmax {q['softmax_accuracy']:.4f}, ACAM "
+          f"{q['acam_accuracy']:.4f}, service {json.dumps(q['service'])}")
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -2536,6 +2906,10 @@ def main(argv: list[str]) -> int:
                   file=sys.stderr)
             return 2
     sys.path.insert(0, str(ROOT / "src"))
+    scratch = tempfile.TemporaryDirectory()
+    # an empty tuning cache: every launch takes its default design
+    os.environ["REPRO_TORCH_TUNING_CACHE"] = str(Path(scratch.name)
+                                                 / "empty.json")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2558,10 +2932,16 @@ def main(argv: list[str]) -> int:
     kernels.update(fa_phase(device))
     report = paths(device)
     check(report["predict"]["features"] == N, "paper width: 784 features")
-    trained, training = training_paths(device)
+    trained, training, student = training_paths(device)
     report.update(trained)
     report.update(attention_path(device))
     report["device_physics"] = device_physics(device)
+    out_dir = (report_path.parent / "paper_eval" if report_path
+               else Path(scratch.name) / "paper_eval")
+    t0 = time.perf_counter()
+    evaluated, paper = paper_eval(device, student, out_dir)
+    paper["wall_s"] = time.perf_counter() - t0
+    report.update(evaluated)
     launches = {}
     for path in report.values():
         for k, v in path["launches"].items():
@@ -2642,6 +3022,7 @@ def main(argv: list[str]) -> int:
                        ["real_windows"]))
     print(f"profile sessions retried: {json.dumps(PROFILE_RETRIES)}")
     print_device_physics(report["device_physics"], report["serve_mega"])
+    print_paper_eval(paper)
     check(set(kernels) == set(KERNELS), "every ported kernel measured")
 
     line = {"kernels": [
@@ -2663,12 +3044,13 @@ def main(argv: list[str]) -> int:
             dict(card=smi, build_s=build_s, nvcc=logs,
                  kernels=line["kernels"], kernel_phases=kernels,
                  profile_retries=PROFILE_RETRIES,
-                 paths=report, training=training), indent=1,
-            default=str))
+                 paths=report, training=training, paper_eval=paper),
+            indent=1, default=str))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+    scratch.cleanup()
     return 0
 
 

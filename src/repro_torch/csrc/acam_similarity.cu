@@ -73,7 +73,8 @@
 // features for 32 cells), and its tiles are sized so that the main shapes
 // fill the card: 8 queries x 16 rows where that gives two blocks an SM
 // (1,104 blocks on the 64 x 2,200 big bank), else 2 x 12 (128 blocks at
-// ACAMHead.scores' 256 x 10).
+// ACAMHead.scores' 256 x 10). That rule is the default; the wrapper passes
+// the tiling its tuning table (kernels/tuning.py) names.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC. No --use_fast_math: it flushes subnormals to
@@ -321,25 +322,30 @@ int launch_sim_tiles(const float* q, const float* lower, const float* upper,
 
 extern "C" int acam_similarity(const float* q, const float* lower,
                                const float* upper, int B, int M, int N,
-                               float alpha, float inv_n, float* scores,
-                               void* stream) {
-  static int sms_of[64] = {};  // SMs per device
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess && (dev >= 64 || !sms_of[dev])) {
-    int sms = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (dev < 64) sms_of[dev] = sms;
+                               float alpha, float inv_n, int tiling,
+                               float* scores, void* stream) {
+  // tiling: 0 narrow, 1 wide (kernels/tuning.py names them), -1 the rule:
+  // wide where its grid gives two blocks an SM
+  if (tiling < -1 || tiling > 1) return (int)cudaErrorInvalidValue;
+  if (tiling == -1) {
+    static int sms_of[64] = {};  // SMs per device
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess && (dev >= 64 || !sms_of[dev])) {
+      int sms = 0;
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (dev < 64) sms_of[dev] = sms;
+    }
+    if (err != cudaSuccess) return (int)err;
+    const int64_t wide = (int64_t)((B + WideTile::kBQ - 1) / WideTile::kBQ) *
+                         ((M + WideTile::kBR - 1) / WideTile::kBR);
+    tiling = wide >= 2 * (dev < 64 ? sms_of[dev] : 132);
   }
-  if (err != cudaSuccess) return (int)err;
-  const int64_t wide = (int64_t)((B + WideTile::kBQ - 1) / WideTile::kBQ) *
-                       ((M + WideTile::kBR - 1) / WideTile::kBR);
   const cudaStream_t s = (cudaStream_t)stream;
-  return wide >= 2 * (dev < 64 ? sms_of[dev] : 132)
-             ? launch_sim_tiles<WideTile>(q, lower, upper, B, M, N, alpha,
-                                          inv_n, scores, s)
-             : launch_sim_tiles<NarrowTile>(q, lower, upper, B, M, N, alpha,
-                                            inv_n, scores, s);
+  return tiling ? launch_sim_tiles<WideTile>(q, lower, upper, B, M, N, alpha,
+                                             inv_n, scores, s)
+                : launch_sim_tiles<NarrowTile>(q, lower, upper, B, M, N,
+                                               alpha, inv_n, scores, s);
 }
 
 extern "C" int acam_similarity_classify(

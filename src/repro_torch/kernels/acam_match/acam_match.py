@@ -35,7 +35,9 @@ to 8 tiles; past that the last tile to arrive merges). On smaller banks
 they take the local design: one block per query group binarises straight
 into shared memory, with no grid sync and no scratch. B7a is the same
 kernel's raw mode: every row of its unpadded (M, N) bank counts, and the
-counts are the output. Each wrapper makes one allocation (outputs, then
+counts are the output; its design is the tuning table's
+(`repro_torch.kernels.tuning`, whose default is the `LOCAL_ROWS` rule) or
+the caller's ``block``. Each wrapper makes one allocation (outputs, then
 scratch, then B3's escalate bytes; `tiled_layout`) and takes the output
 views after the launch.
 """
@@ -47,7 +49,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build, layout
+from repro_torch.kernels import _build, layout, tuning
 
 #: the tiled kernel's tiles (``kCT``, ``kQT`` in csrc/acam_match.cu): a
 #: block counts QUERY_TILE queries against CLASS_TILE classes at a time, and
@@ -239,12 +241,23 @@ def tiled_layout(b: int, c: int, *, margin: bool, scratch: int,
                        escalate_at)
 
 
+def tiled_design(rows: int, block: str | None = None) -> str:
+    """The design of a tiled launch over ``rows`` template rows: ``block``
+    where the caller names one ("local" or "cooperative"; another name
+    raises), else local up to `LOCAL_ROWS` rows (read at each call) and
+    cooperative past it."""
+    if block is not None:
+        return tuning.check_block("acam_match", block)
+    return "local" if rows <= LOCAL_ROWS else "cooperative"
+
+
 def _scratch(b: int, n: int, k: int, cp: int, c: int, *,
-             raw: bool = False) -> int:
-    """The tiled kernel's scratch words: none for the local design, else
-    the bits and, unless ``raw`` (B7a, no decision), one arrival counter
-    per row (at least one per query group) after the summaries."""
-    if k * c <= LOCAL_ROWS:
+             raw: bool = False, design: str | None = None) -> int:
+    """The tiled kernel's scratch words: none for the local design
+    (``design``, else `tiled_design`'s), else the bits and, unless ``raw``
+    (B7a, no decision), one arrival counter per row (at least one per query
+    group) after the summaries."""
+    if (design or tiled_design(k * c)) == "local":
         return 0
     if raw:
         return (b + k * cp) * -(-n // 32)
@@ -364,8 +377,12 @@ def acam_match(features, thresholds, templates, *, block=None,
                interpret: bool = False):
     """Raw Eq. 8 match counts (B7a): features (B, N) f32, thresholds (N,),
     templates (M, N) {0,1} -> (B, M) f32, every row counted (no valid
-    mask). ``block`` and ``interpret`` are the Pallas tiling arguments,
-    accepted for signature parity and ignored."""
+    mask). ``block`` names the tiled kernel's design ("local" or
+    "cooperative"; another name raises); None takes the tuning table's
+    (`tuning.get_block`). ``interpret`` is the Pallas argument, accepted
+    for signature parity and ignored."""
+    if block is not None:
+        tuning.check_block("acam_match", block)
     if features.device.type == "cpu":
         return match_plain(features, thresholds, templates)
     device = features.device
@@ -384,8 +401,11 @@ def acam_match(features, thresholds, templates, *, block=None,
     # one K = 1 slice of M classes, padded to whole class tiles only in the
     # kernel's bit scratch: the bank itself is read as it is
     cp = -(-m // CLASS_TILE) * CLASS_TILE
+    design = tuning.resolve_block("acam_match", (b, m, n), f32, device,
+                                  block)
     lay = tiled_layout(b, m, margin=False,
-                       scratch=_scratch(b, n, 1, cp, m, raw=True),
+                       scratch=_scratch(b, n, 1, cp, m, raw=True,
+                                        design=design),
                        escalate=False, pred=False)
     buf = torch.empty(lay.words, dtype=f32, device=device)
     if b and m:

@@ -35,16 +35,19 @@ def _windows(b: int, c: int, device, class_lo, class_hi):
 
 def match_scores(features, thresholds, templates, *, block=None):
     """(B, M) Eq. 8 counts of raw features against (M, N) {0,1} templates.
-    ``block`` is the Pallas tiling override, accepted and ignored."""
-    return acam_match(_f32(features), _f32(thresholds), _f32(templates))
+    ``block`` names B7a's design ("local" or "cooperative"; another name
+    raises); None takes the tuning table's (`repro_torch.kernels.tuning`)."""
+    return acam_match(_f32(features), _f32(thresholds), _f32(templates),
+                      block=block)
 
 
 def classify(features, thresholds, templates_flat, valid_flat,
              num_classes: int, *, block=None):
     """Eq. 12 decision over a class-major flattened (C * K, N) bank: the
-    raw-count kernel, then the valid mask, the max over K and the WTA.
-    Returns (pred (B,) int32, per_class (B, C))."""
-    scores = match_scores(features, thresholds, templates_flat)
+    raw-count kernel (in design ``block``, as `match_scores`), then the
+    valid mask, the max over K and the WTA. Returns (pred (B,) int32,
+    per_class (B, C))."""
+    scores = match_scores(features, thresholds, templates_flat, block=block)
     scores = torch.where(valid_flat[None, :].to(torch.bool), scores,
                          torch.tensor(float("-inf"), device=scores.device))
     k = templates_flat.shape[0] // num_classes

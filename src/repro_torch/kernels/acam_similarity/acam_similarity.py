@@ -13,8 +13,11 @@ K-major ``(K * Cp, N)`` or ``(K, Cp, N)`` window stacks, ``num_classes``,
 
 The wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises. Each launch adds one to its face's
-entry in `LAUNCHES`. ``block`` and ``interpret`` are the Pallas tiling
-arguments, accepted for signature parity and ignored.
+entry in `LAUNCHES`. ``block`` names a design: B7b's tiling ("narrow" or
+"wide"; None takes the tuning table's, `repro_torch.kernels.tuning`), B5's
+and B6's tiled design ("local" or "cooperative"; None the `LOCAL_ROWS`
+rule); another name raises. ``interpret`` is the Pallas argument, accepted
+for signature parity and ignored.
 
     face                      TPU kernel replaced (acam_similarity.py)
     acam_similarity           _kernel                                 B7b
@@ -37,7 +40,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build, layout
+from repro_torch.kernels import _build, layout, tuning
 from repro_torch.kernels.acam_match import acam_match as am
 from repro_torch.kernels.acam_match.acam_match import (_check, _check_chunk,
                                                        _slot_thresholds)
@@ -103,8 +106,8 @@ def serve_plain(features, thr_table, tenant_slot, lower_kcp, upper_kcp,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # q, lower, upper, B, M, N, alpha, inv_n, scores, stream
-    "acam_similarity": [_P] * 3 + [_I] * 3 + [_F] * 2 + [_P] * 2,
+    # q, lower, upper, B, M, N, alpha, inv_n, tiling, scores, stream
+    "acam_similarity": [_P] * 3 + [_I] * 3 + [_F] * 2 + [_I] + [_P] * 2,
     # f, thr, lower, upper, valid, B, N, K, Cp, C, alpha, inv_n, scratch,
     # pred, per_class, stream
     "acam_similarity_classify": [_P] * 5 + [_I] * 5 + [_F] * 2 + [_P] * 4,
@@ -146,13 +149,14 @@ def _cuda_operands(features, lower, upper):
     return device, b, n
 
 
-def scratch_words(b: int, n: int, k: int, cp: int, c: int) -> int:
+def scratch_words(b: int, n: int, k: int, cp: int, c: int,
+                  design: str | None = None) -> int:
     """int32 words of B5's and B6's tiled scratch: none in the local design
-    (`acam_match.LOCAL_ROWS`, read at each call), else the feature count's
-    (query bits, one template plane, summaries, B arrival counters) plus
-    the second plane (K * Cp rows of W words), one binary flag per
+    (``design``, else `acam_match.tiled_design`'s), else the feature
+    count's (query bits, one template plane, summaries, B arrival counters)
+    plus the second plane (K * Cp rows of W words), one binary flag per
     template row and one f32 distance per (query, template row)."""
-    if k * c <= am.LOCAL_ROWS:
+    if am.tiled_design(k * c, design) == "local":
         return 0
     return (am.scratch_words(b, n, k, cp, c, b)
             + k * cp * (-(-n // 32) + 1 + b))
@@ -161,17 +165,22 @@ def scratch_words(b: int, n: int, k: int, cp: int, c: int) -> int:
 def acam_similarity(queries, lower, upper, *, alpha: float = 1.0,
                     block=None, interpret: bool = False):
     """Eq. 9-11 scores (B, M) of raw queries (B, N) against windows (M, N)
-    with lower <= upper (B7b)."""
+    with lower <= upper (B7b), in the tiling ``block`` names ("narrow" or
+    "wide"), else the tuning table's."""
+    if block is not None:
+        tuning.check_block("acam_similarity", block)
     if queries.device.type == "cpu":
         return similarity_plain(queries, lower, upper, alpha=alpha)
     device, b, n = _cuda_operands(queries, lower, upper)
     m = lower.shape[0]
     _check("lower", lower, device, torch.float32, (m, n))
+    tiling = tuning.resolve_block("acam_similarity", (b, m, n),
+                                  torch.float32, device, block)
     out = torch.empty((b, m), dtype=torch.float32, device=device)
     if b and m:
         _run("acam_similarity", device, queries.data_ptr(),
              lower.data_ptr(), upper.data_ptr(), b, m, n, alpha, inv_n(n),
-             out.data_ptr())
+             tuning.BLOCKS["acam_similarity"].index(tiling), out.data_ptr())
     return out
 
 
@@ -185,6 +194,8 @@ def acam_similarity_classify(features, thresholds, lower_kmajor,
     valid_row (K * Cp,) f32 {0,1}. Returns (pred (B,) int32, per_class
     (B, C) f32).
     """
+    if block is not None:
+        am.tiled_design(0, block)
     if features.device.type == "cpu":
         return classify_plain(features, thresholds, lower_kmajor,
                               upper_kmajor, valid_row, num_classes,
@@ -198,7 +209,8 @@ def acam_similarity_classify(features, thresholds, lower_kmajor,
                          ("upper_kmajor", upper_kmajor, f32, (k * cp, n)),
                          ("valid_row", valid_row, f32, (k * cp,))))
     lay = am.tiled_layout(b, num_classes, margin=False,
-                          scratch=scratch_words(b, n, k, cp, num_classes),
+                          scratch=scratch_words(b, n, k, cp, num_classes,
+                                                block),
                           escalate=False)
     buf = torch.empty(lay.words, dtype=torch.int32, device=device)
     if b:
@@ -225,6 +237,8 @@ def acam_similarity_serve(features, thr_table, tenant_slot, lower_kcp,
     tau (B,) f32. ``chunk`` must divide Cp; the outputs do not depend on it.
     Returns (pred, per_class, margin, escalate (B,) bool).
     """
+    if block is not None:
+        am.tiled_design(0, block)
     if features.device.type == "cpu":
         return serve_plain(features, thr_table, tenant_slot, lower_kcp,
                            upper_kcp, valid_kcp, class_lo, class_hi, tau,
@@ -243,7 +257,8 @@ def acam_similarity_serve(features, thr_table, tenant_slot, lower_kcp,
                          ("class_hi", class_hi, i32, (b,)),
                          ("tau", tau, f32, (b,))))
     lay = am.tiled_layout(b, num_classes, margin=True,
-                          scratch=scratch_words(b, n, k, cp, num_classes),
+                          scratch=scratch_words(b, n, k, cp, num_classes,
+                                                block),
                           escalate=True)
     buf = torch.empty(lay.words, dtype=i32, device=device)
     if b:

@@ -5,8 +5,11 @@
 Eq. 12 epilogue in PyTorch (the two-stage path); `classify_fused` is the
 single-launch binarise -> window match -> WTA path (B5); `serve_classify`
 is the multi-tenant serving tick (B6); `classify_fused_margins` is B6 with
-one shared thresholds row and tau -inf, at any bank size. ``block`` is the
-Pallas tiling override of the JAX package, accepted and ignored.
+one shared thresholds row and tau -inf, at any bank size. ``block`` names
+a design: B7b's tiling ("narrow" or "wide"; None takes the tuning table's,
+`repro_torch.kernels.tuning`) for the raw scores, the tiled kernel's
+("local" or "cooperative"; None the `acam_match.LOCAL_ROWS` rule) for B5
+and B6; another name raises.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ def similarity_scores(queries, lower, upper, *, alpha: float = 1.0,
                       block=None):
     """(B, M) Eq. 11 scores of raw queries against (M, N) windows."""
     return acam_similarity(_f32(queries), _f32(lower), _f32(upper),
-                           alpha=alpha)
+                           alpha=alpha, block=block)
 
 
 def classify(queries, lower_flat, upper_flat, valid_flat, num_classes: int,
@@ -30,7 +33,8 @@ def classify(queries, lower_flat, upper_flat, valid_flat, num_classes: int,
     """Eq. 12 decision over a class-major flattened (C * K, N) window bank:
     the raw-score kernel, then the valid mask, the max over K and the WTA.
     Returns (pred (B,) int32, per_class (B, C))."""
-    s = similarity_scores(queries, lower_flat, upper_flat, alpha=alpha)
+    s = similarity_scores(queries, lower_flat, upper_flat, alpha=alpha,
+                          block=block)
     s = torch.where(valid_flat[None, :].to(torch.bool), s,
                     torch.tensor(float("-inf"), device=s.device))
     k = lower_flat.shape[0] // num_classes
@@ -47,7 +51,7 @@ def classify_fused(features, thresholds, lower_ck, upper_ck, valid_ck, *,
         _f32(features), _f32(thresholds),
         _f32(layout.flatten_kmajor(lower_ck, c)),
         _f32(layout.flatten_kmajor(upper_ck, c)),
-        layout.valid_kmajor(valid_ck, c), c, alpha=alpha)
+        layout.valid_kmajor(valid_ck, c), c, alpha=alpha, block=block)
 
 
 def serve_classify(features, thr_table, tenant_slot, lower_ck, upper_ck,
@@ -68,7 +72,7 @@ def serve_classify(features, thr_table, tenant_slot, lower_ck, upper_ck,
         _f32(features), _f32(thr_table), _i32(tenant_slot),
         _f32(layout.stack_kcp(lower_ck, c)),
         _f32(layout.stack_kcp(upper_ck, c)), layout.valid_kcp(valid_ck, c),
-        lo, hi, _f32(tau), c, alpha=alpha, chunk=chunk)
+        lo, hi, _f32(tau), c, alpha=alpha, chunk=chunk, block=block)
 
 
 def classify_fused_margins(features, thresholds, lower_ck, upper_ck,
@@ -83,5 +87,5 @@ def classify_fused_margins(features, thresholds, lower_ck, upper_ck,
         features, thresholds[None, :],
         torch.zeros((b,), dtype=torch.int32, device=features.device),
         lower_ck, upper_ck, valid_ck, class_lo, class_hi, None, alpha=alpha,
-        max_rows=max_rows)
+        max_rows=max_rows, block=block)
     return pred, per_class, margin

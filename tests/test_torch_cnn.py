@@ -4,7 +4,7 @@ Student features and logits: the JAX params carried across with
 `repro_torch.convert` give the same values within rtol 1e-4, atol 1e-5 (f32
 convolutions sum in a different order). Fed the same features, the ACAM
 head and `HybridClassifier.predict` are bit-identical. Template generation
-on dyadic features gives the same bank.
+on dyadic features gives the same bank, at k = 1 and 2.
 """
 import jax
 import jax.numpy as jnp
@@ -131,8 +131,15 @@ def test_generate_templates_dyadic():
     np.testing.assert_allclose(got.thresholds.numpy(),
                                np.asarray(want.thresholds), rtol=1e-6)
     assert not bool(got.valid[8, 0])
-    with pytest.raises(NotImplementedError, match="k-means"):
-        ttemplates.generate_templates(t(feats), t(labels), 9, k=2)
+    # k = 2: k-means per class, the same bank bit for bit
+    want = jtemplates.generate_templates(jnp.asarray(feats),
+                                         jnp.asarray(labels), 9, k=2)
+    got = ttemplates.generate_templates(t(feats), t(labels), 9, k=2)
+    for name in ("templates", "lower", "upper", "valid"):
+        np.testing.assert_array_equal(to_np(getattr(got, name)),
+                                      np.asarray(getattr(want, name)),
+                                      err_msg=f"k=2 {name}")
+    assert got.templates.shape == (9, 2, 48) and not bool(got.valid[8].any())
 
 
 @pytest.mark.parametrize("backend", ["kernel", "reference"])

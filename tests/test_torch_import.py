@@ -33,6 +33,12 @@ slice3 = {"repro_torch.kernels.kd_loss.kd_loss", "repro_torch.kernels.kd_loss.op
           "repro_torch.train.cnn_trainer"}
 assert slice3 <= set(names), sorted(slice3 - set(names))
 assert "repro_torch.core.matching" in names  # slice 4: the shims
+slice5 = {"repro_torch.kernels.tuning", "repro_torch.examples.quickstart",
+          *(f"repro_torch.benchmarks.{m}" for m in (
+              "common", "energy_model", "fig1_thresholds",
+              "fig6_7_confusion", "kernel_bench", "run",
+              "table1_compression", "table2_templates"))}
+assert slice5 <= set(names), sorted(slice5 - set(names))
 import chip_smoke
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
@@ -46,7 +52,7 @@ def test_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", BLOCKED_IMPORT], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 60  # every module of the four slices
+    assert int(out.stdout.strip()) >= 72  # every module of the five slices
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -147,6 +153,35 @@ def test_training_entry_points_need_the_card_or_an_explicit_cpu():
                            device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.teacher_from_numpy(convert.to_numpy(teacher))
+
+
+def test_evaluation_entry_points_need_the_card_or_an_explicit_cpu(
+        monkeypatch, tmp_path):
+    """The paper benchmarks' models, the quickstart, the kernel bench and
+    the tuning search resolve ``device=None`` to the card, and raise
+    without one; each runs where the caller asks."""
+    from repro_torch.benchmarks import common, kernel_bench
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import tuning
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    monkeypatch.setenv("REPRO_BENCH_SCALE", "4")
+    monkeypatch.setenv("REPRO_TORCH_TUNING_CACHE", str(tmp_path / "t.json"))
+    tuning.clear_cache_for_tests()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        common.models()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quickstart.main(["--n-per-class", "4"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tuning.autotune_acam([(2, 3, 8)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernel_bench.compare_kernels((1,))
+    assert set(tuning.autotune_acam([(2, 3, 8)], iters=1,
+                                    device="cpu")) == {
+        "acam_match|cpu|b2_m3_n8|float32",
+        "acam_similarity|cpu|b2_m3_n8|float32"}
+    tuning.clear_cache_for_tests()
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
