@@ -140,14 +140,40 @@ JAX:
               an empty cache (the designs it took before the table); and
               `quickstart.main(["--fast", "--mc", "4"])` (B1 and B3
               launched, every number finite).
- 5. report    the card's name and power limit, metrics and the energy
+ 5. control_plane  the single-card control plane at paper width (N 784,
+              8 seeded tenants x 10 classes in the 128-class bank, k_max
+              2, 64 slots): `apply_manifest` equal to imperative
+              registration; `reconfigure` through slots 64 -> 32 -> 64,
+              mega -> compose, feature count -> similarity (compose, then
+              mega), the kernel -> the device backend at sigma 0 and a tau
+              change, each answering its drained requests as a fresh build
+              of the old spec does and the next ones as a fresh build of
+              the new spec (B3, B4 and B6 launched); a blocking and an
+              async snapshot, the service dropped and restored, answers
+              bit-identical to a twin never killed, and the same snapshot
+              restored on the CPU answering the same; half the tenants
+              evicted and `compact` (every `bank_of` and answer
+              unchanged); the `Autopilot` widening the slots over a
+              saturating trace (its shard escalation blocked on one card)
+              with every request answered once; `serving_bench` at smoke
+              size; and training as a function of its seed
+              (`training_repeatability`: the teacher and the 22-step
+              student twice from one seed, every parameter and BN buffer
+              bitwise equal, the first step and tensors at which two runs
+              without the deterministic mode part, and the student's
+              device time with the mode against without it). Times:
+              reconfigure downtime per transition, `apply_manifest`, the
+              snapshot writes, `recovery_ms`, `compact`, the bench's rows.
+ 6. report    the card's name and power limit, metrics and the energy
               split, the training step's time, device time and idle share,
-              the paper's tables and the tuning winners, one
-              ``{"kernels": [...]}`` line (ten kernels), and as the last
-              line ``{"ok": true, "device": {...}}``. ``--report PATH``
-              also writes every measurement to PATH as JSON, and the
-              tables' `bench_details.json` and `BENCH_torch_kernels.json`
-              beside it in ``paper_eval/``.
+              the paper's tables and the tuning winners, the control
+              plane's numbers, one ``{"kernels": [...]}`` line (ten
+              kernels), and as the last line ``{"ok": true, "device":
+              {...}}``. ``--report PATH`` also writes every measurement to
+              PATH as JSON, the tables' `bench_details.json` and
+              `BENCH_torch_kernels.json` beside it in ``paper_eval/``, and
+              the serving bench's `BENCH_torch_serving.json` and the
+              snapshots in ``control_plane/``.
 
 Every failed check raises, so the run exits non-zero. Without a CUDA card,
 or without the repository beside it, it exits non-zero before any result.
@@ -165,6 +191,10 @@ import time
 from pathlib import Path
 
 import numpy as np
+
+# the trainer's deterministic mode needs cuBLAS's workspace setting before
+# the process's first cuBLAS handle exists, long before the training phases
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 CSRC = "src/repro_torch/csrc"
@@ -2271,6 +2301,147 @@ def training_paths(device) -> dict:
     return report, training, trained
 
 
+@contextlib.contextmanager
+def nondeterministic_training():
+    """The trainer as it was before its deterministic mode: cuDNN's flags
+    passed through unchanged (free to pick non-deterministic backward
+    algorithms) and no `torch.use_deterministic_algorithms`. Only for
+    showing where two runs part and what the mode costs."""
+    import torch
+
+    from repro_torch.models import cnn
+    from repro_torch.train import cnn_trainer as tr
+
+    @contextlib.contextmanager
+    def passthrough_fp32(dev):
+        if dev.type != "cuda":
+            yield
+            return
+        cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+        prev = matmul.allow_tf32
+        matmul.allow_tf32 = False
+        try:
+            with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                             deterministic=cudnn.deterministic,
+                             allow_tf32=False):
+                yield
+        finally:
+            matmul.allow_tf32 = prev
+
+    saved = cnn.fp32, tr.deterministic
+    cnn.fp32 = passthrough_fp32
+    tr.deterministic = lambda dev: contextlib.nullcontext()
+    try:
+        yield
+    finally:
+        cnn.fp32, tr.deterministic = saved
+
+
+def recorded_training(fn):
+    """``fn()`` with the trainer's step wrapped to keep a copy of the
+    model's parameters and BatchNorm buffers after every step; returns
+    (fn's result, the copies in step order)."""
+    from repro_torch.train import cnn_trainer as tr
+
+    states, make_step = [], tr._make_step
+
+    def recording(*args, **kw):
+        step = make_step(*args, **kw)
+
+        def recorded(model, opt_state, batch):
+            out = step(model, opt_state, batch)
+            states.append({k: v.detach().clone()
+                           for k, v in model.state_dict().items()})
+            return out
+        return recorded
+
+    tr._make_step = recording
+    try:
+        return fn(), states
+    finally:
+        tr._make_step = make_step
+
+
+def first_divergence(a: list, b: list):
+    """The first step after which two runs' states differ, and the tensors
+    that differ there (None when every step is bitwise equal)."""
+    import torch
+
+    check(len(a) == len(b), f"two runs took {len(a)} and {len(b)} steps")
+    for i, (sa, sb) in enumerate(zip(a, b)):
+        apart = [k for k in sa if not torch.equal(sa[k], sb[k])]
+        if apart:
+            return dict(step=i + 1, tensors=apart)
+    return None
+
+
+def training_repeatability(device) -> dict:
+    """Training as a function of its seed, on the card: the teacher (1
+    epoch, 5 steps) and the KD + curriculum + prune + QAT student of
+    `training_paths` (22 steps), each trained twice from one seed under the
+    trainer's deterministic mode, every parameter and BatchNorm buffer
+    bitwise equal after every step. The same two runs without the mode
+    (`nondeterministic_training`) name the first step and tensors at which
+    they part, and the device time of the student's 22 steps with the mode
+    is set against its time without it (profiled in turns: without, with,
+    with, without)."""
+    import torch
+
+    from repro_torch.data import synthetic
+    from repro_torch.models import cnn
+    from repro_torch.train import cnn_trainer as tr
+
+    train = synthetic.load("train", n_per_class=64, seed=0)
+    x = synthetic.normalize(synthetic.to_grayscale(train.images))
+    y = train.labels
+    tcfg = cnn.TeacherConfig(in_channels=1)
+    cfg = tr.TrainConfig(epochs=2, batch_size=128, prune_epochs=2,
+                         finetune_epochs=1, qat=True, seed=0)
+
+    def teacher():
+        return tr.train_teacher(x, y, tcfg, epochs=1, batch_size=128,
+                                device=device)
+
+    def student(zt):
+        return tr.train_student(x, y, student_cfg=cnn.StudentConfig(),
+                                teacher_logits_all=zt, cfg=cfg,
+                                do_prune=True, device=device)
+
+    report = {}
+    for mode, ctx in (("without", nondeterministic_training),
+                      ("with", contextlib.nullcontext)):
+        with ctx():
+            t1, t_states1 = recorded_training(teacher)
+            t2, t_states2 = recorded_training(teacher)
+            zt = cnn.teacher_logits(t1, x).cpu().numpy()
+            _, s_states1 = recorded_training(lambda: student(zt))
+            _, s_states2 = recorded_training(lambda: student(zt))
+        report[mode] = dict(
+            teacher_steps=len(t_states1), student_steps=len(s_states1),
+            teacher_divergence=first_divergence(t_states1, t_states2),
+            student_divergence=first_divergence(s_states1, s_states2))
+        del t_states1, t_states2, s_states1, s_states2
+    with_ = report["with"]
+    check(with_["teacher_divergence"] is None
+          and with_["student_divergence"] is None,
+          f"deterministic training: two runs from one seed differ: {with_}")
+    check(with_["student_steps"] == 22 and with_["teacher_steps"] == 5,
+          f"training_repeatability: {with_['teacher_steps']} teacher and "
+          f"{with_['student_steps']} student steps, not 5 and 22")
+    zt = cnn.teacher_logits(t1, x).cpu().numpy()
+    times = {"without": [], "with": []}
+    for mode in ("without", "with", "with", "without"):
+        ctx = (nondeterministic_training if mode == "without"
+               else contextlib.nullcontext)
+        with ctx():
+            times[mode].append(profile(lambda: student(zt)))
+    for mode, runs in times.items():
+        report[mode]["student_device_ms"] = [r["device_ms"] for r in runs]
+        report[mode]["student_wall_ms"] = [r["wall_ms"] for r in runs]
+    torch.cuda.synchronize()
+    return report
+
+
 def attention_path(device) -> dict:
     """B9 through its entry point, `ops.attention`, at the bench shape
     (1, 1024, 8 heads, 2 kv heads, 64) bf16 causal, held against the model's
@@ -2884,6 +3055,356 @@ def print_paper_eval(pe: dict) -> None:
           f"{q['acam_accuracy']:.4f}, service {json.dumps(q['service'])}")
 
 
+# ---------------------------------------------------------------------------
+# 5. the control plane: manifests, reconfigure, snapshots, compaction, the
+#    autopilot and the serving bench
+# ---------------------------------------------------------------------------
+
+CP_TENANTS = 8
+CP_TAU = 8.0  # match counts; the similarity and device specs convert it
+CP_SEEDS = tuple(500 + t for t in range(CP_TENANTS))
+# query noise around the prototypes: at N 784 it puts about a fifth of the
+# margins under 8 counts, so the cascade escalates some requests
+CP_NOISE = 6.0
+# the similarity steps' tau in counts (tau / N in Eq. 11 units): the median
+# of their served margins, so about half escalate
+CP_SIM_TAU = 0.35
+
+
+def cp_manifest(tenants=range(CP_TENANTS)):
+    """The phase's tenants as one manifest: seeded synthetic banks at the
+    paper's width, k 1 and 2 alternating (k_max 2), 10 classes each."""
+    from repro_torch.fleet import FleetManifest, TenantSpec
+
+    return FleetManifest(tenants=tuple(
+        TenantSpec(f"t{t}", seed=CP_SEEDS[t], num_classes=10, k=1 + t % 2)
+        for t in tenants))
+
+
+def cp_requests(n: int, seed: int, tenants=range(CP_TENANTS)):
+    """``n`` requests over ``tenants``, round robin, from each tenant's
+    prototypes (`sample_tenant_queries`)."""
+    from repro_torch.serve import acam_service as svc_lib
+
+    tenants = list(tenants)
+    protos = {t: svc_lib.make_synthetic_tenant(
+        CP_SEEDS[t], num_classes=10, k=1 + t % 2, num_features=N)[2]
+        for t in tenants}
+    out = []
+    for i in range(n):
+        t = tenants[i % len(tenants)]
+        f, _ = svc_lib.sample_tenant_queries(seed + i, protos[t], 1,
+                                             noise=CP_NOISE)
+        out.append(svc_lib.ClassifyRequest(f"t{t}", f[0]))
+    return out
+
+
+def answers(responses) -> list:
+    return [(r.tenant_id, r.pred, r.margin, r.escalated, r.energy_j,
+             r.error) for r in responses]
+
+
+def control_plane(device, out_dir: Path) -> tuple[dict, dict]:
+    """The single-card control plane at the paper's width (N 784, 8 tenants
+    x 10 classes in the 128-class bank, k_max 2, 64 slots):
+
+    1. `apply_manifest` against imperative registration: the same registry
+       state and answers;
+    2. `reconfigure` through slots 64 -> 32 -> 64, mega -> compose, feature
+       count -> similarity (compose, then mega; with its own tau), the
+       kernel -> the device backend at sigma 0, and a tau change: the
+       drained requests answered as a fresh build of the OLD spec answers
+       them, the next ones as a fresh build of the new spec; B3, B4 and
+       B6 launched (the similarity tick runs B6 under either fusion: its
+       margins face serves "compose" in both packages, so B5, the predict
+       classify, is not on this path);
+    3. a blocking and an async snapshot, the service dropped, restored:
+       answers bit-identical to a twin never killed;
+    4. the card's snapshot restored on the CPU: the same feature-count
+       answers;
+    5. half the tenants evicted, then `compact`: every `bank_of` and every
+       answer unchanged;
+    6. the `Autopilot` over a saturating trace widens the slots (its shard
+       escalation blocked on one card) and hands back its drained
+       responses, every request answered once;
+    7. `serving_bench` at smoke size into ``out_dir``;
+    8. training as a function of its seed (`training_repeatability`).
+
+    Returns (the driven paths, the phase's measurements)."""
+    import torch
+
+    from repro_torch.benchmarks import serving_bench
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.core.acam import ACAMConfig
+    from repro_torch.fleet import Autopilot, PolicySpec, view_of
+    from repro_torch.fleet.manifest import materialize
+    from repro_torch.match import EngineConfig
+    from repro_torch.serve.control import HybridService
+    from repro_torch.serve.spec import (CascadeSpec, RegistrySpec,
+                                        SchedulerSpec, ServiceSpec)
+
+    report, out = {}, {}
+    base = ServiceSpec(
+        registry=RegistrySpec(num_features=N, k_max=2, initial_classes=128),
+        engine=EngineConfig(backend="kernel", margin=True),
+        scheduler=SchedulerSpec(slots=64),
+        cascade=CascadeSpec(tau=CP_TAU, tau_units="count"))
+    manifest = cp_manifest()
+
+    def fresh(spec, on=device):
+        svc = HybridService.from_spec(spec, device=on)
+        svc.apply_manifest(manifest)
+        return svc
+
+    # -- 1. manifest against imperative registration ------------------------
+    svc = HybridService.from_spec(base, device=device)
+    rep = svc.apply_manifest(manifest)
+    check(len(rep.added) == CP_TENANTS and len(svc.registry) == CP_TENANTS,
+          f"apply_manifest added {rep.added}")
+    imperative = HybridService.from_spec(base, device=device)
+    for t in manifest.tenants:
+        bank, head = materialize(t, N)
+        imperative.register_tenant(t.tenant_id, bank, head=head)
+    (a_arrays, a_meta), (b_arrays, b_meta) = (
+        svc.registry.snapshot_state(), imperative.registry.snapshot_state())
+    check(a_meta == b_meta and all(np.array_equal(a_arrays[k], b_arrays[k])
+                                   for k in a_arrays),
+          "apply_manifest and imperative registration differ in state")
+    probe = cp_requests(128, 7)
+    check(answers(svc.serve(probe)) == answers(imperative.serve(probe)),
+          "apply_manifest and imperative registration answer differently")
+    noop = svc.apply_manifest(manifest)
+    check(noop.empty, "re-applying the manifest in force changed tenants")
+    out["apply_manifest_ms"] = rep.duration_s * 1e3
+    out["apply_manifest_noop_ms"] = noop.duration_s * 1e3
+
+    # -- 2. reconfigure transitions ----------------------------------------
+    sim = base.engine._replace(method="similarity")
+    sim_cascade = base.cascade._replace(tau=CP_SIM_TAU)
+    steps = [
+        ("slots 64 -> 32", base._replace(scheduler=SchedulerSpec(slots=32))),
+        ("slots 32 -> 64", base),
+        ("mega -> compose", base._replace(engine=base.engine._replace(
+            serve_fusion="compose"))),
+        ("feature count -> similarity (compose)", base._replace(
+            engine=sim._replace(serve_fusion="compose"),
+            cascade=sim_cascade)),
+        ("compose -> mega (similarity)", base._replace(
+            engine=sim, cascade=sim_cascade)),
+        ("kernel -> device backend, sigma 0", base._replace(
+            engine=base.engine._replace(
+                backend="device", device=ACAMConfig(sigma_program=0.0)))),
+    ]
+    steps.append(("tau 8 -> 16 counts", steps[-1][1]._replace(
+        cascade=base.cascade._replace(tau=2 * CP_TAU))))
+
+    def transitions():
+        rows, old = [], svc.spec
+        for i, (name, spec) in enumerate(steps):
+            pending = cp_requests(96, 1000 + 100 * i)
+            for r in pending:
+                svc.submit(r)
+            report_ = svc.reconfigure(spec)
+            after = svc.serve(cp_requests(128, 5000 + 100 * i))
+            rows.append(dict(name=name, old=old, spec=spec, pending=pending,
+                             report=report_, after=after))
+            old = spec
+        return rows
+
+    rows, counts, wall = drive(
+        "control_plane_reconfigure", transitions,
+        ["acam_match_serve", "acam_match_classify_margins",
+         "acam_similarity_serve"])
+    downtime = {}
+    escalation = {}
+    for i, row in enumerate(rows):
+        check(len(row["report"].drained) == len(row["pending"]),
+              f"{row['name']}: {len(row['report'].drained)} drained of "
+              f"{len(row['pending'])}")
+        check(answers(row["report"].drained) ==
+              answers(fresh(row["old"]).serve(row["pending"])),
+              f"{row['name']}: drained requests not answered under the old "
+              "spec")
+        check(answers(row["after"]) == answers(fresh(row["spec"]).serve(
+            cp_requests(128, 5000 + 100 * i))),
+              f"{row['name']}: answers differ from a fresh build of the new "
+              "spec")
+        downtime[row["name"]] = row["report"].downtime_s * 1e3
+        escalation[row["name"]] = float(np.mean([r.escalated
+                                                 for r in row["after"]]))
+    check(escalation["tau 8 -> 16 counts"] >
+          escalation["kernel -> device backend, sigma 0"],
+          f"raising tau did not raise the escalation rate: {escalation}")
+    check(svc.reconfigure(svc.spec).actions == (),
+          "a no-op reconfigure acted")
+    out["reconfigure_downtime_ms"] = downtime
+    out["reconfigure_escalation_rate"] = escalation
+    report["control_plane_reconfigure"] = dict(launches=counts, wall_s=wall)
+
+    # -- 3. snapshot (blocking, async), kill, restore -----------------------
+    ckpt_dir = out_dir / "control_plane_ckpt"
+    ckpt = Checkpointer(ckpt_dir)
+    killed, twin = fresh(base), fresh(base)
+    warm = cp_requests(256, 11)
+    check(answers(killed.serve(warm)) == answers(twin.serve(warm)),
+          "two fresh builds answer differently")
+    t0 = time.perf_counter()
+    step0 = killed.snapshot(ckpt)
+    blocking_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    step1 = killed.snapshot(ckpt, blocking=False)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    ckpt.wait()
+    async_ms = (time.perf_counter() - t0) * 1e3
+    check((step0, step1) == (0, 1) and ckpt.latest_step() == 1,
+          f"snapshot steps {step0}, {step1}, latest {ckpt.latest_step()}")
+    del killed
+
+    def restored():
+        svc_, rep_ = HybridService.restore(Checkpointer(ckpt_dir),
+                                           device=device)
+        return svc_, rep_, svc_.serve(probe)
+
+    (back, restore_rep, got), counts, wall = drive(
+        "control_plane_restore", restored, ["acam_match_serve"])
+    want = twin.serve(probe)
+    check([a[1:] for a in answers(got)] == [a[1:] for a in answers(want)],
+          "the restored service answers differently from the twin never "
+          "killed")
+    check(back.registry.capacity_classes == twin.registry.capacity_classes
+          and len(back.registry) == CP_TENANTS,
+          "restore: registry shape or tenants differ")
+    report["control_plane_restore"] = dict(launches=counts, wall_s=wall)
+    out["snapshot"] = dict(blocking_ms=blocking_ms,
+                           async_enqueue_ms=enqueue_ms,
+                           async_durable_ms=async_ms,
+                           recovery_ms=restore_rep.restore_s * 1e3,
+                           tenants=restore_rep.tenants,
+                           bytes=sum(f.stat().st_size
+                                     for f in ckpt_dir.rglob("*.npy")))
+
+    # -- 4. the card's snapshot on the CPU ---------------------------------
+    on_cpu, _ = HybridService.restore(Checkpointer(ckpt_dir), device="cpu")
+    cpu_got = on_cpu.serve(probe)
+    card_got = back.serve(probe)
+    check([a[1:] for a in answers(cpu_got)] ==
+          [a[1:] for a in answers(card_got)],
+          "the card's snapshot restored on the CPU answers differently")
+
+    # -- 5. evict half, compact --------------------------------------------
+    keep = [t for t in range(CP_TENANTS) if t % 2]
+    for t in range(CP_TENANTS):
+        if t not in keep:
+            back.evict_tenant(f"t{t}")
+    kept_probe = cp_requests(128, 13, keep)
+    before = answers(back.serve(kept_probe))
+    banks = {t: back.registry.bank_of(f"t{t}") for t in keep}
+    cap = back.registry.capacity_classes
+    t0 = time.perf_counter()
+    freed = back.compact_registry()
+    compact_ms = (time.perf_counter() - t0) * 1e3
+    check(freed > 0 and back.registry.capacity_classes == cap - freed,
+          f"compact freed {freed} rows of {cap}")
+    for t, bank in banks.items():
+        again = back.registry.bank_of(f"t{t}")
+        check(all(np.array_equal(getattr(bank, f), getattr(again, f))
+                  for f in bank._fields), f"compact changed t{t}'s bank")
+    after = answers(back.serve(kept_probe))
+    check([a[1:] for a in after] == [a[1:] for a in before],
+          "compact changed the answers")
+    out["compact"] = dict(ms=compact_ms, freed_rows=freed,
+                          capacity_before=cap,
+                          capacity_after=back.registry.capacity_classes)
+
+    # -- 6. the autopilot widens the slots ----------------------------------
+    pilot_svc = fresh(base._replace(scheduler=SchedulerSpec(slots=32)))
+    pilot = Autopilot(pilot_svc, policy=PolicySpec(interval=2, hysteresis=2,
+                                                   cooldown=64))
+    view = view_of(pilot_svc)
+    stream = cp_requests(1024, 17)
+    responses, drained, i = [], 0, 0
+    t0 = time.perf_counter()
+    while i < len(stream) or pilot_svc.scheduler.qsize:
+        for r in stream[i:i + 4 * pilot_svc.scheduler.slots]:
+            pilot_svc.submit(r)
+        i += 4 * pilot_svc.scheduler.slots
+        responses.extend(pilot_svc.step())
+        pilot.observe_tick()
+        got = pilot.take_drained()
+        drained += len(got)
+        responses.extend(got)
+    torch.cuda.synchronize()
+    pilot_s = time.perf_counter() - t0
+    acts = [a["action"] for a in pilot.actions]
+    check("widen_slots" in acts and "escalate_shards" not in acts
+          and pilot_svc.spec.scheduler.slots > 32,
+          f"autopilot actions {pilot.actions}")
+    check(max(view.shard_rows_used) / view.rows_per_shard >= 0.75,
+          "the autopilot's bank was not full enough to propose a shard "
+          "escalation")
+    check(drained > 0, "the widening drained no requests")
+    check(sorted(r.request_id for r in responses) ==
+          list(range(1, len(stream) + 1)),
+          "autopilot: not every request answered exactly once")
+    out["autopilot"] = dict(actions=pilot.actions, drained=drained,
+                            slots=pilot_svc.spec.scheduler.slots,
+                            wall_s=pilot_s,
+                            metrics=pilot_svc.metrics())
+
+    # -- 7. the serving bench at smoke size ---------------------------------
+    t0 = time.perf_counter()
+    bench_rows = serving_bench.run(
+        device=device, out=str(out_dir / "BENCH_torch_serving.json"),
+        smoke=True)
+    bench_s = time.perf_counter() - t0
+    for r in bench_rows:
+        e = r["entry"]
+        check(all(np.isfinite(v) for v in e.values()
+                  if isinstance(v, float)) and e["requests_per_s"] > 0,
+              f"serving bench row {r['name']}: {e}")
+    out["serving_bench"] = dict(wall_s=bench_s,
+                                rows=[r["entry"] for r in bench_rows],
+                                names=[r["name"] for r in bench_rows])
+
+    # -- 8. training as a function of its seed ------------------------------
+    t0 = time.perf_counter()
+    out["training_repeatability"] = training_repeatability(device)
+    out["training_repeatability"]["wall_s"] = time.perf_counter() - t0
+    return report, out
+
+
+def print_control_plane(cp: dict, card: str) -> None:
+    print(f"control plane ({card}): apply_manifest "
+          f"{cp['apply_manifest_ms']:.3f} ms (no-op "
+          f"{cp['apply_manifest_noop_ms']:.3f} ms)")
+    for name, ms in cp["reconfigure_downtime_ms"].items():
+        print(f"reconfigure {name}: downtime {ms:.3f} ms, escalation "
+              f"{cp['reconfigure_escalation_rate'][name]:.4f}")
+    snap = cp["snapshot"]
+    print(f"snapshot ({snap['bytes']} bytes of leaves): blocking "
+          f"{snap['blocking_ms']:.3f} ms, async {snap['async_enqueue_ms']:.3f}"
+          f" ms to enqueue / {snap['async_durable_ms']:.3f} ms to durable; "
+          f"restore (recovery_ms) {snap['recovery_ms']:.3f} ms, "
+          f"{snap['tenants']} tenants")
+    c = cp["compact"]
+    print(f"compact: {c['ms']:.3f} ms, {c['capacity_before']} -> "
+          f"{c['capacity_after']} class rows")
+    ap = cp["autopilot"]
+    print(f"autopilot: {[(a['tick'], a['action']) for a in ap['actions']]}, "
+          f"slots -> {ap['slots']}, {ap['drained']} drained, "
+          f"{ap['wall_s']:.3f} s")
+    for name, e in zip(cp["serving_bench"]["names"],
+                       cp["serving_bench"]["rows"]):
+        print(f"serving bench {name} ({card}): {json.dumps(e)}")
+    tr = cp["training_repeatability"]
+    for mode in ("without", "with"):
+        r = tr[mode]
+        print(f"training {mode} the deterministic mode: teacher first "
+              f"divergence {r['teacher_divergence']}, student "
+              f"{r['student_divergence']}; 22 student steps: device "
+              f"{r['student_device_ms']} ms, wall {r['student_wall_ms']} ms")
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -2942,6 +3463,13 @@ def main(argv: list[str]) -> int:
     evaluated, paper = paper_eval(device, student, out_dir)
     paper["wall_s"] = time.perf_counter() - t0
     report.update(evaluated)
+    cp_dir = (report_path.parent / "control_plane" if report_path
+              else Path(scratch.name) / "control_plane")
+    cp_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    driven, control = control_plane(device, cp_dir)
+    control["wall_s"] = time.perf_counter() - t0
+    report.update(driven)
     launches = {}
     for path in report.values():
         for k, v in path["launches"].items():
@@ -3023,6 +3551,7 @@ def main(argv: list[str]) -> int:
     print(f"profile sessions retried: {json.dumps(PROFILE_RETRIES)}")
     print_device_physics(report["device_physics"], report["serve_mega"])
     print_paper_eval(paper)
+    print_control_plane(control, smi)
     check(set(kernels) == set(KERNELS), "every ported kernel measured")
 
     line = {"kernels": [
@@ -3044,7 +3573,8 @@ def main(argv: list[str]) -> int:
             dict(card=smi, build_s=build_s, nvcc=logs,
                  kernels=line["kernels"], kernel_phases=kernels,
                  profile_retries=PROFILE_RETRIES,
-                 paths=report, training=training, paper_eval=paper),
+                 paths=report, training=training, paper_eval=paper,
+                 control_plane=control),
             indent=1, default=str))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

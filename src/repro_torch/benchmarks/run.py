@@ -27,6 +27,10 @@ def main(argv=None, *, device=None) -> list[tuple[str, float, str]]:
     ap.add_argument("--device", default=device,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
+    from repro_torch.train import cnn_trainer
+
+    # before any cuBLAS handle: the tables train on the card
+    cnn_trainer.deterministic_cublas()
     from repro_torch.benchmarks import (common, energy_model,
                                         fig1_thresholds, fig6_7_confusion,
                                         kernel_bench, table1_compression,

@@ -41,6 +41,7 @@ def main(argv=None, *, device=None) -> dict:
     ap.add_argument("--device", default=device,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
+    T.deterministic_cublas()
     dev = resolve(args.device)
     n = args.n_per_class or (120 if args.fast else 400)
     epochs = 2 if args.fast else 4

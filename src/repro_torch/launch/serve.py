@@ -17,11 +17,20 @@ service metrics. It runs on the card unless the caller asks for the CPU
 Under ``--backend device`` the served margins are matchline fractions and
 the spec rescales the count-unit ``--margin-tau`` by 1/N itself
 (`ServiceSpec.tau_scale`); ``--device-noise`` picks the programming-noise
-semantics. Not in the port yet, each raising `NotImplementedError`: the
-``lm`` and ``lm-cached`` workloads (the LM slice), ``--manifest`` and
-``--autopilot`` (the fleet slice), ``--snapshot-dir`` / ``--restore``
-(snapshots) and ``--bank-shards > 1`` (the multi-GPU slice).
-``--profile-annotations`` marks each fused dispatch with
+semantics. ``--manifest FILE.json`` populates the tenants from a
+`repro_torch.fleet.FleetManifest` (``apply_manifest``), ``--autopilot``
+serves through the fleet autopilot (one ``observe_tick`` per step, in
+bursts of ``slots`` requests), ``--snapshot-dir DIR`` snapshots the service
+after serving, and ``--snapshot-dir DIR --restore`` boots from the latest
+snapshot there (a restart serves what the first run would have):
+
+  python -m repro_torch.launch.serve --workload acam --snapshot-dir ckpt
+  python -m repro_torch.launch.serve --workload acam --snapshot-dir ckpt \
+      --restore
+
+Not in the port yet, each raising `NotImplementedError`: the ``lm`` and
+``lm-cached`` workloads (the LM slice) and ``--bank-shards > 1`` (the
+multi-GPU slice). ``--profile-annotations`` marks each fused dispatch with
 `torch.profiler.record_function`.
 """
 from __future__ import annotations
@@ -69,14 +78,6 @@ def _unported(args) -> None:
     if args.workload in later:
         raise NotImplementedError(f"--workload {args.workload}: "
                                   f"{later[args.workload]}")
-    if args.manifest or args.autopilot:
-        raise NotImplementedError(
-            "--manifest / --autopilot: fleet manifests and the autopilot "
-            "come with the reconfigure/fleet slice of the port")
-    if args.snapshot_dir or args.restore:
-        raise NotImplementedError(
-            "--snapshot-dir / --restore: service snapshots come with the "
-            "reconfigure/snapshot slice of the port")
     if args.bank_shards > 1:
         raise NotImplementedError(
             f"--bank-shards {args.bank_shards}: sharding the super-bank "
@@ -86,25 +87,53 @@ def _unported(args) -> None:
 def run_acam(args, device=None) -> dict:
     """Boot the service from the spec, register the synthetic tenants,
     serve the request stream, print the metrics. Returns the metrics with
-    the accuracy against the sampled labels, and the responses in request
-    order (``"responses"``)."""
+    the accuracy against the sampled labels, the responses in request
+    order (``"responses"``) and the autopilot's action log
+    (``"autopilot"``, None without ``--autopilot``)."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.serve import acam_service as svc_lib
     from repro_torch.serve.control import HybridService
 
     spec = build_acam_spec(args)
     if args.print_spec:
         print(spec.to_json())
-    svc = HybridService.from_spec(spec, device=device)
+    if args.restore:
+        if not args.snapshot_dir:
+            raise SystemExit("--restore needs --snapshot-dir")
+        svc, report = HybridService.restore(Checkpointer(args.snapshot_dir),
+                                            device=device)
+        print(f"restored step {report.step}: {report.tenants} tenants, "
+              f"{report.restore_s * 1e3:.1f} ms")
+        spec = svc.spec
+    else:
+        svc = HybridService.from_spec(spec, device=device)
     n_features = spec.registry.num_features
 
     protos = {}
-    for t in range(args.tenants):
-        bank, head, p = svc_lib.make_synthetic_tenant(
-            args.seed * 1000 + t, num_classes=args.classes,
-            num_features=n_features)
-        tid = f"tenant-{t}"
-        svc.register_tenant(tid, bank, head=head)
-        protos[tid] = p
+    if args.manifest:
+        # the tenant population from ONE FleetManifest file, diffed
+        # against the (empty) manifest in force
+        from repro_torch.fleet import FleetManifest
+
+        rep = svc.apply_manifest(FleetManifest.from_file(args.manifest))
+        print(f"manifest applied: +{len(rep.added)} added, "
+              f"-{len(rep.evicted)} evicted, {len(rep.updated)} updated, "
+              f"{len(rep.retuned)} retuned "
+              f"({len(svc.registry)} tenants live)")
+        for t in rep.manifest.tenants:
+            if t.seed is not None:  # checkpoint tenants have no protos
+                protos[t.tenant_id] = svc_lib.make_synthetic_tenant(
+                    t.seed, num_classes=t.num_classes, k=t.k,
+                    num_features=n_features)[2]
+    else:
+        for t in range(args.tenants):
+            bank, head, p = svc_lib.make_synthetic_tenant(
+                args.seed * 1000 + t, num_classes=args.classes,
+                num_features=n_features)
+            tid = f"tenant-{t}"
+            if tid not in svc.registry:  # a restored service adopted them
+                svc.register_tenant(tid, bank, head=head)
+            protos[tid] = p
 
     # mixed-tenant request stream (round-robin interleave, then shuffled —
     # every micro-batch holds several tenants)
@@ -122,8 +151,37 @@ def run_acam(args, device=None) -> dict:
     reqs = [reqs[i] for i in order]
     truth = [truth[i] for i in order]
 
-    responses = svc.serve(reqs)
+    if args.autopilot:
+        # closed-loop serving: bursty submission, one observe_tick per
+        # step; the policy may widen slots, swap backends or compact
+        from repro_torch.fleet import Autopilot, PolicySpec
+
+        pilot = Autopilot(svc, policy=PolicySpec())
+        burst = spec.scheduler.slots
+        responses, i = [], 0
+        while i < len(reqs) or svc.scheduler.qsize:
+            for r in reqs[i:i + burst]:
+                svc.submit(r)
+            i += burst
+            responses.extend(svc.step())
+            pilot.observe_tick()
+            responses.extend(pilot.take_drained())
+        if pilot.actions:
+            acts = ", ".join(f"t{a['tick']}:{a['action']}"
+                             for a in pilot.actions)
+            print(f"autopilot: {len(pilot.actions)} actions ({acts}); "
+                  f"now slots={svc.spec.scheduler.slots}, "
+                  f"backend={svc.spec.engine.backend}")
+        else:
+            print("autopilot: no action (no threshold crossed)")
+        spec = svc.spec
+    else:
+        responses = svc.serve(reqs)
     m = svc.metrics()
+    if args.snapshot_dir:
+        step = svc.snapshot(Checkpointer(args.snapshot_dir))
+        print(f"service snapshot -> {args.snapshot_dir} step {step} "
+              f"(restart with --restore)")
     acc = float(np.mean([r.pred == y for r, y in zip(responses, truth)]))
     print(f"acam service: {m['completed']} requests over "
           f"{len(svc.registry)} tenants, "
@@ -149,7 +207,8 @@ def run_acam(args, device=None) -> dict:
         write_prometheus(svc.obs.registry, prom)
         print(f"  telemetry: {svc.obs.events.path} (event log), "
               f"{prom} (Prometheus scrape)")
-    return {"accuracy": acc, **m, "responses": responses}
+    return {"accuracy": acc, **m, "responses": responses,
+            "autopilot": pilot.actions if args.autopilot else None}
 
 
 def main(argv=None, *, device=None) -> dict:
@@ -179,10 +238,9 @@ def main(argv=None, *, device=None) -> dict:
                     help="print the resolved ServiceSpec JSON before boot")
     ap.add_argument("--manifest", default=None, metavar="FILE.json",
                     help="populate tenants from a declarative FleetManifest "
-                         "JSON file (not in the port yet)")
+                         "JSON file")
     ap.add_argument("--autopilot", action="store_true",
-                    help="drive serving through the fleet autopilot (not in "
-                         "the port yet)")
+                    help="drive serving through the fleet autopilot")
     ap.add_argument("--tenants", type=int, default=8)
     ap.add_argument("--slots", type=int, default=64)
     ap.add_argument("--classes", type=int, default=10,
@@ -202,11 +260,10 @@ def main(argv=None, *, device=None) -> dict:
                     help="shard the template super-bank's class rows over "
                          "this many cards (only 1 in the port yet)")
     ap.add_argument("--snapshot-dir", default=None, metavar="DIR",
-                    help="snapshot the service into DIR after serving (not "
-                         "in the port yet)")
+                    help="snapshot the service into DIR after serving")
     ap.add_argument("--restore", action="store_true",
                     help="boot by restoring the latest snapshot from "
-                         "--snapshot-dir (not in the port yet)")
+                         "--snapshot-dir")
     ap.add_argument("--deadline-ms", type=float, default=None,
                     help="per-request queue deadline: requests older than "
                          "this at tick time are expired with an error")

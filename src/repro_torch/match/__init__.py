@@ -16,6 +16,7 @@ from repro_torch.match.backends import (MAX_FUSED_ROWS, TINY_ELEMENTS,
                                         backend_for, backend_names,
                                         classify_scores,
                                         feature_count_scores_ref,
+                                        register_backend,
                                         similarity_scores_ref, tiny_cutoff,
                                         window_margin, winner_take_all)
 from repro_torch.match.config import EngineConfig
@@ -27,7 +28,8 @@ __all__ = [
     "MAX_FUSED_ROWS", "TINY_ELEMENTS", "TINY_ELEMENTS_SIMILARITY",
     "DeviceBackend", "KernelBackend", "MatchBackend", "ReferenceBackend",
     "backend_for", "backend_names", "classify_scores",
-    "feature_count_scores_ref", "similarity_scores_ref", "tiny_cutoff",
+    "feature_count_scores_ref", "register_backend",
+    "similarity_scores_ref", "tiny_cutoff",
     "window_margin", "winner_take_all", "EngineConfig", "MatchEngine",
     "default_backend", "engine_for", "engine_from_config",
     "set_default_backend", "use_backend",

@@ -464,6 +464,16 @@ _REGISTRY: dict[str, Callable[[EngineConfig], MatchBackend]] = {
 }
 
 
+def register_backend(name: str,
+                     factory: Callable[[EngineConfig], MatchBackend]) -> None:
+    """Add (or replace) a backend. `factory(config)` -> MatchBackend."""
+    if name == "auto":
+        raise ValueError('"auto" is the engine dispatch policy, '
+                         "not a backend name")
+    _REGISTRY[name] = factory
+    backend_for.cache_clear()  # a replaced factory must not serve stale hits
+
+
 def backend_names() -> tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 

@@ -101,7 +101,9 @@ def _he_init(generator: torch.Generator, modules) -> None:
 @contextlib.contextmanager
 def fp32(device: torch.device):
     """Full-float32 convolutions and products on the card (no TF32), for
-    everything run inside: a forward, or a forward and its backward."""
+    everything run inside: a forward, or a forward and its backward. cuDNN
+    runs only deterministic algorithms, chosen by its heuristics (no
+    benchmarking), so one seed trains the same weights every time."""
     if device.type != "cuda":
         yield
         return
@@ -109,8 +111,8 @@ def fp32(device: torch.device):
     prev = matmul.allow_tf32
     matmul.allow_tf32 = False
     try:
-        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                         deterministic=cudnn.deterministic, allow_tf32=False):
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=False,
+                         deterministic=True, allow_tf32=False):
             yield
     finally:
         matmul.allow_tf32 = prev

@@ -24,6 +24,10 @@ tick (``shed_queue`` / ``shed_p99_ms``) answers from the ACAM stage alone.
 
 `make_synthetic_tenant` / `sample_tenant_queries` build deterministic
 per-tenant banks + nearest-centroid heads without training a CNN.
+
+``ACAMService(num_features, config=ServiceConfig(...))`` is the JAX
+package's deprecated keyword constructor, bridged onto a spec by
+`repro_torch.serve.spec.from_legacy`; ``ACAMService(spec)`` takes a spec.
 """
 from __future__ import annotations
 
@@ -72,6 +76,24 @@ class ClassifyResponse:
     score: float = 0.0
 
 
+@dataclasses.dataclass(frozen=True)
+class ServiceConfig:
+    """The deprecated constructor's knobs (`spec.from_legacy` maps them)."""
+
+    slots: int = 64  # scheduler micro-batch size
+    method: str = "feature_count"
+    alpha: float = 1.0
+    #: cascade accept threshold in match-count units (0..N); the spec
+    #: rescales it for backends whose margins are fractions
+    margin_tau: float = 8.0
+    max_queue: int = 4096  # admission bound
+    # paper §V-D energy attribution (repro_torch.core.energy defaults)
+    frontend_macs: int = 23_785_120
+    frontend_sparsity: float = 0.80
+    softmax_head_ops: int = 7_850
+    paper_faithful: bool = True
+
+
 @dataclasses.dataclass
 class _TenantRuntime:
     has_head: bool  # False: cascade disabled (no escalation target)
@@ -106,7 +128,20 @@ class ACAMService:
     """Request/response front for multi-tenant hybrid ACAM classification,
     on ``device`` (the card unless the caller asks for the CPU)."""
 
-    def __init__(self, spec, *, device=None):
+    def __init__(self, spec, *, config: ServiceConfig | None = None,
+                 k_max: int = 2, class_bucket: int = 16,
+                 backend: str | None = None, device=None):
+        """``ACAMService(spec)``, or the deprecated keyword form
+        ``ACAMService(num_features, config=ServiceConfig(...), k_max=...,
+        class_bucket=..., backend=...)``, bridged onto a spec by
+        `repro_torch.serve.spec.from_legacy` (prefer
+        `HybridService.from_spec`)."""
+        from repro_torch.serve import spec as spec_lib
+
+        if not isinstance(spec, spec_lib.ServiceSpec):
+            spec = spec_lib.from_legacy(
+                int(spec), config=config, k_max=k_max,
+                class_bucket=class_bucket, backend=backend)
         self._build(spec, resolve(device))
 
     def _build(self, spec, device: torch.device) -> None:
@@ -146,6 +181,13 @@ class ACAMService:
         the §V-D front-end energy, every tenant's resolved threshold."""
         casc = spec.cascade
         self.spec = spec
+        self.config = ServiceConfig(
+            slots=spec.scheduler.slots, method=spec.engine.method,
+            alpha=spec.engine.alpha, margin_tau=casc.tau,
+            max_queue=casc.max_queue, frontend_macs=casc.frontend_macs,
+            frontend_sparsity=casc.frontend_sparsity,
+            softmax_head_ops=casc.softmax_head_ops,
+            paper_faithful=casc.paper_faithful)
         self._tau_scale = spec.tau_scale()
         effective = int(round(casc.frontend_macs
                               * (1.0 - casc.frontend_sparsity)))
@@ -478,10 +520,17 @@ class ACAMService:
         }
 
     def health(self) -> dict:
-        """Liveness view: straggler strikes, queue depth, load-shed state,
-        registry occupancy, rolling fill, p99 and the energy split."""
+        """Liveness view for operators and the fleet controller: straggler
+        strikes, queue depth, load-shed state, and the autoscaling policy's
+        inputs (`repro_torch.fleet.policy.view_of` reads only this):
+        per-shard registered rows against capacity, the fused row count
+        against its budget, rolling fill, p99 and the energy split."""
+        from repro_torch.kernels import layout
+        from repro_torch.match.backends import MAX_FUSED_ROWS
+
         verdict = self.scheduler.last_verdict or {}
         stats = self.registry.stats()
+        rows = self.registry.rows_per_shard
         return {
             "queue_depth": self.scheduler.qsize,
             "load_shedding": self.overloaded(),
@@ -491,10 +540,20 @@ class ACAMService:
                 for labels, v in self.obs.straggler_strikes.items()},
             "evict_verdict": list(verdict.get("evict", ())),
             "tenants": stats["tenants"],
+            "bank_shards": stats["bank_shards"],
             "capacity_classes": stats["capacity_classes"],
-            "rows_used": self.registry.rows_used(),
+            "rows_per_shard": rows,
+            "shard_rows_used": self.registry.shard_rows_used(),
+            "fused_rows_per_shard":
+                self.registry.k_max * layout.padded_classes(rows),
+            # the name is the JAX package's (its resident serve kernel
+            # holds these rows in TPU VMEM); MAX_FUSED_ROWS is still that
+            # TPU rule, not a number measured on the card
+            "vmem_budget_rows": MAX_FUSED_ROWS,
             "rolling_batch_fill": round(self.obs.rolling_batch_fill(), 3),
             "slots": self.scheduler.slots,
+            # the cards the service runs on: one until the multi-GPU slice
+            "devices": 1,
             "device": str(self.device),
             "p99_ms": round(self.obs.latency_quantile_ms(0.99), 4),
             "energy_backend_j": self.obs.ledger.backend_j(),

@@ -17,8 +17,16 @@ call:
 Host numpy mirrors hold the authoritative state; the device tensors
 (`device_bank`, `thresholds_table`) are rebuilt lazily on the registry's
 device and cached per `generation`, so an unchanged registry never
-re-uploads. Resharding, compaction and snapshots come with later slices of
-the port.
+re-uploads.
+
+The registry is shard-aligned as the JAX package's is, at one shard: the
+port serves from one card (``bank_shards`` 1, `rows_per_shard` ==
+``C_cap``), and `reshard` / `prepare_reshard` come with the multi-GPU
+slice. `compact` re-packs every tenant into the smallest capacity after
+evictions (`_build_shadow` + `adopt_prepared`, the JAX code at one shard),
+and `snapshot_state` / `load_state` carry the whole durable state
+(`repro_torch.serve.snapshot`) in the JAX package's layout, so a snapshot
+restores in either package.
 """
 from __future__ import annotations
 
@@ -54,6 +62,23 @@ class TenantEntry:
         return self.offset, self.offset + self.num_classes
 
 
+@dataclasses.dataclass
+class PreparedBank:
+    """A shadow super-bank built beside the live one (`_build_shadow`):
+    fresh host arrays re-packed into ``capacity`` rows plus the tenant
+    placements that go with them. `adopt_prepared` flips the registry to it;
+    ``source_generation`` pins the registry state it was built from (any
+    mutation in between makes it stale and the flip refuses)."""
+
+    bank_shards: int
+    capacity: int
+    source_generation: int
+    arrays: dict  # _templates/_lower/_upper/_valid replacement arrays
+    bucket_used: np.ndarray
+    placements: list  # [(tenant_id, new_offset)]
+    moved: int  # tenants whose offset changed
+
+
 def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
@@ -72,6 +97,8 @@ class TemplateBankRegistry:
         self.k_max = k_max
         self.class_bucket = class_bucket
         self.device = resolve(device)
+        #: class-row shards of the super-bank: one card serves them all
+        self.bank_shards = 1
         self._c_cap = initial_classes
         self._t_cap = initial_tenants
         n = num_features
@@ -106,9 +133,31 @@ class TemplateBankRegistry:
         so queued requests see the tenant's *current* placement."""
         return self._tenants.get(tenant_id)
 
+    def bank_of(self, tenant_id: str) -> TemplateBank:
+        """The tenant's current bank read back out of the packed host
+        arrays as (num_classes, k, N) numpy copies: the same bytes
+        `device_bank()` serves in this tenant's window."""
+        e = self.get(tenant_id)
+        sl = slice(e.offset, e.offset + e.num_classes)
+        return TemplateBank(
+            templates=self._templates[sl, :e.k].copy(),
+            lower=self._lower[sl, :e.k].copy(),
+            upper=self._upper[sl, :e.k].copy(),
+            valid=self._valid[sl, :e.k].copy(),
+            thresholds=self._thr[e.slot].copy())
+
+    @property
+    def capacity_classes(self) -> int:
+        return self._c_cap
+
     @property
     def capacity_tenants(self) -> int:
         return self._t_cap
+
+    @property
+    def rows_per_shard(self) -> int:
+        """Class rows per bank shard (``C_cap`` at one shard)."""
+        return self._c_cap // self.bank_shards
 
     def stats(self) -> dict:
         return {
@@ -118,11 +167,17 @@ class TemplateBankRegistry:
             "capacity_tenants": self._t_cap,
             "used_class_buckets": int(self._bucket_used.sum()),
             "programmed_rows": int(self._valid.sum()),
+            "bank_shards": self.bank_shards,
+            "rows_per_shard": self.rows_per_shard,
         }
 
-    def rows_used(self) -> int:
-        """Allocated class rows (bucket granularity)."""
-        return int(self._bucket_used.sum()) * self.class_bucket
+    def shard_rows_used(self) -> list[int]:
+        """Allocated class rows per bank shard (bucket granularity), the
+        fleet policy's capacity signal."""
+        per_shard = self.rows_per_shard // self.class_bucket
+        return [int(self._bucket_used[s * per_shard:(s + 1) * per_shard]
+                    .sum()) * self.class_bucket
+                for s in range(self.bank_shards)]
 
     # -- allocation ---------------------------------------------------------
 
@@ -256,6 +311,166 @@ class TemplateBankRegistry:
         self._slot_used[entry.slot] = False
         del self._tenants[tenant_id]
         self._bump()
+
+    # -- compaction ---------------------------------------------------------
+
+    def _pack(self, entries, cap: int, bank_shards: int):
+        """First-fit placement of existing bucket runs into a fresh bank of
+        ``cap`` rows cut into ``bank_shards`` shards (runs restart at shard
+        boundaries). Returns [(entry, new_offset)], or None when ``cap``
+        cannot hold them."""
+        shard_buckets = (cap // bank_shards) // self.class_bucket
+        used = np.zeros(cap // self.class_bucket, bool)
+        out = []
+        for e in entries:
+            n_buckets = e.c_bucket // self.class_bucket
+            if n_buckets > shard_buckets:
+                return None
+            placed = None
+            run = 0
+            for i in range(len(used)):
+                if i % shard_buckets == 0:
+                    run = 0
+                run = 0 if used[i] else run + 1
+                if run == n_buckets:
+                    start = i - n_buckets + 1
+                    used[start:i + 1] = True
+                    placed = start * self.class_bucket
+                    break
+            if placed is None:
+                return None
+            out.append((e, placed))
+        return out
+
+    def _build_shadow(self, cap: int, bank_shards: int) -> PreparedBank:
+        """Copy every tenant's bucket run, in offset order, into FRESH
+        arrays of ``cap`` rows (first fit, doubling ``cap`` until everyone
+        fits). A pure read of the live bank."""
+        order = sorted(self._tenants.values(), key=lambda e: e.offset)
+        while (placement := self._pack(order, cap, bank_shards)) is None:
+            cap *= 2
+        arrays = {name: np.zeros((cap,) + getattr(self, name).shape[1:],
+                                 getattr(self, name).dtype)
+                  for name in ("_templates", "_lower", "_upper", "_valid")}
+        bucket_used = np.zeros(cap // self.class_bucket, bool)
+        moved = 0
+        placements = []
+        for entry, offset in placement:
+            lo, hi = entry.offset, entry.offset + entry.c_bucket
+            for name, arr in arrays.items():
+                arr[offset:offset + entry.c_bucket] = \
+                    getattr(self, name)[lo:hi]
+            start = offset // self.class_bucket
+            bucket_used[start:start + entry.c_bucket
+                        // self.class_bucket] = True
+            moved += offset != entry.offset
+            placements.append((entry.tenant_id, offset))
+        return PreparedBank(bank_shards=bank_shards, capacity=cap,
+                            source_generation=self.generation,
+                            arrays=arrays, bucket_used=bucket_used,
+                            placements=placements, moved=moved)
+
+    def adopt_prepared(self, prepared: PreparedBank) -> int:
+        """Flip to a shadow bank from `_build_shadow`: swap the host arrays
+        and allocation map, move tenant offsets and bump the generation
+        (`_bump`: the device bank and thresholds table are rebuilt at the
+        new shape on their next read). Raises `RegistryError` when the
+        registry changed since the shadow was built. Returns the number of
+        tenants that moved."""
+        if prepared.source_generation != self.generation:
+            raise RegistryError(
+                f"prepared bank is stale: built at generation "
+                f"{prepared.source_generation}, registry is now at "
+                f"{self.generation}; re-prepare")
+        for name, arr in prepared.arrays.items():
+            setattr(self, name, arr)
+        self._bucket_used = prepared.bucket_used
+        for tenant_id, offset in prepared.placements:
+            entry = self._tenants[tenant_id]
+            self._tenants[tenant_id] = dataclasses.replace(
+                entry, offset=offset, generation=self.generation + 1)
+        self._c_cap = prepared.capacity
+        self.bank_shards = prepared.bank_shards
+        self._bump()
+        return prepared.moved
+
+    def compact(self) -> int:
+        """Shrink capacity after evictions: re-pack every tenant into the
+        smallest shard-aligned capacity that holds them (capacity only ever
+        doubles on register, and evict only frees buckets). `bank_of(t)`
+        returns the same bytes before and after; only offsets move. Changes
+        the device shapes. Returns the class rows freed (0: already
+        minimal)."""
+        align = self.bank_shards * self.class_bucket
+        used = int(self._bucket_used.sum()) * self.class_bucket
+        cap = max(align, -(-used // align) * align)
+        if cap >= self._c_cap:
+            return 0
+        prepared = self._build_shadow(cap, self.bank_shards)
+        if prepared.capacity >= self._c_cap:
+            return 0  # fragmentation kept the pack from shrinking
+        freed = self._c_cap - prepared.capacity
+        self.adopt_prepared(prepared)
+        return freed
+
+    # -- durable state (service snapshot/restore) ---------------------------
+
+    def snapshot_state(self) -> tuple[dict, dict]:
+        """The registry's durable state as ``(arrays, meta)``: a flat dict
+        of host numpy copies (an async checkpoint writer never races a hot
+        register) and a JSON-serialisable dict of the scalars and tenant
+        placements, in the JAX package's layout. `load_state` rebuilds this
+        registry bit for bit from them."""
+        arrays = {
+            "templates": self._templates.copy(),
+            "lower": self._lower.copy(),
+            "upper": self._upper.copy(),
+            "valid": self._valid.copy(),
+            "thresholds": self._thr.copy(),
+            "bucket_used": self._bucket_used.copy(),
+            "slot_used": self._slot_used.copy(),
+        }
+        meta = {
+            "num_features": self.num_features,
+            "k_max": self.k_max,
+            "class_bucket": self.class_bucket,
+            "bank_shards": self.bank_shards,
+            "capacity_classes": self._c_cap,
+            "capacity_tenants": self._t_cap,
+            "generation": self.generation,
+            "tenants": [dataclasses.asdict(e)
+                        for e in self._tenants.values()],
+        }
+        return arrays, meta
+
+    def load_state(self, arrays: dict, meta: dict) -> None:
+        """Adopt a `snapshot_state` payload wholesale (zero
+        re-registrations). The bank-shape fields must match this registry's;
+        a snapshot of a bank sharded over several cards needs the multi-GPU
+        slice."""
+        for field in ("num_features", "k_max", "class_bucket"):
+            if meta[field] != getattr(self, field):
+                raise RegistryError(
+                    f"snapshot {field}={meta[field]} does not match this "
+                    f"registry's {field}={getattr(self, field)}; restore "
+                    "through a spec built from the snapshot")
+        if int(meta["bank_shards"]) != 1:
+            raise NotImplementedError(
+                f"a snapshot of a super-bank in {meta['bank_shards']} shards "
+                "restores with the multi-GPU slice of the port")
+        self._c_cap = int(meta["capacity_classes"])
+        self._t_cap = int(meta["capacity_tenants"])
+        self._templates = np.array(arrays["templates"], np.float32)
+        self._lower = np.array(arrays["lower"], np.float32)
+        self._upper = np.array(arrays["upper"], np.float32)
+        self._valid = np.array(arrays["valid"], bool)
+        self._thr = np.array(arrays["thresholds"], np.float32)
+        self._bucket_used = np.array(arrays["bucket_used"], bool)
+        self._slot_used = np.array(arrays["slot_used"], bool)
+        self._tenants = {d["tenant_id"]: TenantEntry(**d)
+                         for d in meta["tenants"]}
+        self.generation = int(meta["generation"])
+        self._bump()  # drop caches; device views rebuild from the new bytes
 
     # -- device views -------------------------------------------------------
 

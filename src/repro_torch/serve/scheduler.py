@@ -81,6 +81,27 @@ class SchedulerStats:
         self.tick_time_s += dt_s
         self.slow_ticks += int(slow)
 
+    @property
+    def occupancy(self) -> float:
+        """Mean batch fill fraction across ticks (1.0 = every slot used)."""
+        if self.ticks == 0:
+            return 0.0
+        return self.filled_slots / (self.ticks * self.slots)
+
+    def as_dict(self) -> dict:
+        return {
+            "ticks": self.ticks,
+            "classify_dispatches": self.classify_dispatches,
+            "served": self.served,
+            "occupancy": round(self.occupancy, 4),
+            "min_fill": self.min_fill or 0,
+            "max_fill": self.max_fill,
+            "slots": self.slots,
+            "tick_time_s": round(self.tick_time_s, 6),
+            "slow_ticks": self.slow_ticks,
+            "expired": self.expired,
+        }
+
 
 class MicroBatchScheduler:
     """Fixed-slot continuous micro-batching over a `TemplateBankRegistry`,
@@ -106,6 +127,19 @@ class MicroBatchScheduler:
         #: escalate); feeds the per-slot ``tau`` operand of the serve kernel
         self.tau_fn = None
         self._queue: deque[WorkItem] = deque()
+
+    @property
+    def method(self) -> str:
+        return self.engine_config.method
+
+    @property
+    def alpha(self) -> float:
+        return self.engine_config.alpha
+
+    def set_engine(self, engine: match_lib.EngineConfig) -> None:
+        """Live engine swap (the control plane's engine transition): the
+        next tick dispatches under the new config."""
+        self.engine_config = engine
 
     @property
     def qsize(self) -> int:

@@ -385,3 +385,34 @@ def aligned_classes(bank_shards: int, *, class_bucket: int = 16,
     into ``bank_shards`` shards of whole ``class_bucket``-row buckets."""
     align = max(1, bank_shards) * class_bucket
     return -(-base // align) * align
+
+
+def from_legacy(num_features: int, *, config=None, k_max: int = 2,
+                class_bucket: int = 16, backend: str | None = None,
+                bank_shards: int = 1) -> ServiceSpec:
+    """Bridge the deprecated ``ACAMService(num_features, config=...)``
+    keywords onto one `ServiceSpec`, as the JAX package does: ``backend=
+    None`` resolves the process default once, taus are match-count units
+    (converted for backends whose margins are fractions), capacity is
+    rounded up to a shard multiple, and no mesh is installed."""
+    from repro_torch import match as match_lib
+    from repro_torch.serve.acam_service import ServiceConfig
+
+    config = config or ServiceConfig()
+    return ServiceSpec(
+        registry=RegistrySpec(num_features=num_features, k_max=k_max,
+                              class_bucket=class_bucket,
+                              initial_classes=aligned_classes(
+                                  bank_shards, class_bucket=class_bucket)),
+        engine=EngineConfig(method=config.method, alpha=config.alpha,
+                            backend=backend or match_lib.default_backend(),
+                            margin=True),
+        mesh=MeshSpec(bank_shards=bank_shards, install=False),
+        scheduler=SchedulerSpec(slots=config.slots),
+        cascade=CascadeSpec(tau=config.margin_tau, tau_units="count",
+                            max_queue=config.max_queue,
+                            frontend_macs=config.frontend_macs,
+                            frontend_sparsity=config.frontend_sparsity,
+                            softmax_head_ops=config.softmax_head_ops,
+                            paper_faithful=config.paper_faithful),
+    )

@@ -9,13 +9,19 @@ folded in by the train-mode forward itself (`repro_torch.models.cnn`), which
 the JAX step does last; nothing in between reads them. On the card the
 forward and the backward run inside one `cnn.fp32` (`value_and_grad`):
 TF32 off for the backward convolutions too, which cuDNN's default would
-round to TF32 once a forward-only context had exited.
+round to TF32 once a forward-only context had exited. Every gradient is taken
+under PyTorch's deterministic algorithms (`deterministic`), so training is a
+function of its seed on the card as on the CPU; on the card that needs
+``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (or ``:16:8``) in the environment before
+the process's first cuBLAS call.
 
 The loss is the plain `core.distill` (differentiable), as in the JAX
 trainer; the fused B8 kernel (`kernels.kd_loss`) has no backward.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -63,13 +69,45 @@ def assign(model: nn.Module, params: dict[str, torch.Tensor]) -> None:
             p.copy_(params[k])
 
 
+#: the cuBLAS workspace settings under which its products are deterministic
+DETERMINISTIC_CUBLAS = (":4096:8", ":16:8")
+
+
+def deterministic_cublas() -> None:
+    """Set ``CUBLAS_WORKSPACE_CONFIG`` for `deterministic` unless the
+    environment already sets it: entry points that train on the card call
+    this first, before any cuBLAS handle exists."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", DETERMINISTIC_CUBLAS[0])
+
+
+@contextlib.contextmanager
+def deterministic(device: torch.device):
+    """PyTorch's deterministic algorithms for everything run inside (an op
+    with none raises, naming itself). cuBLAS reads its workspace setting
+    when its first handle is made, so a missing one raises here rather than
+    train differently from run to run."""
+    if (device.type == "cuda" and os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+            not in DETERMINISTIC_CUBLAS):
+        raise RuntimeError(
+            "training on the card is deterministic only with "
+            "CUBLAS_WORKSPACE_CONFIG=:4096:8 (or :16:8) set in the "
+            "environment before the process's first cuBLAS call")
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
 def value_and_grad(loss_fn: LossFn, model: nn.Module, batch
                    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """``loss_fn(model, *batch)`` and its gradient for every parameter,
-    forward and backward in full float32 on the card."""
+    forward and backward in full float32 and deterministic on the card."""
     names, params = zip(*model.named_parameters())
     device = params[0].device
-    with torch.enable_grad(), cnn.fp32(device):
+    with torch.enable_grad(), cnn.fp32(device), deterministic(device):
         loss = loss_fn(model, *batch)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
     return loss.detach(), {

@@ -39,6 +39,13 @@ slice5 = {"repro_torch.kernels.tuning", "repro_torch.examples.quickstart",
               "fig6_7_confusion", "kernel_bench", "run",
               "table1_compression", "table2_templates"))}
 assert slice5 <= set(names), sorted(slice5 - set(names))
+slice6 = {"repro_torch.checkpoint.checkpointer", "repro_torch.serve.snapshot",
+          "repro_torch.fleet", "repro_torch.fleet.manifest",
+          "repro_torch.fleet.policy", "repro_torch.fleet.autopilot",
+          "repro_torch.benchmarks.traces",
+          "repro_torch.benchmarks.serving_bench",
+          "repro_torch.examples.serve_batched"}
+assert slice6 <= set(names), sorted(slice6 - set(names))
 import chip_smoke
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
@@ -52,7 +59,7 @@ def test_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", BLOCKED_IMPORT], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 72  # every module of the five slices
+    assert int(out.stdout.strip()) >= 82  # every module of the six slices
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -105,11 +105,6 @@ def test_backend_device_flag_matches_jax(capsys, jax_mesh_cleared, noise):
 @pytest.mark.parametrize("flags,match", [
     (["--workload", "lm"], "LM slice"),
     (["--workload", "lm-cached"], "LM slice"),
-    (["--workload", "acam", "--manifest", "fleet.json"], "fleet slice"),
-    (["--workload", "acam", "--autopilot"], "fleet slice"),
-    (["--workload", "acam", "--snapshot-dir", "ckpt"], "snapshot slice"),
-    (["--workload", "acam", "--snapshot-dir", "ckpt", "--restore"],
-     "snapshot slice"),
     (["--workload", "acam", "--bank-shards", "2"], "multi-GPU slice"),
 ])
 def test_unported_flags_raise(flags, match):

@@ -17,6 +17,8 @@ normalisation, and Adam's first step, u = g / (|g| + eps), can turn it
 into more than the 1e-6 tolerance on a weight. The port in f32 meets the
 tolerances against the float64 reference.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -511,3 +513,50 @@ def test_train_student_end_to_end_cpu():
     acc = ttrainer.evaluate(tcnn.student_logits, model, x, y, batch_size=32)
     m = ttrainer.metrics(tcnn.student_logits, model, x, y, batch_size=32)
     assert m["accuracy"] == acc and 0.0 <= m["f1"] <= 1.0
+
+
+def test_training_is_a_function_of_its_seed():
+    """Two CPU runs of the teacher and the KD + prune + QAT student from
+    one seed give bitwise-equal parameters and BatchNorm buffers (on the
+    card, chip_smoke's `training_repeatability` holds the same)."""
+    ds = tsynthetic.load("train", n_per_class=8, seed=0)
+    x = tsynthetic.normalize(tsynthetic.to_grayscale(ds.images))
+    y = ds.labels
+    cfg = ttrainer.TrainConfig(epochs=2, batch_size=16, prune_epochs=1,
+                               finetune_epochs=1, qat=True, seed=3)
+
+    def run():
+        teacher = ttrainer.train_teacher(
+            x, y, tcnn.TeacherConfig(**TEACHER), epochs=1, batch_size=16,
+            seed=3, device="cpu")
+        zt = tcnn.teacher_logits(teacher, x).numpy()
+        student, _ = ttrainer.train_student(
+            x, y, student_cfg=tcnn.StudentConfig(**NARROW),
+            teacher_logits_all=zt, cfg=cfg, do_prune=True, device="cpu")
+        return {**{f"t.{k}": v for k, v in teacher.state_dict().items()},
+                **{f"s.{k}": v for k, v in student.state_dict().items()}}
+
+    first, second = run(), run()
+    assert first.keys() == second.keys()
+    for k in first:
+        assert torch.equal(first[k], second[k]), k
+
+
+def test_deterministic_mode(monkeypatch):
+    """Gradients run under PyTorch's deterministic algorithms, restored on
+    exit; on the card a missing cuBLAS workspace setting raises instead of
+    training differently from run to run."""
+    prev = torch.are_deterministic_algorithms_enabled()
+    with ttrainer.deterministic(torch.device("cpu")):
+        assert torch.are_deterministic_algorithms_enabled()
+    assert torch.are_deterministic_algorithms_enabled() == prev
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    with pytest.raises(RuntimeError, match="CUBLAS_WORKSPACE_CONFIG"):
+        with ttrainer.deterministic(torch.device("cuda")):
+            pass
+    assert torch.are_deterministic_algorithms_enabled() == prev
+    ttrainer.deterministic_cublas()
+    assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == ":4096:8"
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":16:8")
+    ttrainer.deterministic_cublas()  # an explicit setting stays
+    assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == ":16:8"
