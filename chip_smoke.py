@@ -164,7 +164,26 @@ JAX:
               device time with the mode against without it). Times:
               reconfigure downtime per transition, `apply_manifest`, the
               snapshot writes, `recovery_ms`, `compact`, the bench's rows.
- 6. report    the card's name and power limit, metrics and the energy
+ 6. lm       the LM decode path and the ACAM semantic cache (plain
+              PyTorch: the JAX LM calls no Pallas kernel): tinyllama-1.1b
+              (22 layers) and qwen3-1.7b (28 layers) at full width in bf16
+              with seeded random weights drawn on the card, each through
+              `launch.serve.run_lm` (`Engine.generate`: 8 requests, prompts
+              of 4-31 tokens, max_new 16, batch 4, max_len 256,
+              temperature 0), again warm, every logit finite, prefill +
+              decode_step against forward within 2^-5 of the logits'
+              scale; a 4 x 32 prefill and one decode step timed (call and
+              device time, idle share, peak memory) against the step's
+              bytes bound. The same two configs cut to 2 layers in f32
+              (TF32 off), weights made on the CPU: prefill, caches and 8
+              teacher-forced greedy steps card against CPU within rtol /
+              atol 1e-5, tokens identical but at a near tie (printed).
+              `launch.serve.main(["--workload", "lm-cached"])` on the card
+              against the CPU (hits, served, matching calls, ticks,
+              nJ/request equal; B3 launched once a tick), the full-width
+              tinyllama engine behind the same service (hit and miss
+              latency), and `serving_bench.lm_cache_bench` at smoke size.
+ 7. report    the card's name and power limit, metrics and the energy
               split, the training step's time, device time and idle share,
               the paper's tables and the tuning winners, the control
               plane's numbers, one ``{"kernels": [...]}`` line (ten
@@ -318,8 +337,8 @@ def launch_counts() -> dict:
 def profile(fn, reps: int = 1, retries: int = 2) -> dict:
     """`torch.profiler` over ``reps`` calls of ``fn`` (after one warm-up),
     per call: wall time, summed device time of every kernel and copy, the
-    device's idle share of the wall time, and the device time per kernel
-    name (top 8). Device times are None when the profiler recorded none.
+    number of those device events, the device's idle share of the wall
+    time, and the device time per kernel name (top 8). Device times are None when the profiler recorded none.
     A session that recorded no device event at all while a kernel of the
     port launched (its wrapper's count rose) is taken again, up to
     ``retries`` times (two empty sessions in a row have happened on the
@@ -342,12 +361,13 @@ def profile(fn, reps: int = 1, retries: int = 2) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     launched = sorted(k for k, v in launch_counts().items()
                       if v > before.get(k, 0))
-    by_name = {}
+    by_name, events = {}, 0
     for evt in prof.key_averages():
         dt = getattr(evt, "self_device_time_total",
                      getattr(evt, "self_cuda_time_total", 0.0))
         if dt > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             by_name[evt.key] = by_name.get(evt.key, 0.0) + dt / 1e3 / reps
+            events += evt.count
     busy = sum(by_name.values())
     if not busy and retries and launched:
         caller = sys._getframe(1)
@@ -357,6 +377,7 @@ def profile(fn, reps: int = 1, retries: int = 2) -> dict:
                                     launched=launched))
         return dict(profile(fn, reps, retries - 1), retried=True)
     return dict(wall_ms=wall_ms, device_ms=busy or None,
+                device_events=events / reps,
                 idle_share=1 - busy / wall_ms if busy else None,
                 by_kernel=dict(sorted(by_name.items(),
                                       key=lambda kv: -kv[1])[:8]))
@@ -3405,6 +3426,384 @@ def print_control_plane(cp: dict, card: str) -> None:
               f"{r['student_device_ms']} ms, wall {r['student_wall_ms']} ms")
 
 
+# ---------------------------------------------------------------------------
+# 6. the LM decode path and the ACAM semantic cache
+# ---------------------------------------------------------------------------
+
+#: full width on the card: the launcher's default --arch, and qk-norm at
+#: rope theta 1e6 with the 151,936-token vocabulary
+LM_ARCHS = ("tinyllama-1.1b", "qwen3-1.7b")
+#: card vs CPU in f32 at 2 layers: the f32 tolerance of the CPU tests
+#: (tests/test_torch_lm.py)
+LM_RTOL = LM_ATOL = 1e-5
+#: bf16: |diff| <= 2^-5 max|logits|, the CPU tests' bf16 tolerance
+LM_BF16_REL = 2.0 ** -5
+LM_GROUP, LM_PLEN = 4, 32  # one engine group: batch 4, prompts of 32
+LM_STEPS = 8  # teacher-forced greedy steps, card against CPU
+LM_CUT_LAYERS = 2  # the card-against-CPU configs: full width, 2 layers
+
+
+def lm_bound(cfg, params, batch: int, cur_len: int) -> dict:
+    """The least time one decode step could take: the bytes it must move
+    (every weight it multiplies, read once; ``batch`` rows of the embedding
+    table; the KV cache up to ``cur_len`` read and one slot written; the
+    logits written) over the HBM rate, against its multiply-adds over the
+    bf16 tensor rate."""
+    item = params.unembed.w.element_size()
+    weights = sum(p.numel() * p.element_size()
+                  for name, p in params.named_parameters() if name != "embed")
+    kv_row = 2 * cfg.n_layers * batch * cfg.n_kv_heads * cfg.head_dim * item
+    nbytes = (weights + batch * cfg.d_model * item + kv_row * (cur_len + 1)
+              + batch * cfg.vocab * item)
+    matmul = sum(p.numel() for name, p in params.named_parameters()
+                 if name.endswith(".w"))
+    flops = 2 * batch * (matmul + 2 * cfg.n_layers * cfg.n_heads
+                         * cfg.head_dim * cur_len)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / FLOPS_PER_S[str(cfg.dtype)] * 1e3
+    every = sum(p.numel() * p.element_size() for p in params.parameters())
+    return dict(bytes=nbytes, weight_bytes=weights, bytes_ms=bytes_ms,
+                all_weights_ms=every / HBM_BYTES_PER_S * 1e3,
+                flops=flops, flops_ms=flops_ms,
+                bound_ms=max(bytes_ms, flops_ms),
+                bound_by="bytes" if bytes_ms >= flops_ms else "operations")
+
+
+def lm_full_width(device, arch: str, *, smoke: bool = False) -> dict:
+    """`launch.serve.run_lm` at full width (the JAX launcher's flags: 8
+    requests, prompts of 4-31 tokens, max_new 16, batch 4, max_len 256,
+    temperature 0; seeded random bf16 weights drawn on the card), then on
+    its engine's weights: every logit finite, prefill + decode_step against
+    forward within the bf16 tolerance, and the times of one group prefill,
+    one decode step (call and device time, idle share, kernel events)
+    against its bound."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Request
+
+    args = serve.parse_args(["--workload", "lm", "--arch", arch])
+    args.smoke = smoke
+    torch.zeros((), device=device)  # the allocator exists before its reset
+    torch.cuda.reset_peak_memory_stats(device)
+    res = serve.run_lm(args, device=device)
+    peak = torch.cuda.max_memory_allocated(device)
+    eng = res["engine"]
+    cfg, params = eng.cfg, eng.params
+    check(all(r.done and len(r.out) == args.max_new for r in res["requests"]),
+          f"{arch}: a request stopped short")
+    rng = np.random.RandomState(1)
+    x = torch.as_tensor(rng.randint(0, cfg.vocab, (LM_GROUP, LM_PLEN + 1)),
+                        device=device)
+    full, _ = lm.forward(params, cfg, x)
+    last, cache = lm.prefill(params, cfg, x[:, :LM_PLEN], max_len=args.max_len)
+    step, cache = lm.decode_step(params, cfg, x[:, LM_PLEN:], cache)
+    for name, t in (("forward", full), ("prefill", last), ("decode", step)):
+        check(bool(torch.isfinite(t).all()), f"{arch}: {name} logits finite")
+    stats = eng.stats.as_dict()  # the entry point's run alone
+    # the same requests again on the warm engine: steady tokens/s
+    again = [Request(prompt=r.prompt, max_new_tokens=r.max_new_tokens)
+             for r in res["requests"]]
+    t0 = time.perf_counter()
+    eng.generate(again)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    check([r.out for r in again] == [r.out for r in res["requests"]],
+          f"{arch}: greedy tokens differ between two runs")
+    err = {}
+    for name, got, want in (("prefill", last, full[:, LM_PLEN - 1]),
+                            ("decode", step[:, 0], full[:, LM_PLEN])):
+        scale = float(want.float().abs().max())
+        err[name] = float((got.float() - want.float()).abs().max())
+        check(err[name] <= LM_BF16_REL * scale,
+              f"{arch}: {name} against forward {err[name]} > 2^-5 x {scale}")
+
+    def prefill():
+        return lm.prefill(params, cfg, x[:, :LM_PLEN], max_len=args.max_len)
+
+    def decode():  # writes the same cache slot every call
+        return lm.decode_step(params, cfg, x[:, LM_PLEN:], cache)
+
+    out = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+               vocab=cfg.vocab, params=cfg.param_count(),
+               requests=len(res["requests"]), tokens=res["tokens"],
+               generate_s=res["seconds"],
+               tokens_per_s=res["tokens"] / res["seconds"],
+               warm_generate_s=warm_s, warm_tokens_per_s=res["tokens"] / warm_s,
+               stats=stats, peak_mem_bytes=peak,
+               err_vs_forward=err, prefill_shape=[LM_GROUP, LM_PLEN],
+               prefill_ms=time_ms(prefill, iters=10),
+               decode_ms=time_ms(decode, iters=30),
+               decode_profile=profile(decode, reps=10),
+               bound=lm_bound(cfg, params, LM_GROUP, cache.length))
+    return out
+
+
+def lm_card_vs_cpu(device, arch: str, cfg=None) -> dict:
+    """The full-width config cut to `LM_CUT_LAYERS` layers (or ``cfg``, a
+    CPU rehearsal's), in f32 with TF32
+    off, weights made on the CPU from a seed and copied to the card: an
+    engine group's prefill (left-padded prompts of 4-31 tokens) and
+    `LM_STEPS` decode steps fed the card's greedy tokens, logits and caches
+    within the CPU tests' f32 tolerance on both devices; the greedy tokens
+    identical, except where the CPU's top-2 gap is inside the tolerance
+    (printed). Then `Engine.generate` on both (8 requests, max_new 16):
+    requests with equal tokens reported."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, Request
+
+    cfg = cfg or dataclasses.replace(configs.get(arch),
+                                     n_layers=LM_CUT_LAYERS,
+                                     dtype=torch.float32)
+    cpu = lm.init_params(0, cfg, device="cpu")
+    card = copy.deepcopy(cpu).to(device)
+    rng = np.random.RandomState(2)
+    lens = rng.randint(4, 32, size=LM_GROUP)
+    prompts = np.zeros((LM_GROUP, lens.max()), np.int64)
+    for i, n in enumerate(lens):  # left-padded, as the engine's group
+        prompts[i, lens.max() - n:] = rng.randint(0, cfg.vocab, n)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        worst, ties = {}, []
+
+        def close(name, a, b):
+            a, b = a.float().cpu(), b.float()
+            d = (a - b).abs()
+            worst[name] = max(worst.get(name, 0.0), float(d.max()))
+            check(bool((d <= LM_ATOL + LM_RTOL * b.abs()).all()),
+                  f"{cfg.name} card vs CPU: {name} off by {float(d.max())}")
+
+        lc, cc = lm.prefill(card, cfg, torch.as_tensor(prompts,
+                                                       device=device),
+                            max_len=64)
+        lp, cp = lm.prefill(cpu, cfg, torch.as_tensor(prompts), max_len=64)
+        close("prefill logits", lc, lp)
+        close("cache k", cc.k, cp.k)
+        close("cache v", cc.v, cp.v)
+        tokens = []
+        for step in range(LM_STEPS):
+            tc = torch.argmax(lc, -1).cpu()
+            tp = torch.argmax(lp, -1)
+            for row in np.flatnonzero((tc != tp).numpy()):
+                top2 = torch.topk(lp[row], 2).values
+                gap = float(top2[0] - top2[1])
+                check(gap <= 2 * (LM_ATOL + LM_RTOL * float(top2[0].abs())),
+                      f"{cfg.name}: greedy token differs at step {step} row "
+                      f"{row} with a top-2 gap of {gap}")
+                ties.append(dict(step=step, row=int(row), gap=gap))
+            tokens.append(tc.tolist())
+            lc, cc = lm.decode_step(card, cfg, tc[:, None].to(device), cc)
+            lp, cp = lm.decode_step(cpu, cfg, tc[:, None], cp)
+            lc, lp = lc[:, 0], lp[:, 0]
+            close("decode logits", lc, lp)
+        close("cache k", cc.k, cp.k)
+        reqs = {}
+        for dev, params in (("card", card), ("cpu", cpu)):
+            r2 = np.random.RandomState(0)
+            reqs[dev] = Engine(cfg, params, batch_size=4, max_len=256).generate(
+                [Request(prompt=r2.randint(0, cfg.vocab, size=r2.randint(4, 32)),
+                         max_new_tokens=16) for _ in range(8)])
+        same = sum(a.out == b.out for a, b in zip(reqs["card"], reqs["cpu"]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return dict(arch=cfg.name, layers=cfg.n_layers, dtype="float32",
+                max_abs_err=worst, greedy_tokens=tokens, near_ties=ties,
+                engine_requests_equal=same, engine_requests=8)
+
+
+def same_match(a, b) -> bool:
+    """Two `RoutedResponse`s matched alike: hit, template row, error, the
+    margin's f32 bits and the score's and energy's f64 bits."""
+    f32 = lambda x: np.float32(x).tobytes()  # noqa: E731
+    f64 = lambda x: np.float64(x).tobytes()  # noqa: E731
+    return (a.cache_hit == b.cache_hit and a.template_id == b.template_id
+            and a.error == b.error and f32(a.margin) == f32(b.margin)
+            and f64(a.score) == f64(b.score)
+            and f64(a.energy_j) == f64(b.energy_j))
+
+
+def hits_serve_admitted(responses) -> bool:
+    """Every hit serves the tokens that the miss which admitted its
+    template row decoded."""
+    admitted = {}
+    for r in responses:
+        if r.cache_hit:
+            if admitted.get(r.template_id) != r.tokens:
+                return False
+        elif r.error is None and r.template_id >= 0:
+            admitted[r.template_id] = r.tokens
+    return True
+
+
+def lm_cached(device, *, smoke: bool = False) -> tuple[dict, dict]:
+    """`launch.serve.main(["--workload", "lm-cached"])` on the card (B3
+    launched on every tick, the launch count zeroed just before) against
+    the same run on the CPU: every response matched alike (`same_match`),
+    and the hits, served, matching calls, ticks and nJ/request equal. The
+    launcher draws its weights on its device, so the tokens a miss decodes
+    differ between the two; each run's hits serve its misses' tokens
+    (`hits_serve_admitted`). Then
+    `launch.serve.run_lm_cached` with full-width tinyllama (``smoke`` keeps
+    the SMOKE config for a CPU rehearsal): hit-path and miss-path latency
+    of its responses, and an all-hit probe burst on its service; then
+    `lm_cache_bench` at smoke size. Returns (the driven path, the phase's
+    numbers)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.benchmarks import serving_bench
+    from repro_torch.launch import serve
+    from repro_torch.serve.semantic_cache import (PromptRequest,
+                                                  synthetic_prompt_trace)
+
+    argv = ["--workload", "lm-cached"]
+    got, counts, wall = drive("lm_cached",
+                              lambda: serve.main(argv, device=device),
+                              ["acam_match_serve"])
+    want = serve.main(argv, device="cpu")
+    check(len(got["responses"]) == len(want["responses"]),
+          "lm-cached card vs CPU: response counts differ")
+    for i, (a, b) in enumerate(zip(got["responses"], want["responses"])):
+        check(same_match(a, b),
+              f"lm-cached card vs CPU: request {i} matched {a} != {b}")
+    for dev, res in (("card", got), ("CPU", want)):
+        check(hits_serve_admitted(res["responses"]),
+              f"lm-cached on the {dev}: a hit served other tokens than its "
+              "template's miss decoded")
+    for key in ("hits", "served", "classify_dispatches", "ticks",
+                "nj_per_request", "escalated"):
+        check(got[key] == want[key],
+              f"lm-cached card vs CPU: {key} {got[key]} != {want[key]}")
+    check(counts["acam_match_serve"] == got["classify_dispatches"],
+          f"B3 launches {counts['acam_match_serve']} != matching calls "
+          f"{got['classify_dispatches']}")
+    keys = ("hits", "served", "classify_dispatches", "ticks",
+            "nj_per_request", "escalated", "requests_per_s")
+    driven = {"lm_cached": dict(launches=counts, wall_s=wall,
+                                card={k: got[k] for k in keys},
+                                cpu={k: want[k] for k in keys},
+                                responses_matched=len(got["responses"]))}
+
+    args = serve.parse_args(argv)
+    args.smoke = smoke
+    res = serve.run_lm_cached(args, device=device)
+    torch.cuda.synchronize()
+    out, svc = res["responses"], res["service"]
+    hits = [r.latency_s * 1e3 for r in out if r.cache_hit]
+    misses = [r.latency_s * 1e3 for r in out if not r.cache_hit]
+    check(len(hits) == got["hits"] and all(r.error is None for r in out)
+          and hits_serve_admitted(out),
+          f"full-width cache: {len(hits)} hits, the smoke run {got['hits']}")
+    cfg = configs.get(args.arch, smoke=smoke)
+    probe = synthetic_prompt_trace(args.seed, vocab=cfg.vocab,
+                                   n_unique=args.unique,
+                                   n_requests=args.requests)[:args.unique]
+    t0 = time.perf_counter()
+    probed = svc.serve_prompts(PromptRequest("edge-0", p,
+                                             max_new_tokens=args.max_new)
+                               for p in probe)
+    probe_ms = (time.perf_counter() - t0) * 1e3 / len(probe)
+    check(all(r.cache_hit for r in probed), "the probe burst missed")
+    t0 = time.perf_counter()
+    bench = serving_bench.lm_cache_bench(smoke=True, device=device)
+    bench_s = time.perf_counter() - t0
+    return driven, dict(
+        counts={k: got[k] for k in keys},
+        full_width=dict(arch=cfg.name, requests=len(out),
+                        hits=len(hits), misses=len(misses),
+                        trace_s=res["seconds"],
+                        hit_latency_ms=statistics.median(hits),
+                        miss_latency_ms=statistics.median(misses),
+                        probe_hit_ms_per_request=probe_ms,
+                        nj_per_request=res["nj_per_request"],
+                        classify_dispatches=res["classify_dispatches"],
+                        ticks=res["ticks"]),
+        bench=bench, bench_s=bench_s)
+
+
+def lm_phase(device, *, smoke: bool = False,
+             cut_cfgs=None) -> tuple[dict, dict]:
+    """Phase 6: full width (`lm_full_width`) for each of `LM_ARCHS`, card
+    against CPU at 2 layers (`lm_card_vs_cpu`), and `lm_cached` (the
+    launcher's full-width tinyllama). ``smoke`` / ``cut_cfgs`` shrink the
+    configs for a CPU rehearsal."""
+    import torch
+
+    out = {"full_width": {}, "card_vs_cpu": {}}
+    for arch in LM_ARCHS:
+        t0 = time.perf_counter()
+        res = lm_full_width(device, arch, smoke=smoke)
+        res["wall_s"] = time.perf_counter() - t0
+        out["full_width"][arch] = res
+        torch.cuda.empty_cache()
+    for i, arch in enumerate(LM_ARCHS):
+        t0 = time.perf_counter()
+        out["card_vs_cpu"][arch] = lm_card_vs_cpu(
+            device, arch, cfg=cut_cfgs[i] if cut_cfgs else None)
+        out["card_vs_cpu"][arch]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    driven, out["cached"] = lm_cached(device, smoke=smoke)
+    out["cached"]["wall_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return driven, out
+
+
+def launch_us(p: dict):
+    """A profiled call's wall time over its device events: the host's cost
+    of one launch where the device idles (idle share near 1)."""
+    return p["wall_ms"] * 1e3 / p["device_events"] if p["device_events"] \
+        else None
+
+
+def print_lm(lmo: dict, card: str) -> None:
+    for arch, r in lmo["full_width"].items():
+        p, b = r["decode_profile"], r["bound"]
+        print(f"lm {r['arch']} ({r['layers']} layers, d {r['d_model']}, "
+              f"vocab {r['vocab']}, {r['params']} params, bf16; {card}): "
+              f"{r['requests']} requests, {r['tokens']} tokens in "
+              f"{r['generate_s']:.3f} s = {r['tokens_per_s']:.1f} tokens/s "
+              f"(warm: {r['warm_generate_s']:.3f} s = "
+              f"{r['warm_tokens_per_s']:.1f} tokens/s); "
+              f"stats {json.dumps(r['stats'])}; peak memory "
+              f"{r['peak_mem_bytes'] / 2**30:.3f} GiB")
+        print(f"lm {r['arch']}: prefill {r['prefill_shape']} "
+              f"{r['prefill_ms']:.3f} ms; decode step (batch {LM_GROUP}) "
+              f"{r['decode_ms']:.3f} ms a call, device {p['device_ms']} ms, "
+              f"idle share {p['idle_share']}, {p['device_events']} device "
+              f"events a step ({launch_us(p)} us of wall time each); "
+              f"bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}: {b['bytes']} bytes, "
+              f"{b['weight_bytes']} of weights; every weight incl. the "
+              f"embedding table {b['all_weights_ms']:.4f} ms); err vs forward "
+              f"{json.dumps(r['err_vs_forward'])}")
+        print(f"lm {r['arch']} decode profile: {json.dumps(p)}")
+    for arch, r in lmo["card_vs_cpu"].items():
+        print(f"lm card vs CPU {r['arch']} ({r['layers']} layers, f32, TF32 "
+              f"off): max abs err {json.dumps(r['max_abs_err'])}; greedy "
+              f"tokens {r['greedy_tokens']}, near ties {r['near_ties']}; "
+              f"engine requests with equal tokens "
+              f"{r['engine_requests_equal']} / {r['engine_requests']}")
+    c = lmo["cached"]
+    print(f"lm-cached card == CPU: {json.dumps(c['counts'])}")
+    fw = c["full_width"]
+    print(f"lm-cached full width {fw['arch']} ({card}): {fw['hits']} hits / "
+          f"{fw['misses']} misses, hit latency {fw['hit_latency_ms']:.3f} ms "
+          f"vs miss {fw['miss_latency_ms']:.3f} ms (median), all-hit probe "
+          f"{fw['probe_hit_ms_per_request']:.4f} ms a request, "
+          f"{fw['nj_per_request']} nJ/request, {fw['classify_dispatches']} "
+          f"matching calls over {fw['ticks']} ticks")
+    for e in c["bench"]:
+        print(f"lm_cache_bench ({card}): {json.dumps(e)}")
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -3469,6 +3868,10 @@ def main(argv: list[str]) -> int:
     t0 = time.perf_counter()
     driven, control = control_plane(device, cp_dir)
     control["wall_s"] = time.perf_counter() - t0
+    report.update(driven)
+    t0 = time.perf_counter()
+    driven, lm_out = lm_phase(device)
+    lm_out["wall_s"] = time.perf_counter() - t0
     report.update(driven)
     launches = {}
     for path in report.values():
@@ -3552,6 +3955,9 @@ def main(argv: list[str]) -> int:
     print_device_physics(report["device_physics"], report["serve_mega"])
     print_paper_eval(paper)
     print_control_plane(control, smi)
+    print_lm(lm_out, smi)
+    print(f"phase walls: paper_eval {paper['wall_s']:.1f} s, control_plane "
+          f"{control['wall_s']:.1f} s, lm {lm_out['wall_s']:.1f} s")
     check(set(kernels) == set(KERNELS), "every ported kernel measured")
 
     line = {"kernels": [
@@ -3574,7 +3980,7 @@ def main(argv: list[str]) -> int:
                  kernels=line["kernels"], kernel_phases=kernels,
                  profile_retries=PROFILE_RETRIES,
                  paths=report, training=training, paper_eval=paper,
-                 control_plane=control),
+                 control_plane=control, lm=lm_out),
             indent=1, default=str))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

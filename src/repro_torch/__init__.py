@@ -19,9 +19,11 @@ where a reader expects it:
     match/                     EngineConfig, backends (reference, kernel,
                                device), MatchEngine
     models/cnn.py              the Fig. 5 student and the ResNet teacher
-    models/layers.py           chunked_attention
+    models/layers.py, lm.py    norms, rotary, attention, MLP; the dense LM
+    configs/                   the LM zoo's architecture configs
     data/, optim/, train/      synthetic data + pipeline, AdamW/SGD, trainer
-    serve/, launch/serve.py    registry, scheduler, spec, service, control
+    serve/, launch/serve.py    registry, scheduler, spec, service, control;
+                               the LM decode engine and the semantic cache
     obs/, ft/elastic.py        flight recorder, straggler monitor
 
 The package imports `torch` and numpy only; it never imports `jax` or

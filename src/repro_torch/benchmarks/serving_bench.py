@@ -22,9 +22,12 @@ its service through the spec path (`HybridService.from_spec`):
     compose / mega) in turns, the per-arm median us/request, answers
     required identical.
 
+  * `lm_cache_bench`: the ACAM semantic cache in front of LM decode (the
+    SMOKE tinyllama, random weights from the seed), a decode-only baseline
+    row and one row per exact hit rate 0, 0.5 and 0.9.
+
 Not here: the bank-scaling, reshard and autopilot rows (the super-bank
-sharded over several cards: the multi-GPU slice) and the LM semantic-cache
-rows (the LM slice).
+sharded over several cards: the multi-GPU slice).
 
 ``BENCH_torch_serving.json`` (or ``--out PATH``) keeps the JAX schema, with
 the kernel bench's ``backend`` / ``kernels`` / ``card`` in place of
@@ -370,6 +373,160 @@ def chaos_bench(*, smoke: bool = False, seed: int = 0, device=None) -> dict:
     return entry
 
 
+def lm_cache_bench(*, smoke: bool = False, seed: int = 0,
+                   device=None) -> list[dict]:
+    """The ACAM semantic cache in front of LM decode, swept over hit rate
+    at the JAX bench's sizes.
+
+    One ``serving_lm_decode_only`` row (the bare continuous-batching
+    `Engine` over the same prompt set) and one ``serving_lm_cache_h{0,50,
+    90}`` row per target hit rate: the bank is warmed with a fixed prompt
+    pool, then a measured window of R requests holding EXACTLY round(R*h)
+    Zipf-weighted repeats (hits) and R - round(R*h) fresh prompts (decode
+    misses) is served through `SemanticCacheService`. The mean ratios are
+    amortisation-bounded by 1/(1-h); the hit-path ratios price the hit
+    path alone (an all-hit probe burst after the window). Energies are the
+    §V-D / per-token models: they do not depend on the device."""
+    import time as time_mod
+
+    from repro_torch import configs
+    from repro_torch.core.energy import lm_decode_energy
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.serve import spec as spec_lib
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.serve.semantic_cache import (PromptRequest,
+                                                  SemanticCacheService)
+
+    dev = resolve(device)
+    requests = 20 if smoke else 60
+    pool_size, plen, max_new, slots = 8, 12, 8, 16
+    cfg = configs.get("tinyllama-1.1b", smoke=True)
+    params = lm_mod.init_params(seed, cfg, device=dev)
+    rng = np.random.RandomState(seed)
+    pool = [rng.randint(0, cfg.vocab, size=plen).astype(np.int32)
+            for _ in range(pool_size)]
+    fresh_pool = [rng.randint(0, cfg.vocab, size=plen).astype(np.int32)
+                  for _ in range(requests)]
+    zipf = 1.0 / np.arange(1, pool_size + 1) ** 1.2
+    zipf /= zipf.sum()
+
+    def measured_trace(h: float) -> tuple[list[np.ndarray], int]:
+        n_hit = int(round(requests * h))
+        prompts = [pool[i] for i in rng.choice(pool_size, size=n_hit,
+                                               p=zipf)]
+        prompts += fresh_pool[:requests - n_hit]
+        order = np.random.RandomState(seed + 1).permutation(requests)
+        return [prompts[i] for i in order], n_hit
+
+    # decode-only baseline: a full-size warm-up pass first, as the JAX
+    # bench does (its join shapes compile there; here it warms the
+    # allocator and the card's kernels)
+    base_eng = Engine(cfg, params, batch_size=4, max_len=64, seed=seed)
+    base_prompts, _ = measured_trace(0.0)
+    base_eng.generate([Request(prompt=p, max_new_tokens=max_new)
+                       for p in base_prompts])
+    t0 = time_mod.perf_counter()
+    base_eng.generate([Request(prompt=p, max_new_tokens=max_new)
+                       for p in base_prompts])
+    base_us = (time_mod.perf_counter() - t0) * 1e6 / requests
+    base_nj = lm_decode_energy(cfg.active_param_count(),
+                               plen + max_new) * 1e9
+    entries = [{
+        "tenants": 1, "slots": 4, "requests": requests, "classes": 0,
+        "matching_backend": "default", "bank_sharding": 1,
+        "arch": cfg.name, "lm_baseline": True,
+        "us_per_request": round(base_us, 1),
+        "decode_energy_nj": round(base_nj, 3),
+        "requests_per_s": round(1e6 / base_us, 2),
+        "latency_p50_ms": round(base_us / 1e3, 3),
+        "latency_p99_ms": round(base_us / 1e3, 3),
+        "escalation_rate": 1.0, "nj_per_request": round(base_nj, 3),
+        "occupancy": 0.0, "classify_dispatches": 0,
+    }]
+    print(f"lm decode-only baseline: {base_us:.0f} us/request, "
+          f"{base_nj:.1f} nJ/request modelled")
+
+    eng = Engine(cfg, params, batch_size=4, max_len=64, seed=seed)
+    for h in (0.0, 0.5, 0.9):
+        spec = spec_lib.ServiceSpec(
+            registry=spec_lib.RegistrySpec(num_features=NUM_FEATURES),
+            scheduler=spec_lib.SchedulerSpec(slots=slots),
+            cascade=spec_lib.CascadeSpec(backend="lm", tau=8.0,
+                                         tau_units="count",
+                                         max_queue=4096),
+            router=spec_lib.RouterSpec(
+                max_templates=pool_size + requests + slots,
+                response_capacity=4096),
+            mesh=spec_lib.MeshSpec(install=False))
+        svc = SemanticCacheService.from_spec(spec, engine=eng, device=dev)
+        svc.add_tenant("edge-0")
+        # warm: admit the pool one by one, then one slots-wide all-miss
+        # burst, before the measured window
+        for p in pool:
+            svc.serve_prompts([PromptRequest("edge-0", p,
+                                             max_new_tokens=max_new)])
+        warm = [rng.randint(0, cfg.vocab, size=plen).astype(np.int32)
+                for _ in range(slots)]
+        svc.serve_prompts(PromptRequest("edge-0", p, max_new_tokens=max_new)
+                          for p in warm)
+        svc.reset_metrics()
+        prompts, n_hit = measured_trace(h)
+        out = []
+        t0 = time_mod.perf_counter()
+        for i in range(0, requests, slots):
+            out.extend(svc.serve_prompts(
+                PromptRequest("edge-0", p, max_new_tokens=max_new)
+                for p in prompts[i:i + slots]))
+        us = (time_mod.perf_counter() - t0) * 1e6 / requests
+        hits = sum(r.cache_hit for r in out)
+        if hits != n_hit:
+            raise BenchError(f"h={h}: {hits} hits, the trace holds {n_hit}")
+        m = svc.metrics()
+        if m["classify_dispatches"] != m["ticks"]:
+            raise BenchError(f"h={h}: {m['classify_dispatches']} matching "
+                             f"calls over {m['ticks']} ticks")
+        # the hit path alone: an all-hit probe burst after the window
+        probe = [pool[i % pool_size] for i in range(slots)]
+        t0 = time_mod.perf_counter()
+        probed = svc.serve_prompts(
+            PromptRequest("edge-0", p, max_new_tokens=max_new)
+            for p in probe)
+        hit_us = (time_mod.perf_counter() - t0) * 1e6 / slots
+        if not all(r.cache_hit for r in probed):
+            raise BenchError(f"h={h}: the probe burst missed")
+        hit_nj = float(np.median([r.energy_j for r in probed])) * 1e9
+        entry = {
+            "tenants": 1, "slots": slots, "requests": requests,
+            "classes": 0, "matching_backend": "default",
+            "bank_sharding": 1, "arch": cfg.name,
+            "hit_rate": h,
+            "mean_speedup": round(base_us / us, 2),
+            "mean_energy_ratio": round(base_nj / m["nj_per_request"], 2)
+            if m["nj_per_request"] else None,
+            "hit_path_speedup": round(base_us / hit_us, 1),
+            "hit_path_energy_ratio": round(base_nj / hit_nj, 1),
+            "hit_path_us": round(hit_us, 1),
+            "hit_path_nj": round(hit_nj, 4),
+            "decode_us_per_request": round(base_us, 1),
+            "decode_energy_nj": round(base_nj, 3),
+            "requests_per_s": m["requests_per_s"],
+            "latency_p50_ms": m["latency_p50_ms"],
+            "latency_p99_ms": m["latency_p99_ms"],
+            "escalation_rate": m["escalation_rate"],
+            "nj_per_request": m["nj_per_request"],
+            "occupancy": m["occupancy"],
+            "classify_dispatches": m["classify_dispatches"],
+        }
+        entries.append(entry)
+        print(f"lm cache h={h:.1f}: {us:.0f} us/request "
+              f"(mean x{entry['mean_speedup']}, "
+              f"bound {1 / (1 - h):.0f}x), "
+              f"{m['nj_per_request']:.1f} nJ/request; hit path "
+              f"{hit_us:.0f} us (x{entry['hit_path_speedup']}), "
+              f"{hit_nj:.2f} nJ (x{entry['hit_path_energy_ratio']})")
+    return entries
+
+
 def sweep(*, smoke: bool = False, seed: int = 0, device=None) -> list[dict]:
     """Every row: the tenants x slots grid, the device-physics row, then
     the burst, chaos, telemetry and mega-kernel rows."""
@@ -397,6 +554,7 @@ def sweep(*, smoke: bool = False, seed: int = 0, device=None) -> list[dict]:
     entries.append(telemetry_overhead_bench(smoke=smoke, seed=seed,
                                             device=device))
     entries.append(megakernel_bench(smoke=smoke, seed=seed, device=device))
+    entries.extend(lm_cache_bench(smoke=smoke, seed=seed, device=device))
     return entries
 
 
@@ -417,6 +575,10 @@ def write_bench_json(entries: list[dict],
 
 
 def _row_name(e: dict) -> str:
+    if e.get("lm_baseline"):
+        return "serving_lm_decode_only"
+    if "hit_rate" in e:
+        return f"serving_lm_cache_h{int(round(e['hit_rate'] * 100))}"
     if "megakernel_speedup_pct" in e:
         return "serving_megakernel"
     if "telemetry_overhead_pct" in e:
@@ -431,6 +593,14 @@ def _row_name(e: dict) -> str:
 
 
 def _row_derived(e: dict) -> str:
+    if e.get("lm_baseline"):
+        return (f"{e['us_per_request']}us/req,"
+                f"{e['decode_energy_nj']}nJ/req,decode-only")
+    if "hit_rate" in e:
+        return (f"h={e['hit_rate']},mean_x{e['mean_speedup']},"
+                f"hitpath_x{e['hit_path_speedup']}us/"
+                f"x{e['hit_path_energy_ratio']}nJ,"
+                f"{e['nj_per_request']:.1f}nJ/req")
     if "megakernel_speedup_pct" in e:
         return (f"speedup={e['megakernel_speedup_pct']}%,"
                 f"compose={e['compose_us_per_request']}us,"

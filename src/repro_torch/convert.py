@@ -6,7 +6,8 @@ this module imports neither JAX nor `repro`. The JAX pytrees nest dicts
 named like the port's modules: a conv or dense ``{"w", "b"}`` (HWIO / (in,
 out)) is a ``Conv2d`` / ``Linear`` (OIHW / (out, in)); a BatchNorm
 ``{"scale", "bias", "mean", "var"}`` is a ``BatchNorm2d``'s weight, bias
-and running statistics.
+and running statistics. The LM keeps the JAX names and layouts
+(`repro_torch.models.lm`), its layers stacked on axis 0 in the JAX tree.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import torch
 
 from repro_torch.core.templates import TemplateBank
 from repro_torch.device import resolve
+from repro_torch.models import layers as L
+from repro_torch.models import lm
 from repro_torch.models.cnn import (Student, StudentConfig, Teacher,
                                     TeacherConfig)
 
@@ -137,3 +140,56 @@ def bank_from_numpy(templates, lower, upper, valid, thresholds, *,
         upper=_t(upper).to(dev),
         valid=torch.from_numpy(np.array(valid, dtype=bool)).to(dev),
         thresholds=_t(thresholds).to(dev))
+
+
+def _tensor(x) -> torch.Tensor:
+    """A numpy leaf -> a tensor of its own dtype. A bfloat16 leaf (an
+    ``ml_dtypes`` array, which `torch.from_numpy` rejects) travels as its
+    raw 16-bit patterns."""
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def lm_params_from_numpy(params: dict, cfg: lm.ArchConfig, *,
+                         device=None) -> lm.LM:
+    """The JAX LM pytree (numpy leaves, layers stacked on axis 0) -> the
+    port's `lm.LM` on ``device``, every leaf in its own dtype."""
+    lm.check_supported(cfg)
+    dev = resolve(device)
+
+    def tensor(x):
+        return _tensor(x).to(dev)
+
+    def linear(p, i=None):
+        pick = (lambda a: a) if i is None else (lambda a: a[i])
+        b = p.get("b")
+        return L.Linear(tensor(pick(p["w"])),
+                        None if b is None else tensor(pick(b)))
+
+    def norm(p, i=None):
+        n = L.RMSNorm(1, device=dev)
+        n.scale = torch.nn.Parameter(
+            tensor(p["scale"] if i is None else p["scale"][i]),
+            requires_grad=False)
+        return n
+
+    stacked = params["layers"]
+    layers = []
+    for i in range(cfg.n_layers):
+        a = stacked["attn"]
+        attn = lm.Attention(
+            linear(a["q"], i), linear(a["k"], i), linear(a["v"], i),
+            linear(a["o"], i),
+            norm(a["q_norm"], i) if cfg.qk_norm else None,
+            norm(a["k_norm"], i) if cfg.qk_norm else None)
+        m = stacked["mlp"]
+        layers.append(lm.Layer(
+            norm(stacked["ln1"], i), attn, norm(stacked["ln2"], i),
+            L.MLP(linear(m["gate"], i), linear(m["up"], i),
+                  linear(m["down"], i))))
+    embed = tensor(params["embed"]) if "embed" in params else None
+    return lm.LM(embed, linear(params["unembed"]),
+                 norm(params["final_norm"]), layers).eval()

@@ -238,6 +238,43 @@ def sense(acam: ProgrammedACAM, queries: torch.Tensor) -> torch.Tensor:
     return torch.where(acam.valid[None, :], s, _scalar(float("-inf"), s))
 
 
+def sense_compiled(acam: ProgrammedACAM, queries: torch.Tensor
+                   ) -> torch.Tensor:
+    """`sense` in the arithmetic the JAX package's jitted serve tick runs.
+
+    The optimised HLO of that tick (`jax.jit(...).lower(...).compile()` of
+    the scheduler's `_batched_classify`, device backend, 6T4R and 3T1R at
+    N 64 and 784) folds the chain into constants computed in f32:
+
+      6T4R  min(n * K, vdd) * R,  K = (i_cell * t_eval) * (1 / c_ml),
+            R = 1 / vdd;  K = 0.028125 at N 64, 0.0022959183 at N 784
+      3T1R  1 - (low + high) * R,  R = 1 / N, with the multiply and the
+            subtract contracted into one FMA (a single rounding)
+
+    The FMA is taken in float64: the counts are integers and R an f32, so
+    the product and the difference are exact there (N < 2**30) and the
+    cast to f32 is the FMA's one rounding. The engine's un-jitted calls
+    keep `sense`, the JAX engine's op-by-op order.
+    """
+    cfg = acam.config
+    f32 = np.float32
+    if cfg.cell == "6T4R":
+        k = f32(f32(f32(cfg.i_cell) * f32(cfg.t_eval))
+                * f32(f32(1) / f32(cfg.c_ml)))
+        vdd = f32(cfg.vdd)
+        n_match = _count(_in_window(acam, queries))
+        v = torch.minimum(n_match * _scalar(k, queries),
+                          _scalar(vdd, queries))
+        s = v * _scalar(f32(1) / vdd, queries)
+    elif cfg.cell == "3T1R":
+        low, high = dual_rail_mismatch(acam, queries)
+        r = float(f32(1) / f32(acam.lower.shape[-1]))
+        s = (1.0 - (low + high).to(torch.float64) * r).to(torch.float32)
+    else:
+        raise ValueError(f"unknown cell {cfg.cell}")
+    return torch.where(acam.valid[None, :], s, _scalar(float("-inf"), s))
+
+
 def soft_sense(acam: ProgrammedACAM, queries: torch.Tensor) -> torch.Tensor:
     """Differentiable surrogate of `sense` (3T1R differentiability, §III):
     each cell's match indicator becomes the product of two sigmoids around

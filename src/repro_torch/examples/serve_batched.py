@@ -1,14 +1,22 @@
-"""Batched serving demo of the port: the multi-tenant ACAM service.
+"""Batched serving demo of the port: the LM decode engine and the
+multi-tenant ACAM service.
 
-Trains the paper's CNN front end, fits its ACAM template bank, registers it
-as a tenant of the service (alongside ``--tenants - 1`` synthetic ones), and
-classifies the test set through it: micro-batched cross-tenant scheduling,
-one matching kernel call per tick, confidence-cascade escalation to the
-CNN's dense head and §V-D energy per request. Twin of the ``acam`` workload
-of the JAX package's `examples/serve_batched.py`; the ``lm`` workload comes
-with the LM slice of the port. Runs on the card unless ``--device cpu``
-asks for the CPU.
+  lm    (default) admits a ragged set of token requests, batches them,
+        prefills the KV cache and decodes with greedy / temperature
+        sampling (`repro_torch.serve.engine.Engine`, the SMOKE config of
+        ``--arch`` with seeded random weights); reports batch fill and
+        decode-slot utilisation, not just wall-clock totals.
+  acam  trains the paper's CNN front end, fits its ACAM template bank,
+        registers it as a tenant of the service (alongside ``--tenants - 1``
+        synthetic ones), and classifies the test set through it:
+        micro-batched cross-tenant scheduling, one matching kernel call per
+        tick, confidence-cascade escalation to the CNN's dense head and
+        §V-D energy per request.
 
+Twin of the JAX package's `examples/serve_batched.py`. Runs on the card
+unless ``--device cpu`` asks for the CPU.
+
+    python -m repro_torch.examples.serve_batched --arch qwen3-1.7b
     python -m repro_torch.examples.serve_batched --workload acam --fast
 """
 from __future__ import annotations
@@ -17,6 +25,46 @@ import argparse
 import time
 
 import numpy as np
+
+
+def run_lm(args, device=None) -> dict:
+    """Greedy or sampled generation over ``--requests`` ragged prompts;
+    returns the token count, wall time, batch fill, decode-slot
+    utilisation and the engine's `BatchStats`."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, Request
+
+    cfg = configs.get(args.arch, smoke=True)
+    params = lm.init_params(0, cfg, device=device)
+    slots = 4
+    eng = Engine(cfg, params, batch_size=slots, max_len=128,
+                 temperature=args.temperature)
+
+    rng = np.random.RandomState(0)
+    reqs = [Request(prompt=rng.randint(0, cfg.vocab, size=rng.randint(4, 24)),
+                    max_new_tokens=args.max_new) for _ in range(args.requests)]
+    t0 = time.time()
+    eng.generate(reqs)
+    dt = time.time() - t0
+    total = sum(len(r.out) for r in reqs)
+    # batch fill / occupancy: how full each batch was, and what share of
+    # decode slot-steps produced a token
+    n_batches = -(-len(reqs) // slots)
+    fill = len(reqs) / (n_batches * slots)
+    slot_steps = sum(
+        slots * max(len(r.out) for r in reqs[i:i + slots])
+        for i in range(0, len(reqs), slots))
+    util = total / slot_steps
+    print(f"arch={cfg.name}: {len(reqs)} requests, {total} tokens "
+          f"in {dt:.2f}s ({total / dt:.1f} tok/s, {eng.device})")
+    print(f"  batch fill {fill:.2f} ({n_batches} batches x {slots} slots), "
+          f"decode slot utilisation {util:.2f}")
+    for i, r in enumerate(reqs):
+        print(f"  req{i} prompt[{len(r.prompt)}] -> {r.out}")
+    return {"tokens": total, "seconds": dt, "fill": fill,
+            "utilisation": util, "stats": eng.stats.as_dict(),
+            "outputs": [list(r.out) for r in reqs]}
 
 
 def run_acam(args, device=None) -> dict:
@@ -110,7 +158,11 @@ def run_acam(args, device=None) -> dict:
 
 def main(argv=None, *, device=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--workload", choices=("lm", "acam"), default="acam")
+    ap.add_argument("--workload", choices=("lm", "acam"), default="lm")
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--max-new", type=int, default=12)
+    ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--batch-size", type=int, default=64)
     ap.add_argument("--tenants", type=int, default=3,
                     help="acam: total tenants (1 trained + N-1 synthetic)")
@@ -124,11 +176,8 @@ def main(argv=None, *, device=None) -> dict:
     ap.add_argument("--device", default=device,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
-    if args.workload == "lm":
-        raise NotImplementedError(
-            "--workload lm: the LM decode workload comes with the LM slice "
-            "of the port")
-    return run_acam(args, device=args.device)
+    run = run_acam if args.workload == "acam" else run_lm
+    return run(args, device=args.device)
 
 
 if __name__ == "__main__":

@@ -1,17 +1,29 @@
-"""Serving launcher of the port: the multi-tenant ACAM service.
+"""Serving launcher of the port: the LM decode engine, the multi-tenant
+ACAM service, or the two composed.
 
-The flag surface is the JAX package's `repro.launch.serve`. The ``acam``
-workload builds the service through ONE declarative
-`repro_torch.serve.spec.ServiceSpec` (from the flags, or verbatim from
-``--spec service.json``) handed to `HybridService.from_spec`, registers
-synthetic tenants, serves a mixed-tenant request stream and prints the
-service metrics. It runs on the card unless the caller asks for the CPU
+The flag surface is the JAX package's `repro.launch.serve`. Every workload
+runs on the card unless the caller asks for the CPU
 (``main(argv, device="cpu")``; the command line always means the card):
 
+  lm         batched generation over the LM zoo
+             (`repro_torch.serve.engine.Engine`) with seeded random
+             weights; ``--smoke`` (the default, as in the JAX launcher)
+             takes the architecture's SMOKE config, and a caller that builds
+             the args itself reaches full width with ``args.smoke = False``.
+  acam       the multi-tenant hybrid-classifier service, built through ONE
+             declarative `repro_torch.serve.spec.ServiceSpec` (from the
+             flags, or verbatim from ``--spec service.json``) handed to
+             `HybridService.from_spec`.
+  lm-cached  the two composed (`repro_torch.serve.semantic_cache`): the
+             ACAM tier fronts the decode engine as a template router.
+
+  python -m repro_torch.launch.serve --arch tinyllama-1.1b --requests 8
+  python -m repro_torch.launch.serve --workload lm-cached --requests 32 \
+      --unique 8
   python -m repro_torch.launch.serve --workload acam --spec service.json
-  python -m repro_torch.launch.serve --workload acam --tenants 8 \\
+  python -m repro_torch.launch.serve --workload acam --tenants 8 \
       --requests 256 --slots 64 --print-spec
-  python -m repro_torch.launch.serve --workload acam \\
+  python -m repro_torch.launch.serve --workload acam \
       --backend device   # serve through the RRAM-CMOS physics models
 
 Under ``--backend device`` the served margins are matchline fractions and
@@ -28,9 +40,8 @@ snapshot there (a restart serves what the first run would have):
   python -m repro_torch.launch.serve --workload acam --snapshot-dir ckpt \
       --restore
 
-Not in the port yet, each raising `NotImplementedError`: the ``lm`` and
-``lm-cached`` workloads (the LM slice) and ``--bank-shards > 1`` (the
-multi-GPU slice). ``--profile-annotations`` marks each fused dispatch with
+``--bank-shards > 1`` raises `NotImplementedError` (the multi-GPU slice).
+``--profile-annotations`` marks each fused dispatch with
 `torch.profiler.record_function`.
 """
 from __future__ import annotations
@@ -70,18 +81,102 @@ def build_acam_spec(args):
 
 def _unported(args) -> None:
     """Raise for the flags whose machinery comes with a later slice."""
-    later = {
-        "lm": "the LM decode workload comes with the LM slice of the port",
-        "lm-cached": "the LM semantic-cache workload comes with the LM slice "
-                     "of the port",
-    }
-    if args.workload in later:
-        raise NotImplementedError(f"--workload {args.workload}: "
-                                  f"{later[args.workload]}")
     if args.bank_shards > 1:
         raise NotImplementedError(
             f"--bank-shards {args.bank_shards}: sharding the super-bank "
             "over several cards comes with the multi-GPU slice of the port")
+
+
+def run_lm(args, device=None) -> dict:
+    """Seeded random weights for ``--arch`` on ``device``, ``--requests``
+    prompts of 4-31 tokens, one `Engine.generate`. Returns the token count
+    and wall time, with the requests and the engine."""
+    import time
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, Request
+
+    cfg = configs.get(args.arch, smoke=args.smoke)
+    params = lm.init_params(args.seed, cfg, device=device)
+    eng = Engine(cfg, params, batch_size=args.batch_size,
+                 max_len=args.max_len, temperature=args.temperature)
+    rng = np.random.RandomState(args.seed)
+    reqs = [Request(prompt=rng.randint(0, cfg.vocab, size=rng.randint(4, 32)),
+                    max_new_tokens=args.max_new)
+            for _ in range(args.requests)]
+    t0 = time.time()
+    eng.generate(reqs)
+    dt = time.time() - t0
+    total = sum(len(r.out) for r in reqs)
+    print(f"{cfg.name}: {len(reqs)} requests, {total} tokens, "
+          f"{dt:.2f}s ({total / dt:.1f} tok/s)")
+    return {"tokens": total, "seconds": dt, "requests": reqs, "engine": eng}
+
+
+def run_lm_cached(args, device=None) -> dict:
+    """The two engines composed: the ACAM semantic cache in front of LM
+    decode. A Zipf-repeat prompt trace is routed through
+    `SemanticCacheService`: repeats of an admitted prompt answer from the
+    response store at Eq. 14 ACAM energy, cold prompts escalate to ONE
+    `Engine.generate` call per tick and are admitted back as templates.
+    Returns the hit count, the served count and the service metrics, with
+    the responses and the service."""
+    import time
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve import spec as spec_lib
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.semantic_cache import (PromptRequest,
+                                                  SemanticCacheService,
+                                                  synthetic_prompt_trace)
+
+    cfg = configs.get(args.arch, smoke=args.smoke)
+    params = lm.init_params(args.seed, cfg, device=device)
+    eng = Engine(cfg, params, batch_size=args.batch_size,
+                 max_len=args.max_len, temperature=args.temperature,
+                 seed=args.seed)
+    spec = spec_lib.ServiceSpec(
+        registry=spec_lib.RegistrySpec(num_features=args.features),
+        scheduler=spec_lib.SchedulerSpec(slots=args.slots),
+        cascade=spec_lib.CascadeSpec(backend="lm", tau=args.margin_tau,
+                                     tau_units="count"),
+        router=spec_lib.RouterSpec(max_templates=max(args.unique, 1)),
+        mesh=spec_lib.MeshSpec(install=False))
+    if args.print_spec:
+        print(spec.to_json())
+    svc = SemanticCacheService.from_spec(spec, engine=eng, device=device)
+    svc.add_tenant("edge-0")
+
+    trace = synthetic_prompt_trace(args.seed, vocab=cfg.vocab,
+                                   n_unique=args.unique,
+                                   n_requests=args.requests)
+    # arrivals come in bursts: a template admitted on a miss serves hits
+    # only on LATER ticks
+    burst = max(1, min(args.slots, args.unique))
+    t0 = time.time()
+    out = []
+    for i in range(0, len(trace), burst):
+        out.extend(svc.serve_prompts(
+            PromptRequest("edge-0", p, max_new_tokens=args.max_new)
+            for p in trace[i:i + burst]))
+    dt = time.time() - t0
+    m = svc.metrics()
+    hits = sum(r.cache_hit for r in out)
+    served = sum(r.error is None for r in out)
+    fleet = svc.obs.ledger.fleet()
+    print(f"{cfg.name} behind ACAM semantic cache: {served} requests "
+          f"({args.unique} unique), {hits} cache hits "
+          f"({hits / max(served, 1):.2f} hit rate), "
+          f"{m['classify_dispatches']} fused match dispatches over "
+          f"{m['ticks']} ticks, {dt:.2f}s")
+    print(f"  energy: {m['nj_per_request']:.1f} nJ/request mean "
+          f"(ACAM share {fleet['backend_share']:.4f}; decode misses carry "
+          f"{fleet['frontend_nj']:.1f} nJ of the "
+          f"{fleet['total_nj']:.1f} nJ total)")
+    return {"hits": hits, "served": served, "seconds": dt, **m,
+            "responses": out, "service": svc}
 
 
 def run_acam(args, device=None) -> dict:
@@ -211,9 +306,10 @@ def run_acam(args, device=None) -> dict:
             "autopilot": pilot.actions if args.autopilot else None}
 
 
-def main(argv=None, *, device=None) -> dict:
-    """Parse the JAX launcher's flags and run the workload on ``device``
-    (the card unless the caller asks for the CPU)."""
+def parse_args(argv=None) -> argparse.Namespace:
+    """The JAX launcher's flags, with ``--requests`` defaulted per
+    workload. A caller that builds the args itself may change them before
+    calling a ``run_*`` (``args.smoke = False`` for full width)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", choices=("lm", "acam", "lm-cached"),
                     default="lm")
@@ -287,8 +383,17 @@ def main(argv=None, *, device=None) -> dict:
     args = ap.parse_args(argv)
     if args.requests is None:
         args.requests = {"lm": 8, "acam": 256, "lm-cached": 32}[args.workload]
+    return args
+
+
+def main(argv=None, *, device=None) -> dict:
+    """Parse the JAX launcher's flags and run the workload on ``device``
+    (the card unless the caller asks for the CPU)."""
+    args = parse_args(argv)
     _unported(args)
-    return run_acam(args, device=device)
+    runner = {"lm": run_lm, "acam": run_acam,
+              "lm-cached": run_lm_cached}[args.workload]
+    return runner(args, device=device)
 
 
 if __name__ == "__main__":

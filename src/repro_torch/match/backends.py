@@ -440,6 +440,20 @@ class DeviceBackend(MatchBackend):
         c, k, _ = bank.templates.shape
         return self._sense_rows(self.program_bank(bank), queries, c, k)
 
+    def classify_serve(self, features, thr_table, tenant_slot,
+                       bank: TemplateBank, class_lo, class_hi, tau):
+        """The served tick: the composed path of the base class, sensed
+        through `acam.sense_compiled` (the arithmetic of the JAX package's
+        jitted tick) so margins and escalations agree bit for bit."""
+        thr_rows = thr_table[tenant_slot.to(torch.int64)]
+        q = quant.binarize(features - thr_rows, bank.thresholds)
+        c, k, _ = bank.templates.shape
+        s = acam_lib.sense_compiled(self.program_bank(bank), q)
+        _, per_class = classify_scores(s.reshape(q.shape[0], c, k))
+        pred, margin = window_margin(per_class, class_lo, class_hi,
+                                     cap=self.margin_cap(features.shape[-1]))
+        return pred, per_class, margin, margin < tau
+
     def classify_features_keyed(self, features, bank: TemplateBank, key, *,
                                 bank_shards: int = 1):
         """One Monte-Carlo draw: program the bank with an explicit key (not

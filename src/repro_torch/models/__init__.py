@@ -1,2 +1,3 @@
 """CNN front ends (`cnn`: the paper's Fig. 5 student and the ResNet
-teacher) and shared layers (`layers.chunked_attention`)."""
+teacher), the LM zoo's dense families (`lm`) and their shared layers
+(`layers`)."""

@@ -148,10 +148,6 @@ class ACAMService:
         """Construct every tier from a validated `ServiceSpec`: registry ->
         scheduler -> cascade."""
         spec.validate()
-        if spec.cascade.backend != "cnn":
-            raise NotImplementedError(
-                'cascade.backend="lm" (the semantic cache in front of an LM '
-                "decode engine) comes with the LM slice of the port")
         self.spec = spec
         self.device = device
         self.obs = FlightRecorder(spec.obs)
@@ -367,7 +363,7 @@ class ACAMService:
             if responses:
                 self._finalize_step(responses, t0, shedding, fill=0,
                                     n_expired=n_expired, dispatched=False,
-                                    escalation=False)
+                                    escalation=False, frontend={})
             return responses
         if shedding:
             self.obs.record_shed_tick()
@@ -376,7 +372,10 @@ class ACAMService:
         for r in results:
             rt = self._tenants.get(r.item.tenant_id) if r.error is None \
                 else None
-            wants = rt is not None and r.escalate
+            # the margin < tau compare ran in the tick's kernel call;
+            # _wants_escalation is the routing-policy hook (the semantic
+            # cache adds its absolute hit-score floor)
+            wants = rt is not None and self._wants_escalation(r)
             if wants and not shedding:
                 escalate.append(r)
                 keep.append((r, True, False))
@@ -388,6 +387,7 @@ class ACAMService:
             esc_pred = self._run_escalation(escalate)
 
         now = time.perf_counter()
+        fcost: dict[int, float] = {}
         for r, escalated, shed in keep:
             if r.error is not None:
                 responses.append(ClassifyResponse(
@@ -398,7 +398,9 @@ class ACAMService:
                 continue
             rt = self._tenants[r.item.tenant_id]
             pred = esc_pred[r.item.request_id] if escalated else r.pred_local
-            fj = self._frontend_j if escalated else 0.0
+            fj = self._frontend_cost(r.item.request_id) if escalated \
+                else 0.0
+            fcost[r.item.request_id] = fj
             responses.append(ClassifyResponse(
                 request_id=r.item.request_id,
                 tenant_id=r.item.tenant_id, pred=pred,
@@ -408,15 +410,18 @@ class ACAMService:
                 score=r.score))
         self._finalize_step(responses, t0, shedding, fill=len(results),
                             n_expired=n_expired, dispatched=True,
-                            escalation=bool(escalate), now=now)
+                            escalation=bool(escalate), now=now,
+                            frontend=fcost)
         return responses
 
     def _finalize_step(self, responses: list[ClassifyResponse], t0: float,
                        shedding: bool, *, fill: int, n_expired: int,
                        dispatched: bool, escalation: bool,
+                       frontend: dict[int, float],
                        now: float | None = None) -> None:
         """Book one step into the flight recorder (pure accounting: the
-        answers are fixed before this runs)."""
+        answers are fixed before this runs). ``frontend`` holds each
+        request's escalation energy, where the step charged one."""
         obs = self.obs
         if escalation:
             obs.record_escalation_dispatch()
@@ -426,7 +431,7 @@ class ACAMService:
             else:
                 rt = self._tenants[r.tenant_id]
                 obs.finish_request(r, rt.backend_j,
-                                   self._frontend_j if r.escalated else 0.0)
+                                   frontend.get(r.request_id, 0.0))
         now = time.perf_counter() if now is None else now
         obs.add_busy(now - t0)
         obs.set_queue_depth(self.scheduler.qsize)
@@ -443,6 +448,18 @@ class ACAMService:
                 queue_depth=self.scheduler.qsize,
                 shed_mode=int(shedding),
                 energy_j=sum(r.energy_j for r in responses))
+
+    def _wants_escalation(self, r: SlotResult) -> bool:
+        """Routing-policy hook: should this served slot escalate? The base
+        cascade trusts the tick's ``margin < tau`` bit; the semantic cache
+        (`repro_torch.serve.semantic_cache`) adds its hit-score floor."""
+        return r.escalate
+
+    def _frontend_cost(self, request_id: int) -> float:
+        """Energy charged for ONE escalated request: the §V-D CNN head's
+        figure here; the semantic cache charges the request's decode."""
+        del request_id
+        return self._frontend_j
 
     def _run_escalation(self, escalate: list[SlotResult]) -> dict[int, int]:
         """Coalesce a tick's escalated slots into one dense-head call."""

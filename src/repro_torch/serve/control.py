@@ -15,7 +15,10 @@ requests are served under the OLD config and come back in the report):
     scheduler change  a new tick size: the scheduler is rebuilt over the
                       same registry (the queue is empty after the drain).
     cascade change    taus, energy attribution and the admission bound are
-                      re-derived for every registered tenant in place.
+                      re-derived for every registered tenant in place (a
+                      `SemanticCacheService` swaps its cascade backend,
+                      cnn <-> lm, this way: queued work drains under the
+                      old one).
 
 A different feature dim, ``k_max`` or bucket size would change the banks'
 shapes: it raises `ReconfigureError` before anything changes. A change of

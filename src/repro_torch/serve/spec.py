@@ -77,8 +77,8 @@ class CascadeSpec(NamedTuple):
                       (None: never shed on latency).
     ``backend``       what the expensive escalation stage *is*: "cnn" (the
                       paper's softmax head — `frontend_macs` et al. model
-                      its §V-D cost) or "lm" (an LM decode backend
-                      behind the semantic cache, a later slice of the port;
+                      its §V-D cost) or "lm" (an LM decode engine behind
+                      the semantic cache, `repro_torch.serve.semantic_cache`;
                       misses are charged the per-token decode cost model,
                       `core.energy.lm_decode_energy`, instead of the CNN
                       MAC count). Load-shed mode is a "cnn"-only
@@ -100,8 +100,8 @@ class CascadeSpec(NamedTuple):
 
 
 class RouterSpec(NamedTuple):
-    """Semantic-cache router policy (the LM slice of the port), active
-    when ``cascade.backend == "lm"``. The router fronts the LM decode
+    """Semantic-cache router policy (`repro_torch.serve.semantic_cache`),
+    active when ``cascade.backend == "lm"``. The router fronts the LM decode
     engine with a per-tenant ACAM template bank: a confident match serves
     the cached response; a miss escalates to decode and (policy-gated)
     admits its embedding + response back into the bank.

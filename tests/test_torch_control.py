@@ -462,8 +462,9 @@ def test_launcher_autopilot(capsys):
 def test_serve_batched_example():
     from repro_torch.examples import serve_batched
 
-    with pytest.raises(NotImplementedError, match="LM slice"):
-        serve_batched.main(["--workload", "lm"], device="cpu")
+    lm = serve_batched.main(["--workload", "lm", "--requests", "5",
+                             "--max-new", "3"], device="cpu")
+    assert lm["tokens"] == 15 and lm["stats"]["requests"] == 5
     out = serve_batched.main(["--workload", "acam", "--fast", "--tenants",
                               "2", "--batch-size", "32"], device="cpu")
     assert out["completed"] == 250 + 250 // 4  # the test set + 1 co-tenant

@@ -8,10 +8,11 @@ dyadic windows, with invalid rows, empty class windows and a NaN feature.
 With noise, the JAX-drawn fields go through the port's noise step (torch
 cannot draw threefry streams): windows within 2 ulp, decisions equal,
 per-class scores within 1e-6. The Monte-Carlo sweep reproduces the JAX
-package's semantics on the port's own draws. The served path (the service
-and the launcher) gives the JAX package's decisions and counts; its margins
-agree within 1e-6, since the JAX tick is jitted and XLA turns the sense
-path's divisions by constants into reciprocal products.
+package's semantics on the port's own draws. The served path (`classify_serve`,
+the service and the launcher) is held against the JAX tick as the
+scheduler runs it, under jit: XLA folds the sense chain's constants into
+reciprocal products (and a 3T1R FMA), which the port's served path computes
+too (`core.acam.sense_compiled`), so its margins agree bit for bit.
 """
 import json
 
@@ -110,12 +111,14 @@ def test_entry_points_bit_identical_at_sigma_zero(cell, method, windows):
                                          jnp.asarray(x["hi"])))
     _equal(teng.classify_features_margin(tf, tbank),
            jeng.classify_features_margin(jf, jbank))
+    # the served tick is held against the JAX tick as the scheduler runs
+    # it, under jit (its compiled sense arithmetic, `sense_compiled`)
     _equal(teng.classify_serve(tf, t(x["table"]), t(x["slot"]), tbank,
                                t(x["lo"]), t(x["hi"]), t(x["tau"])),
-           jeng.classify_serve(jf, jnp.asarray(x["table"]),
-                               jnp.asarray(x["slot"]), jbank,
-                               jnp.asarray(x["lo"]), jnp.asarray(x["hi"]),
-                               jnp.asarray(x["tau"])))
+           jax.jit(jeng.classify_serve)(
+               jf, jnp.asarray(x["table"]), jnp.asarray(x["slot"]), jbank,
+               jnp.asarray(x["lo"]), jnp.asarray(x["hi"]),
+               jnp.asarray(x["tau"])))
     _equal([teng.scores(tq, tbank)], [jeng.scores(jq, jbank)])
     for valid in ("valid", None):
         jv = None if valid is None else jbank.valid
@@ -388,7 +391,8 @@ def test_default_device_backend_rescales_tau_like_pinned():
 def test_service_stream_matches_jax():
     """One device spec, the same tenants and trace in both packages'
     `HybridService`: the same pred, escalation, shed and energy per
-    response; margins within 1e-6 (the JAX tick is jitted)."""
+    response, and the same margins bit for bit (the served path computes
+    the jitted JAX tick's arithmetic)."""
     def build(m, config):
         return m.ServiceSpec(
             registry=m.RegistrySpec(num_features=N),
@@ -424,7 +428,56 @@ def test_service_stream_matches_jax():
                 a.energy_j, a.error) == (b.request_id, b.tenant_id, b.pred,
                                          b.escalated, b.shed, b.energy_j,
                                          b.error)
-        assert abs(a.margin - b.margin) <= 1e-6
+        assert np.float32(a.margin) == np.float32(b.margin)
     assert 0 < sum(r.escalated for r in tr) < 40
     assert jsvc.metrics()["classify_dispatches"] == \
         tsvc.metrics()["classify_dispatches"]
+
+
+def _tie_case(n, d=8, rows=100):
+    """Row r's query has n1 ones (n1 from d to N, at most ``rows`` values);
+    its class window holds a template matching all n1 (ones) and one
+    matching n1 - d: a margin of d counts, served against tau = d / N in
+    matchline fractions."""
+    n1s = np.arange(d, n + 1, -(-(n + 1 - d) // rows))
+    m = len(n1s)
+    tmpl = np.zeros((2 * m, 1, n), np.float32)
+    q = np.zeros((m, n), np.float32)
+    for r, n1 in enumerate(n1s):
+        q[r, :n1] = 1.0
+        tmpl[2 * r, 0] = 1.0
+        tmpl[2 * r + 1, 0] = 1.0
+        tmpl[2 * r + 1, 0, n1 - d:n1] = 0.0
+    bank = dict(templates=tmpl, lower=tmpl, upper=tmpl,
+                valid=np.ones((2 * m, 1), bool),
+                thresholds=np.zeros((n,), np.float32))
+    lo = (2 * np.arange(m)).astype(np.int32)
+    return dict(bank=bank, feats=q, table=np.full((1, n), 0.5, np.float32),
+                slot=np.zeros((m,), np.int32), lo=lo, hi=lo + 2,
+                tau=np.full((m,), d / n, np.float32))
+
+
+@pytest.mark.parametrize("cell,n", [("6T4R", 64), ("3T1R", 100),
+                                    ("6T4R", 784), ("3T1R", 784)])
+def test_served_margin_exactly_tau_matches_jitted_tick(cell, n):
+    """Margins of exactly tau: the served tick gives the jitted JAX tick's
+    margins and escalations bit for bit, including the rows where the
+    op-by-op sense chain (the un-jitted engine) lands an ulp on the other
+    side of tau."""
+    x = _tie_case(n)
+    jbank, tbank = _banks(x["bank"])
+    jeng, teng = _engines(cell=cell)
+    args = ("feats", "table", "slot")
+    got = teng.classify_serve(*(t(x[a]) for a in args), tbank,
+                              t(x["lo"]), t(x["hi"]), t(x["tau"]))
+    want = jax.jit(jeng.classify_serve)(
+        *(jnp.asarray(x[a]) for a in args), jbank, jnp.asarray(x["lo"]),
+        jnp.asarray(x["hi"]), jnp.asarray(x["tau"]))
+    _equal(got, want)
+    margin, tau = np.asarray(want[2]), x["tau"]
+    assert (margin == tau).any()  # exact ties are served
+    eager = to_np(tmatch.engine_for(
+        backend="device", device=ta.ACAMConfig(cell=cell)
+    ).classify_features_margin(
+        t(x["feats"] - 0.5), tbank, t(x["lo"]), t(x["hi"]))[2])
+    assert ((eager < tau) != (margin < tau)).any()  # the op-by-op flip

@@ -295,8 +295,8 @@ def test_autopilot_action_log_matches_jax():
     (tau 0.5: nothing escalates) swaps to the device backend, a flooded
     queue widens the slots, and a mostly empty bank compacts; the action
     logs (tick, action, reason) agree, and so does every answer (the
-    device backend's margins within 1e-6: the JAX serve tick is jitted,
-    and XLA turns the sense chain's divisions into reciprocal products)."""
+    device backend's margins bit for bit: its served tick computes the
+    jitted JAX tick's arithmetic, `core.acam.sense_compiled`)."""
     tenants = []
     for t in range(2):
         bank, head, p = jsvc_lib.make_synthetic_tenant(
@@ -331,6 +331,7 @@ def test_autopilot_action_log_matches_jax():
         a for _, a, _ in logs[1]}
     assert [(i, p, e) for i, p, _, e in answers[1]] == \
         [(i, p, e) for i, p, _, e in answers[0]]
-    np.testing.assert_allclose([a[2] for a in answers[1]],
-                               [a[2] for a in answers[0]], rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(
+        np.array([a[2] for a in answers[1]], np.float32),
+        np.array([a[2] for a in answers[0]], np.float32))
     assert [a[0] for a in answers[1]] == list(range(1, len(stream) + 1))

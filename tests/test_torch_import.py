@@ -46,6 +46,14 @@ slice6 = {"repro_torch.checkpoint.checkpointer", "repro_torch.serve.snapshot",
           "repro_torch.benchmarks.serving_bench",
           "repro_torch.examples.serve_batched"}
 assert slice6 <= set(names), sorted(slice6 - set(names))
+slice7 = {"repro_torch.models.lm", "repro_torch.serve.engine",
+          "repro_torch.serve.semantic_cache",
+          "repro_torch.examples.lm_semantic_cache", "repro_torch.configs",
+          *(f"repro_torch.configs.{m}" for m in (
+              "qwen2_5_14b", "tinyllama_1_1b", "qwen3_1_7b", "qwen1_5_32b",
+              "phi3_5_moe", "deepseek_v3", "qwen2_vl_72b", "hymba_1_5b",
+              "hubert_xlarge", "mamba2_2_7b"))}
+assert slice7 <= set(names), sorted(slice7 - set(names))
 import chip_smoke
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
@@ -59,7 +67,7 @@ def test_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", BLOCKED_IMPORT], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 82  # every module of the six slices
+    assert int(out.stdout.strip()) >= 97  # every module of the seven slices
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -214,3 +222,36 @@ def test_registry_defaults_to_the_card():
         TemplateBankRegistry(8)
     reg = TemplateBankRegistry(8, device="cpu")
     assert reg.device == torch.device("cpu") and len(reg) == 0
+
+
+def test_lm_entry_points_need_the_card_or_an_explicit_cpu():
+    """The LM's weights, caches, the layers' inits, the semantic cache and
+    the launcher's LM workloads resolve ``device=None`` to the card, and
+    raise without one; the engine runs where its weights live."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import layers, lm
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.semantic_cache import SemanticCacheService
+    from repro_torch.serve.spec import CascadeSpec, ServiceSpec
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    cfg = configs.get("tinyllama-1.1b", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_params(0, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_cache(cfg, 1, 8)
+    for init in (layers.rmsnorm_init, layers.layernorm_init, layers.RMSNorm,
+                 layers.LayerNorm, lambda d: layers.rope_freqs(d, 1e4)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init(8)
+    assert layers.rmsnorm_init(8, device="cpu").scale.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SemanticCacheService.from_spec(
+            ServiceSpec(cascade=CascadeSpec(backend="lm")))
+    for workload in ("lm", "lm-cached"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.main(["--workload", workload, "--requests", "1"])
+    eng = Engine(cfg, lm.init_params(0, cfg, device="cpu"))
+    assert eng.device == torch.device("cpu")

@@ -6,8 +6,8 @@ multi-tenant service through `repro.launch.serve.main` and
 synthetic tenants, N = 100). Both must report the same accuracy,
 completed, escalated, classify_dispatches and escalation rate, and print the
 same resolved spec; so must the flag-built service under ``--backend
-device``. Flags whose machinery is not ported yet raise
-`NotImplementedError`.
+device``. The ``lm`` and ``lm-cached`` workloads run; ``--bank-shards > 1``
+(the multi-GPU slice) raises `NotImplementedError`.
 """
 import numpy as np
 import pytest
@@ -103,13 +103,20 @@ def test_backend_device_flag_matches_jax(capsys, jax_mesh_cleared, noise):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--workload", "lm"], "LM slice"),
-    (["--workload", "lm-cached"], "LM slice"),
     (["--workload", "acam", "--bank-shards", "2"], "multi-GPU slice"),
 ])
 def test_unported_flags_raise(flags, match):
     with pytest.raises(NotImplementedError, match=match):
         tserve.main(flags, device="cpu")
+
+
+@pytest.mark.parametrize("workload,key,want", [("lm", "tokens", 8 * 16),
+                                               ("lm-cached", "hits", 24)])
+def test_lm_workloads_run(workload, key, want):
+    """The LM workloads run (their counts against the JAX launcher's:
+    `tests/test_torch_semantic_cache.py`)."""
+    got = tserve.main(["--workload", workload], device="cpu")
+    assert got[key] == want
 
 
 def test_main_defaults_to_the_card():
