@@ -3,8 +3,7 @@ has them, building the port's `ArchConfig`.
 
 Each module exports CONFIG (full) and SMOKE (reduced, same family and
 features). `get(name)` / `list_archs()` are the registry the launcher uses
-for ``--arch``. The MoE, MLA and SSM configs build, but the model raises
-for them until their slices land (`repro_torch.models.lm.check_supported`).
+for ``--arch``; the model serves all ten.
 """
 from __future__ import annotations
 

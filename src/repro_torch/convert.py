@@ -156,7 +156,9 @@ def _tensor(x) -> torch.Tensor:
 def lm_params_from_numpy(params: dict, cfg: lm.ArchConfig, *,
                          device=None) -> lm.LM:
     """The JAX LM pytree (numpy leaves, layers stacked on axis 0) -> the
-    port's `lm.LM` on ``device``, every leaf in its own dtype."""
+    port's `lm.LM` on ``device``, every leaf in its own dtype: attention
+    or MLA, the MLP or the MoE (``router.w`` f32, the expert stacks, the
+    shared expert), the SSD block and hymba's output norms."""
     lm.check_supported(cfg)
     dev = resolve(device)
 
@@ -176,20 +178,51 @@ def lm_params_from_numpy(params: dict, cfg: lm.ArchConfig, *,
             requires_grad=False)
         return n
 
-    stacked = params["layers"]
-    layers = []
-    for i in range(cfg.n_layers):
-        a = stacked["attn"]
-        attn = lm.Attention(
+    def mlp(m, i):
+        return L.MLP(linear(m["gate"], i), linear(m["up"], i),
+                     linear(m["down"], i))
+
+    def attn(a, i):
+        if cfg.mla:
+            return lm.MLA(linear(a["q_a"], i), norm(a["q_a_norm"], i),
+                          linear(a["q_b"], i), linear(a["kv_a"], i),
+                          norm(a["kv_a_norm"], i), linear(a["kv_b"], i),
+                          linear(a["o"], i))
+        return lm.Attention(
             linear(a["q"], i), linear(a["k"], i), linear(a["v"], i),
             linear(a["o"], i),
             norm(a["q_norm"], i) if cfg.qk_norm else None,
             norm(a["k_norm"], i) if cfg.qk_norm else None)
-        m = stacked["mlp"]
+
+    def ssd(s, i):
+        return L.SSD(linear(s["in_proj"], i), tensor(s["conv_w"][i]),
+                     tensor(s["A_log"][i]), tensor(s["D"][i]),
+                     tensor(s["dt_bias"][i]), norm(s["out_norm"], i),
+                     linear(s["out_proj"], i))
+
+    def moe(m, i):
+        return L.MoE(linear(m["router"], i), tensor(m["gate"][i]),
+                     tensor(m["up"][i]), tensor(m["down"][i]),
+                     mlp(m["shared"], i) if "shared" in m else None)
+
+    st = params["layers"]
+    layers = []
+    for i in range(cfg.n_layers):
+        ln1 = norm(st["ln1"], i)
+        if cfg.ssm:
+            layers.append(lm.Layer(ln1, None, None, None,
+                                   ssd=ssd(st["ssd"], i)))
+            continue
+        extra = {}
+        if cfg.hybrid:
+            extra = dict(ssd=ssd(st["ssd"], i),
+                         attn_out_norm=norm(st["attn_out_norm"], i),
+                         ssm_out_norm=norm(st["ssm_out_norm"], i))
+        if "moe" in st:
+            extra["moe"] = moe(st["moe"], i)
         layers.append(lm.Layer(
-            norm(stacked["ln1"], i), attn, norm(stacked["ln2"], i),
-            L.MLP(linear(m["gate"], i), linear(m["up"], i),
-                  linear(m["down"], i))))
+            ln1, attn(st["attn"], i), norm(st["ln2"], i),
+            mlp(st["mlp"], i) if "mlp" in st else None, **extra))
     embed = tensor(params["embed"]) if "embed" in params else None
     return lm.LM(embed, linear(params["unembed"]),
                  norm(params["final_norm"]), layers).eval()

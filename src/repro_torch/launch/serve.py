@@ -87,17 +87,18 @@ def _unported(args) -> None:
             "over several cards comes with the multi-GPU slice of the port")
 
 
-def run_lm(args, device=None) -> dict:
-    """Seeded random weights for ``--arch`` on ``device``, ``--requests``
-    prompts of 4-31 tokens, one `Engine.generate`. Returns the token count
-    and wall time, with the requests and the engine."""
+def run_lm(args, device=None, cfg=None) -> dict:
+    """Seeded random weights for ``--arch`` (or for ``cfg``, a caller's
+    `ArchConfig`, e.g. a full-width config cut in depth) on ``device``,
+    ``--requests`` prompts of 4-31 tokens, one `Engine.generate`. Returns
+    the token count and wall time, with the requests and the engine."""
     import time
 
     from repro_torch import configs
     from repro_torch.models import lm
     from repro_torch.serve.engine import Engine, Request
 
-    cfg = configs.get(args.arch, smoke=args.smoke)
+    cfg = cfg or configs.get(args.arch, smoke=args.smoke)
     params = lm.init_params(args.seed, cfg, device=device)
     eng = Engine(cfg, params, batch_size=args.batch_size,
                  max_len=args.max_len, temperature=args.temperature)

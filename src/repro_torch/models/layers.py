@@ -15,11 +15,17 @@ The dtype order is the JAX package's: norms and rotary embeddings compute
 in f32 and cast back; products with bf16 operands accumulate in f32
 (``preferred_element_type``) from the operands' own values.
 
-MoE, MLA and the Mamba2 SSD functions come with later slices of the port
-(ROADMAP §A); `SSMSpec` is here for `ArchConfig.param_count`.
+The MoE layer (sort-based capacity dispatch, softmax or sigmoid router,
+optional shared expert) and the Mamba2 SSD (`ssd_scan`, `ssd_step`,
+`ssd_block`) follow the JAX package's arithmetic: the router product in
+true f32 with a stable top-k, and the SSD's three-operand products
+written out as the pairs XLA contracts, in f32 on the operands' rounded
+values. The MLA attention lives in `repro_torch.models.lm`, as in the JAX
+package.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -270,8 +276,172 @@ def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
     return linear(p.down, silu(linear(p.gate, x)) * linear(p.up, x))
 
 
+@contextlib.contextmanager
+def true_f32():
+    """f32 products in full f32 on the card (no TF32) for everything run
+    inside, as the JAX reference computes them on the CPU."""
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32 = prev
+
+
 # ---------------------------------------------------------------------------
-# Mamba2 SSD geometry (the SSD functions come with a later slice)
+# Mixture of Experts: sort-based capacity dispatch
+# ---------------------------------------------------------------------------
+
+class MoE(nn.Module):
+    """``router.w`` (d, E) in f32; ``gate`` / ``up`` (E, d, f) and ``down``
+    (E, f, d) in the model's dtype; an optional ``shared`` `MLP`."""
+
+    def __init__(self, router: Linear, gate: torch.Tensor, up: torch.Tensor,
+                 down: torch.Tensor, shared: MLP | None = None):
+        super().__init__()
+        self.router = router
+        self.gate = nn.Parameter(gate, requires_grad=False)
+        self.up = nn.Parameter(up, requires_grad=False)
+        self.down = nn.Parameter(down, requires_grad=False)
+        self.shared = shared
+
+
+def _normal_stack(n: int, shape, scale: float, dtype,
+                  generator: torch.Generator) -> torch.Tensor:
+    """``n`` normal slices times ``scale`` in ``dtype``, drawn one slice at
+    a time (an f32 draw of a whole expert stack at deepseek-v3 width would
+    be a 15 GB temporary)."""
+    out = torch.empty((n, *shape), dtype=dtype, device=generator.device)
+    for i in range(n):
+        out[i] = (_normal(shape, generator) * scale).to(dtype)
+    return out
+
+
+def moe_init(generator: torch.Generator, d: int, d_ff_expert: int,
+             n_experts: int, n_shared: int, d_ff_shared: int,
+             dtype=torch.bfloat16) -> MoE:
+    scale_in, scale_out = d ** -0.5, d_ff_expert ** -0.5
+    router = Linear(_normal((d, n_experts), generator) * scale_in)  # f32
+    gate = _normal_stack(n_experts, (d, d_ff_expert), scale_in, dtype,
+                         generator)
+    up = _normal_stack(n_experts, (d, d_ff_expert), scale_in, dtype,
+                       generator)
+    down = _normal_stack(n_experts, (d_ff_expert, d), scale_out, dtype,
+                         generator)
+    shared = mlp_init(generator, d, d_ff_shared * n_shared, dtype=dtype) \
+        if n_shared > 0 else None
+    return MoE(router, gate, up, down, shared)
+
+
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax``: ``exp(x - max) / sum`` (one division)."""
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+@true_f32()
+def route(p: MoE, xf: torch.Tensor, top_k: int, router_type: str):
+    """Router of (T, d) tokens -> (logits (T, E) f32, scores (T, E), the
+    renormalised top-k weights (T, K), expert ids (T, K) int64).
+
+    The product is taken in true f32 on ``xf`` cast to f32; the top k come
+    from a stable descending sort, so a tie goes to the lower expert id as
+    in ``lax.top_k`` (`torch.topk` leaves the order of ties unspecified)."""
+    logits = xf.to(torch.float32) @ p.router.w
+    if router_type == "softmax":
+        scores = _softmax(logits)
+    elif router_type == "sigmoid":  # deepseek-v3 style
+        scores = 1 / (1 + torch.exp(-logits))
+    else:
+        raise ValueError(router_type)
+    w, ids = torch.sort(scores, dim=-1, descending=True, stable=True)
+    w, ids = w[:, :top_k], ids[:, :top_k]
+    w = w / torch.clamp_min(w.sum(dim=-1, keepdim=True), 1e-9)
+    return logits, scores, w, ids
+
+
+def capacity(t: int, top_k: int, n_experts: int,
+             capacity_factor: float) -> int:
+    """Slots per expert: ``t`` up to 4096 tokens (no slot can drop), else
+    the capacity-factor rule."""
+    if t <= 4096:
+        return t
+    return max(int(-(-t * top_k // n_experts) * capacity_factor), top_k)
+
+
+def dispatch(ids: torch.Tensor, n_experts: int, cap: int):
+    """Sort the (token, k) slots by expert id (stable) -> (sort_idx,
+    sorted_ids, pos_in_seg, keep, counts): a slot is kept when its position
+    in its expert's segment is below ``cap``. Segments come from
+    `torch.searchsorted` (deterministic on the card, as `bincount` is
+    not)."""
+    flat = ids.reshape(-1)
+    sort_idx = torch.sort(flat, stable=True).indices
+    sorted_ids = flat[sort_idx]
+    experts = torch.arange(n_experts, device=ids.device)
+    seg_start = torch.searchsorted(sorted_ids, experts)
+    counts = torch.searchsorted(sorted_ids, experts, right=True) - seg_start
+    pos = torch.arange(flat.numel(), device=ids.device) - seg_start[sorted_ids]
+    return sort_idx, sorted_ids, pos, pos < cap, counts
+
+
+@true_f32()
+def moe(p: MoE, x: torch.Tensor, *, top_k: int, router_type: str = "softmax",
+        capacity_factor: float = 1.25, aux_coeff: float = 0.01
+        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """MoE layer. x: (B, S, d) -> (y, aux_loss), the JAX semantics.
+
+    Slots are sorted by expert id and the first ``cap`` of each expert's
+    segment are kept (`capacity`). Only experts that received a kept slot
+    are computed, one product per occupied segment: each row of the JAX
+    zero-padded (E, C, d) buffer goes through its expert on its own, so
+    the rows are the same, and a decode step reads only the experts its
+    tokens chose. The weighted outputs are added back to their tokens in
+    x's dtype, each token's in ascending expert id (the order of the JAX
+    scatter's slots). ``aux`` uses softmax probabilities for either
+    router."""
+    b, s, d = x.shape
+    e = p.gate.shape[0]
+    t = b * s
+    xf = x.reshape(t, d)
+    logits, scores, w, ids = route(p, xf, top_k, router_type)
+    cap = capacity(t, top_k, e, capacity_factor)
+    sort_idx, _, _, keep, counts = dispatch(ids, e, cap)
+
+    # load-balance aux loss (fraction dispatched x mean router probability)
+    probs = scores if router_type == "softmax" else _softmax(logits)
+    dispatch_frac = counts.to(torch.float32) / t
+    aux = aux_coeff * e * (dispatch_frac * probs.mean(dim=0)).sum()
+
+    token_of_slot = sort_idx // top_k
+    out = torch.zeros((t * top_k, d), dtype=x.dtype, device=x.device)
+    start = 0
+    for ex, n in enumerate(counts.tolist()):
+        kept = min(n, cap)
+        if kept:
+            rows = xf[token_of_slot[start:start + kept]]
+            h = silu(rows @ p.gate[ex]) * (rows @ p.up[ex])
+            out[start:start + kept] = h @ p.down[ex]
+        start += n
+    flat_w = w.reshape(-1)[sort_idx].to(x.dtype)
+    contrib = torch.where(keep[:, None], out * flat_w[:, None], 0)
+    # back to (token, k) order, each token's slots by ascending expert id
+    by_slot = torch.empty_like(contrib)
+    by_slot[sort_idx] = contrib
+    order = torch.argsort(ids, dim=-1)
+    by_slot = torch.gather(by_slot.reshape(t, top_k, d), 1,
+                           order[..., None].expand(t, top_k, d))
+    y = torch.zeros((t, d), dtype=x.dtype, device=x.device)
+    for j in range(top_k):
+        y = y + by_slot[:, j]
+    if p.shared is not None:
+        y = y + mlp(p.shared, xf)
+    return y.reshape(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD (state-space duality, chunked)
 # ---------------------------------------------------------------------------
 
 class SSMSpec(NamedTuple):
@@ -281,3 +451,197 @@ class SSMSpec(NamedTuple):
     d_state: int
     conv_kernel: int = 4
     chunk: int = 256
+
+
+class SSD(nn.Module):
+    """A Mamba2 block's parameters: ``in_proj`` -> [z, x, B, C, dt],
+    ``conv_w`` (K, d_inner + 2N), ``A_log`` / ``D`` / ``dt_bias`` (H,) in
+    f32, ``out_norm`` and ``out_proj``."""
+
+    def __init__(self, in_proj: Linear, conv_w: torch.Tensor,
+                 A_log: torch.Tensor, D: torch.Tensor, dt_bias: torch.Tensor,
+                 out_norm: RMSNorm, out_proj: Linear):
+        super().__init__()
+        self.in_proj, self.out_proj = in_proj, out_proj
+        self.out_norm = out_norm
+        self.conv_w = nn.Parameter(conv_w, requires_grad=False)
+        self.A_log = nn.Parameter(A_log, requires_grad=False)
+        self.D = nn.Parameter(D, requires_grad=False)
+        self.dt_bias = nn.Parameter(dt_bias, requires_grad=False)
+
+
+def ssd_init(generator: torch.Generator, d: int, spec: SSMSpec,
+             dtype=torch.bfloat16) -> SSD:
+    din, h, dev = spec.d_inner, spec.n_heads, generator.device
+    d_proj = 2 * din + 2 * spec.d_state + h
+    in_proj = linear_init(generator, d, d_proj, dtype=dtype)
+    conv_w = (_normal((spec.conv_kernel, din + 2 * spec.d_state), generator)
+              * 0.1).to(dtype)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return SSD(in_proj, conv_w, torch.zeros((h,), **f32),
+               torch.ones((h,), **f32), torch.zeros((h,), **f32),
+               rmsnorm_init(din, device=dev),
+               linear_init(generator, din, d, dtype=dtype))
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 state: torch.Tensor | None = None):
+    """Depthwise causal conv. x: (B, S, C); w: (K, C). Returns (y,
+    new_state), the state carrying the trailing K-1 inputs for decode.
+    Each product and each running sum rounds to x's dtype, in the JAX
+    order (tap 0 first)."""
+    k, s = w.shape[0], x.shape[1]
+    if state is None:
+        xp = torch.nn.functional.pad(x, (0, 0, k - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    y = 0
+    for i in range(k):
+        y = y + xp[:, i:i + s, :] * w[i][None, None, :]
+    new_state = xp[:, -(k - 1):, :] if k > 1 else x[:, :0]
+    return y, new_state
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """'Segment sum' in the cumsum-difference form: out[..., i, j] =
+    cs[i] - cs[j] (the sum of a[j+1..i]) for j <= i, -inf above."""
+    n = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((n, n), dtype=torch.bool, device=a.device))
+    return torch.where(mask, diff, float("-inf"))
+
+
+def y_off_order(d_state: int, head_dim: int) -> str:
+    """Which pair of the inter-chunk output's three-operand product XLA
+    contracts first (``jnp.einsum``'s cost-based path): the state with C
+    (a sum over N) when N > P (mamba2-2.7b: N 128, P 64), else the decay
+    with C (an exact product; the SMOKE configs and hymba-1.5b)."""
+    return "states_c" if d_state > head_dim else "decay_c"
+
+
+@true_f32()
+def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, spec: SSMSpec,
+             init_state: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD (Mamba2 alg. 1 dual form).
+
+    xh: (B, S, H, P); dt: (B, S, H) positive steps; A: (H,) negative
+    rates; Bm, Cm: (B, S, N) (one group). Returns (y (B, S, H, P) in xh's
+    dtype, final state (B, H, P, N) f32). S pads up to a multiple of the
+    chunk. Each three-operand product of the JAX package is the pair of
+    products XLA contracts, in f32 on operands rounded to xh's dtype:
+    (decay-matrix x scores) then x xdt; (decay x xdt) then x B; and for
+    the inter-chunk output the pair `y_off_order` names."""
+    f32, dt_x = torch.float32, xh.dtype
+    b, s, h, p = xh.shape
+    n = Bm.shape[-1]
+    L = spec.chunk
+    nc = -(-s // L)
+    pad = nc * L - s
+    if pad:
+        xh = torch.nn.functional.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        Bm = torch.nn.functional.pad(Bm, (0, 0, 0, pad))
+        Cm = torch.nn.functional.pad(Cm, (0, 0, 0, pad))
+    xc = xh.reshape(b, nc, L, h, p)
+    dtc = dt.reshape(b, nc, L, h)
+    Bc = Bm.reshape(b, nc, L, n)
+    Cc = Cm.reshape(b, nc, L, n)
+
+    def rounded(x):  # an operand cast to xh's dtype, read in f32
+        return x.to(dt_x).to(f32)
+
+    a = (dtc * A[None, None, None, :]).to(f32)  # (b, nc, L, h)
+    a_hp = a.transpose(-1, -2)  # (b, nc, h, L)
+    a_cum = torch.cumsum(a_hp, dim=-1)
+    xdt_b = rounded(xc.to(f32) * dtc[..., None])  # (b, nc, L, h, p)
+
+    # 1) intra-chunk (diagonal) term
+    lmat = torch.exp(_segsum(a_hp))  # (b, nc, h, L, L)
+    lmat = torch.where(torch.isfinite(lmat), lmat, 0.0)
+    scores = torch.einsum("bcln,bcmn->bclm", Cc.to(f32), Bc.to(f32))
+    pair = rounded(lmat) * rounded(scores)[:, :, None]  # (b,nc,h,L,L)
+    y_diag = torch.einsum("bchlm,bcmhp->bclhp", pair, xdt_b)
+
+    # 2) chunk states
+    decay_states = torch.exp(a_cum[..., -1:] - a_cum)  # (b, nc, h, L)
+    pair = rounded(decay_states).transpose(-1, -2)[..., None] * xdt_b
+    states = torch.einsum("bclhp,bcln->bchpn", pair, rounded(Bc))
+
+    # 3) inter-chunk recurrence: the state entering each chunk
+    chunk_decay = torch.exp(a_cum[..., -1])  # (b, nc, h)
+    carry = (torch.zeros((b, h, p, n), dtype=f32, device=xh.device)
+             if init_state is None else init_state.to(f32))
+    prev = []
+    for c in range(nc):
+        prev.append(carry)
+        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = rounded(torch.stack(prev, dim=1))  # (b, nc, h, p, n)
+
+    # 4) inter-chunk output
+    decay_out = rounded(torch.exp(a_cum))  # (b, nc, h, L)
+    if y_off_order(n, p) == "states_c":
+        pair = torch.einsum("bchpn,bcln->bchpl", prev_states, rounded(Cc))
+        y_off = (pair * decay_out[:, :, :, None, :]).permute(0, 1, 4, 2, 3)
+    else:  # (b, nc, L, h, n)
+        pair = (decay_out.transpose(-1, -2)[..., None]
+                * rounded(Cc)[:, :, :, None, :])
+        y_off = torch.einsum("bclhn,bchpn->bclhp", pair, prev_states)
+
+    y = (y_diag + y_off).reshape(b, nc * L, h, p)[:, :s]
+    return y.to(dt_x), carry
+
+
+@true_f32()
+def ssd_step(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, state: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One-token SSM update (the decode path, no chunking).
+
+    xh: (B, 1, H, P); dt: (B, 1, H); Bm, Cm: (B, 1, N); state (B, H, P, N)
+    in f32: state' = state * exp(A dt) + (dt x) outer B; y = <state', C>.
+    """
+    f32 = torch.float32
+    a = torch.exp(dt[:, 0, :, None, None].to(f32) * A[None, :, None, None])
+    xdt = xh[:, 0].to(f32) * dt[:, 0, :, None].to(f32)  # (B, H, P)
+    upd = xdt[..., None] * Bm[:, 0].to(f32)[:, None, None, :]
+    new_state = state.to(f32) * a + upd
+    y = torch.einsum("bhpn,bn->bhp", new_state, Cm[:, 0].to(f32))
+    return y[:, None].to(xh.dtype), new_state
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``): ``max(x, 0) +
+    log1p(exp(-|x|))``."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def ssd_block(p: SSD, x: torch.Tensor, spec: SSMSpec, *,
+              state: dict | None = None) -> tuple[torch.Tensor, dict]:
+    """The full Mamba2 block. x: (B, S, d). ``state``: None (a sequence
+    from zero) or {"conv": (B, K-1, C), "ssm": (B, H, P, N)}. One token with
+    a state takes `ssd_step`, anything else `ssd_scan`. Returns (y (B, S,
+    d), {"conv", "ssm"})."""
+    din, h, pd, n = spec.d_inner, spec.n_heads, spec.head_dim, spec.d_state
+    proj = linear(p.in_proj, x)
+    z, xin, Bm, Cm, dt = torch.split(proj, [din, din, n, n, h], dim=-1)
+    conv_in = torch.cat([xin, Bm, Cm], dim=-1)
+    conv_out, new_conv = _causal_conv(
+        conv_in, p.conv_w, None if state is None else state["conv"])
+    xin, Bm, Cm = torch.split(silu(conv_out), [din, n, n], dim=-1)
+
+    dt = softplus(dt.to(torch.float32) + p.dt_bias)  # (B, S, H)
+    A = -torch.exp(p.A_log)  # (H,) negative
+    xh = xin.reshape(*xin.shape[:-1], h, pd)
+    init = None if state is None else state["ssm"]
+    if x.shape[1] == 1 and state is not None:
+        y, final = ssd_step(xh, dt, A, Bm, Cm, init)
+    else:
+        y, final = ssd_scan(xh, dt, A, Bm, Cm, spec, init_state=init)
+    y = y + (xh.to(torch.float32).to(y.dtype)
+             * p.D.to(y.dtype)[None, None, :, None])
+    y = y.reshape(*x.shape[:-1], din)
+    y = rmsnorm(p.out_norm, y * silu(z))
+    return linear(p.out_proj, y), {"conv": new_conv, "ssm": final}

@@ -1,10 +1,13 @@
-"""The LM zoo's dense families, in PyTorch (inference).
+"""The LM zoo, in PyTorch (inference): all ten of the JAX package's
+architectures.
 
-One config dataclass and one model for the architectures with no MoE, MLA
-or SSM: dense GQA transformers (llama / qwen, optional QKV bias and
-qk-norm), VLM backbones (M-RoPE, embeddings as input) and encoder-only
-backbones (hubert). The rest of the JAX package's zoo raises
-`NotImplementedError` until its slice lands (ROADMAP §A).
+One config dataclass and one model covering dense GQA transformers (llama /
+qwen, optional QKV bias and qk-norm), MoE (phi3.5 softmax top-2; deepseek-v3
+sigmoid top-8 with a shared expert and MLA), VLM backbones (M-RoPE,
+embeddings as input), hybrid attention + SSM heads (hymba), encoder-only
+backbones (hubert) and the pure SSM (mamba2's SSD). Only
+``head_pad_multiple > 0``, a tensor-parallel head layout, raises
+`NotImplementedError` until the multi-GPU slice (ROADMAP §A.3).
 
 The model is an `LM` module: ``embed`` (V, d) for token inputs, ``unembed``
 (a `layers.Linear`), ``final_norm`` and ``layers``, an `nn.ModuleList` of
@@ -18,10 +21,13 @@ Entry points (the JAX package's names):
     prefill(params, cfg, inputs, max_len=...) -> (last logits, Cache)
     decode_step(params, cfg, tokens, cache)   -> (logits (B, 1, V), Cache)
 
-`Cache` keeps the JAX contract: ``k``/``v`` are (L, B, Smax, KV, hd), the
-batch at axis 1, with one shared ``length`` (a Python int here: the port
-runs eagerly). `decode_step` writes the new token's keys and values into
-the cache's tensors in place and returns the cache with ``length + 1``.
+`Cache` keeps the JAX contract: every tensor field batches at axis 1, with
+one shared ``length`` (a Python int here: the port runs eagerly).
+`decode_step` writes the new token's state into the cache's tensors in
+place and returns the cache with ``length + 1``. MLA prefills with the
+expanded attention and decodes with the weight-absorbed one over the
+compressed cache, as the JAX package does (the two differ by rounding).
+Every f32 product runs in true f32 on the card (`layers.true_f32`).
 """
 from __future__ import annotations
 
@@ -152,15 +158,7 @@ class ArchConfig:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for the families and layouts whose slice has not landed."""
-    later = [("n_experts > 0", cfg.n_experts > 0, "MoE"),
-             ("mla", cfg.mla, "MLA"), ("ssm", cfg.ssm, "the Mamba2 SSD"),
-             ("hybrid", cfg.hybrid, "hymba's hybrid heads")]
-    for flag, on, what in later:
-        if on:
-            raise NotImplementedError(
-                f"{cfg.name}: {flag} ({what}) is not in the port yet "
-                "(ROADMAP §A.2)")
+    """Raise for the layout whose slice has not landed."""
     if cfg.head_pad_multiple > 0:
         raise NotImplementedError(
             f"{cfg.name}: head_pad_multiple > 0 is a tensor-parallel head "
@@ -180,11 +178,36 @@ class Attention(nn.Module):
         self.q_norm, self.k_norm = q_norm, k_norm
 
 
+class MLA(nn.Module):
+    """deepseek's multi-head latent attention: a low-rank query
+    (``q_a`` -> ``q_a_norm`` -> ``q_b``), a compressed kv (``kv_a`` ->
+    ``kv_a_norm``, with the shared rope key) expanded by ``kv_b``, and
+    ``o``."""
+
+    def __init__(self, q_a: L.Linear, q_a_norm: L.RMSNorm, q_b: L.Linear,
+                 kv_a: L.Linear, kv_a_norm: L.RMSNorm, kv_b: L.Linear,
+                 o: L.Linear):
+        super().__init__()
+        self.q_a, self.q_a_norm, self.q_b = q_a, q_a_norm, q_b
+        self.kv_a, self.kv_a_norm, self.kv_b = kv_a, kv_a_norm, kv_b
+        self.o = o
+
+
 class Layer(nn.Module):
-    def __init__(self, ln1: L.RMSNorm, attn: Attention, ln2: L.RMSNorm,
-                 mlp: L.MLP):
+    """``ln1``, then ``attn`` (`Attention` or `MLA`; None for mamba2), the
+    ``ssd`` block of the SSM and hybrid families with hymba's
+    ``attn_out_norm`` / ``ssm_out_norm``, then ``ln2`` and ``mlp`` or
+    ``moe`` (neither for mamba2)."""
+
+    def __init__(self, ln1: L.RMSNorm, attn: nn.Module | None,
+                 ln2: L.RMSNorm | None, mlp: L.MLP | None, *,
+                 moe: L.MoE | None = None, ssd: L.SSD | None = None,
+                 attn_out_norm: L.RMSNorm | None = None,
+                 ssm_out_norm: L.RMSNorm | None = None):
         super().__init__()
         self.ln1, self.attn, self.ln2, self.mlp = ln1, attn, ln2, mlp
+        self.moe, self.ssd = moe, ssd
+        self.attn_out_norm, self.ssm_out_norm = attn_out_norm, ssm_out_norm
 
 
 class LM(nn.Module):
@@ -210,19 +233,49 @@ def _init_attn(g: torch.Generator, cfg: ArchConfig) -> Attention:
                      L.rmsnorm_init(hd, device=g.device))
 
 
+def _init_mla(g: torch.Generator, cfg: ArchConfig) -> MLA:
+    d, dt, dev = cfg.d_model, cfg.dtype, g.device
+    qk_dim = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return MLA(
+        L.linear_init(g, d, cfg.q_lora_rank, dtype=dt),
+        L.rmsnorm_init(cfg.q_lora_rank, device=dev),
+        L.linear_init(g, cfg.q_lora_rank, cfg.n_heads * qk_dim, dtype=dt),
+        L.linear_init(g, d, cfg.kv_lora_rank + cfg.qk_rope_dim, dtype=dt),
+        L.rmsnorm_init(cfg.kv_lora_rank, device=dev),
+        L.linear_init(g, cfg.kv_lora_rank,
+                      cfg.n_heads * (cfg.qk_nope_dim + cfg.v_head_dim),
+                      dtype=dt),
+        L.linear_init(g, cfg.n_heads * cfg.v_head_dim, d, dtype=dt))
+
+
 def _init_layer(g: torch.Generator, cfg: ArchConfig) -> Layer:
-    return Layer(L.rmsnorm_init(cfg.d_model, device=g.device),
-                 _init_attn(g, cfg),
-                 L.rmsnorm_init(cfg.d_model, device=g.device),
-                 L.mlp_init(g, cfg.d_model, cfg.d_ff, dtype=cfg.dtype))
+    d, dev = cfg.d_model, g.device
+    ln1 = L.rmsnorm_init(d, device=dev)
+    if cfg.ssm:  # mamba2: a pure SSM stack, no separate MLP
+        return Layer(ln1, None, None, None,
+                     ssd=L.ssd_init(g, d, cfg.ssm_spec, dtype=cfg.dtype))
+    attn = _init_mla(g, cfg) if cfg.mla else _init_attn(g, cfg)
+    hybrid = {}
+    if cfg.hybrid:
+        hybrid = dict(ssd=L.ssd_init(g, d, cfg.ssm_spec, dtype=cfg.dtype),
+                      attn_out_norm=L.rmsnorm_init(d, device=dev),
+                      ssm_out_norm=L.rmsnorm_init(d, device=dev))
+    ln2 = L.rmsnorm_init(d, device=dev)
+    if cfg.n_experts > 0:
+        return Layer(ln1, attn, ln2, None, **hybrid, moe=L.moe_init(
+            g, d, cfg.d_ff_expert, cfg.n_experts, cfg.n_shared_experts,
+            cfg.d_ff_expert, dtype=cfg.dtype))
+    return Layer(ln1, attn, ln2, L.mlp_init(g, d, cfg.d_ff, dtype=cfg.dtype),
+                 **hybrid)
 
 
 def init_params(key: int | torch.Generator, cfg: ArchConfig, *,
                 device=None) -> LM:
     """Random weights in the JAX package's distributions (normal times
-    ``din ** -0.5``, the embedding normal times 0.02), drawn in order from
-    ``key`` (a seed, or a generator on the target device) on ``device``
-    (the card unless the caller asks for the CPU)."""
+    ``din ** -0.5``, the embedding normal times 0.02, the SSD's conv
+    normal times 0.1), drawn in order from ``key`` (a seed, or a generator
+    on the target device) on ``device`` (the card unless the caller asks
+    for the CPU)."""
     check_supported(cfg)
     if isinstance(key, torch.Generator):
         g = key
@@ -254,7 +307,8 @@ def _rope_tables(cfg: ArchConfig, positions):
     """Step-level rope tables (`precompute_rope`), built once."""
     if not cfg.precompute_rope or cfg.rope != "standard":
         return None
-    return L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    d = cfg.qk_rope_dim if cfg.mla else cfg.head_dim
+    return L.rope_tables(positions, d, cfg.rope_theta)
 
 
 def _attn_qkv(p: Attention, cfg: ArchConfig, h, positions, tables=None):
@@ -269,14 +323,114 @@ def _attn_qkv(p: Attention, cfg: ArchConfig, h, positions, tables=None):
                                                    tables), v
 
 
-def _attend_full(p: Layer, cfg: ArchConfig, h, positions, tables):
-    """One layer over a whole sequence -> (h, k, v)."""
-    x = L.rmsnorm(p.ln1, h)
-    q, k, v = _attn_qkv(p.attn, cfg, x, positions, tables)
+def _mla_q(p: MLA, cfg: ArchConfig, h, positions, tables=None):
+    """-> (q_nope (B, S, H, nope), q_rope (B, S, H, rope))."""
+    b, s, _ = h.shape
+    qa = L.rmsnorm(p.q_a_norm, L.linear(p.q_a, h))
+    q = L.linear(p.q_b, qa).reshape(
+        b, s, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q_nope, q_rope = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim],
+                                 dim=-1)
+    return q_nope, _rope(cfg, q_rope, positions, tables)
+
+
+def _mla_kv_compressed(p: MLA, cfg: ArchConfig, h, positions, tables=None):
+    """-> (c_kv (B, S, kv_lora), k_rope (B, S, rope)): what MLA caches."""
+    c_kv, k_rope = torch.split(L.linear(p.kv_a, h),
+                               [cfg.kv_lora_rank, cfg.qk_rope_dim], dim=-1)
+    c_kv = L.rmsnorm(p.kv_a_norm, c_kv)
+    k_rope = _rope(cfg, k_rope[:, :, None, :], positions, tables)[:, :, 0]
+    return c_kv, k_rope
+
+
+def _mla_train_attention(p: MLA, cfg: ArchConfig, h, positions, tables=None):
+    """Expanded MLA attention (forward and prefill) -> (output, c_kv,
+    k_rope)."""
+    b, s, _ = h.shape
+    q_nope, q_rope = _mla_q(p, cfg, h, positions, tables)
+    c_kv, k_rope = _mla_kv_compressed(p, cfg, h, positions, tables)
+    kv = L.linear(p.kv_b, c_kv).reshape(
+        b, s, cfg.n_heads, cfg.qk_nope_dim + cfg.v_head_dim)
+    k_nope, v = torch.split(kv, [cfg.qk_nope_dim, cfg.v_head_dim], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, s, cfg.n_heads, cfg.qk_rope_dim)], dim=-1)
     out = L.chunked_attention(q, k, v, causal=cfg.causal,
-                              q_chunk=cfg.q_chunk, window=cfg.sliding_window)
-    h = h + L.linear(p.attn.o, out.reshape(*x.shape[:2], -1))
-    return h + L.mlp(p.mlp, L.rmsnorm(p.ln2, h)), k, v
+                              q_chunk=cfg.q_chunk)
+    return L.linear(p.o, out.reshape(b, s, -1)), c_kv, k_rope
+
+
+def _mla_decode(p: MLA, cfg: ArchConfig, x, positions, c_kv, k_rope,
+                length: int):
+    """Weight-absorbed MLA for one token against the compressed cache of
+    one layer (c_kv (B, Smax, kv_lora), k_rope (B, Smax, rope)), written in
+    place at slot ``length % Smax``; slots up to that one are attended
+    (the JAX package's mask). Scores in the compressed space, in f32."""
+    b = x.shape[0]
+    f32 = torch.float32
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)  # (B, 1, H, *)
+    c_new, k_rope_new = _mla_kv_compressed(p, cfg, x, positions)
+    slot = c_kv.shape[1]
+    idx = length % slot
+    c_kv[:, idx] = c_new[:, 0]
+    k_rope[:, idx] = k_rope_new[:, 0]
+    wkv = p.kv_b.w.reshape(cfg.kv_lora_rank, cfg.n_heads,
+                           cfg.qk_nope_dim + cfg.v_head_dim)
+    w_uk, w_uv = wkv[:, :, :cfg.qk_nope_dim], wkv[:, :, cfg.qk_nope_dim:]
+    q_eff = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].to(f32), w_uk.to(f32))
+    scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    ckv = c_kv.to(f32)
+    s1 = torch.einsum("bhr,bsr->bhs", q_eff, ckv)
+    s2 = torch.einsum("bhd,bsd->bhs", q_rope[:, 0].to(f32), k_rope.to(f32))
+    logits = (s1 + s2) * scale
+    mask = torch.arange(slot, device=x.device) <= idx
+    att = torch.softmax(torch.where(mask, logits, float("-inf")), dim=-1)
+    out_c = torch.einsum("bhs,bsr->bhr", att, ckv)
+    out = torch.einsum("bhr,rhd->bhd", out_c, w_uv.to(f32))
+    return L.linear(p.o, out.reshape(b, 1, -1).to(cfg.dtype))
+
+
+def _hybrid(p: Layer, att, ssm_y):
+    """hymba: the two branches normalised and averaged."""
+    return 0.5 * (L.rmsnorm(p.attn_out_norm, att)
+                  + L.rmsnorm(p.ssm_out_norm, ssm_y))
+
+
+def _ffn(p: Layer, cfg: ArchConfig, h):
+    """``h`` plus the layer's MLP or MoE on ``ln2(h)`` -> (h, aux)."""
+    x = L.rmsnorm(p.ln2, h)
+    if p.moe is not None:
+        y, aux = L.moe(p.moe, x, top_k=cfg.top_k,
+                       router_type=cfg.router_type,
+                       capacity_factor=cfg.capacity_factor)
+        return h + y, aux
+    return h + L.mlp(p.mlp, x), None
+
+
+def _layer_full(p: Layer, cfg: ArchConfig, h, positions, tables):
+    """One layer over a whole sequence -> (h, aux or None, the layer's
+    cache tensors: k / v, c_kv / k_rope, conv / ssm)."""
+    x = L.rmsnorm(p.ln1, h)
+    new = {}
+    if cfg.ssm:
+        y, new = L.ssd_block(p.ssd, x, cfg.ssm_spec)
+        return h + y, None, new
+    if cfg.mla:
+        att, new["c_kv"], new["k_rope"] = _mla_train_attention(
+            p.attn, cfg, x, positions, tables)
+    else:
+        q, k, v = _attn_qkv(p.attn, cfg, x, positions, tables)
+        out = L.chunked_attention(q, k, v, causal=cfg.causal,
+                                  q_chunk=cfg.q_chunk,
+                                  window=cfg.sliding_window)
+        att = L.linear(p.attn.o, out.reshape(*x.shape[:2], -1))
+        new["k"], new["v"] = k, v
+    if cfg.hybrid:
+        ssm_y, st = L.ssd_block(p.ssd, x, cfg.ssm_spec)
+        new.update(st)
+        att = _hybrid(p, att, ssm_y)
+    h, aux = _ffn(p, cfg, h + att)
+    return h, aux, new
 
 
 def _embed_in(params: LM, cfg: ArchConfig, inputs) -> torch.Tensor:
@@ -296,33 +450,41 @@ def _default_positions(cfg: ArchConfig, b: int, s: int, offset: int = 0,
     return pos
 
 
+@torch.no_grad()
+@L.true_f32()
 def forward(params: LM, cfg: ArchConfig, inputs, positions=None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. inputs: tokens (B, S) or embeds (B, S, d).
-    Returns (logits (B, S, V), aux_loss), aux 0 without MoE."""
+    Returns (logits (B, S, V), aux_loss): the MoE layers' load-balance
+    losses summed over the layers, 0 without MoE."""
     check_supported(cfg)
-    with torch.no_grad():
-        h = _embed_in(params, cfg, inputs)
-        b, s = h.shape[:2]
-        if positions is None:
-            positions = _default_positions(cfg, b, s, device=h.device)
-        tables = _rope_tables(cfg, positions)
-        for layer in params.layers:
-            h, _, _ = _attend_full(layer, cfg, h, positions, tables)
-        logits = L.linear(params.unembed, L.rmsnorm(params.final_norm, h))
-    return logits, torch.zeros((), dtype=torch.float32, device=h.device)
+    h = _embed_in(params, cfg, inputs)
+    b, s = h.shape[:2]
+    if positions is None:
+        positions = _default_positions(cfg, b, s, device=h.device)
+    tables = _rope_tables(cfg, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for layer in params.layers:
+        h, a, _ = _layer_full(layer, cfg, h, positions, tables)
+        if a is not None:
+            aux = aux + a
+    logits = L.linear(params.unembed, L.rmsnorm(params.final_norm, h))
+    return logits, aux
 
 
 # ---------------------------------------------------------------------------
-# serving: prefill + decode with a KV cache
+# serving: prefill + decode with per-family caches
 # ---------------------------------------------------------------------------
 
 class Cache(NamedTuple):
-    """The JAX package's unified cache; the MLA / SSM fields stay None
-    until their slices land.
+    """The JAX package's unified cache; unused fields are None per family.
 
-    k/v:    (L, B, Smax, KV, hd)   attention KV
-    length: int                    tokens already in the cache
+    k/v:     (L, B, Smax, KV, hd)   attention KV
+    c_kv:    (L, B, Smax, kv_lora)  MLA compressed KV
+    k_rope:  (L, B, Smax, rope_dim) MLA shared rope key
+    conv:    (L, B, 3, conv_dim)    SSM conv state (cfg.dtype)
+    ssm:     (L, B, H, P, N)        SSM state (f32)
+    length:  int                    tokens already in the cache
     """
 
     k: torch.Tensor | None
@@ -334,75 +496,122 @@ class Cache(NamedTuple):
     length: int
 
 
+#: the cache's tensor fields, every one batched at axis 1
+CACHE_FIELDS = ("k", "v", "c_kv", "k_rope", "conv", "ssm")
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
                device=None) -> Cache:
     """A zero cache on ``device`` (the card unless the caller asks for the
-    CPU); a sliding window keeps a ring of ``min(max_len, window)`` slots."""
+    CPU); a sliding window keeps a ring of ``min(max_len, window)`` slots.
+    The SSM conv state has 3 slots, as in the JAX package."""
     check_supported(cfg)
-    attn_len = min(max_len, cfg.sliding_window) if cfg.sliding_window \
-        else max_len
-    shape = (cfg.n_layers, batch, attn_len, cfg.n_kv_heads, cfg.head_dim)
-    dev = resolve(device)
-    k = torch.zeros(shape, dtype=dtype or cfg.dtype, device=dev)
-    return Cache(k, torch.zeros_like(k), None, None, None, None, 0)
+    dt, dev = dtype or cfg.dtype, resolve(device)
+    n, b = cfg.n_layers, batch
+    k = v = c_kv = k_rope = conv = ssm = None
+    if cfg.ssm or cfg.hybrid:
+        spec = cfg.ssm_spec
+        conv = torch.zeros((n, b, 3, spec.d_inner + 2 * spec.d_state),
+                           dtype=dt, device=dev)
+        ssm = torch.zeros((n, b, spec.n_heads, spec.head_dim, spec.d_state),
+                          dtype=torch.float32, device=dev)
+    if cfg.mla:
+        c_kv = torch.zeros((n, b, max_len, cfg.kv_lora_rank), dtype=dt,
+                           device=dev)
+        k_rope = torch.zeros((n, b, max_len, cfg.qk_rope_dim), dtype=dt,
+                             device=dev)
+    elif cfg.uses_attention:
+        attn_len = min(max_len, cfg.sliding_window) if cfg.sliding_window \
+            else max_len
+        k = torch.zeros((n, b, attn_len, cfg.n_kv_heads, cfg.head_dim),
+                        dtype=dt, device=dev)
+        v = torch.zeros_like(k)
+    return Cache(k, v, c_kv, k_rope, conv, ssm, 0)
 
 
+@torch.no_grad()
+@L.true_f32()
 def prefill(params: LM, cfg: ArchConfig, inputs, positions=None,
             max_len: int | None = None) -> tuple[torch.Tensor, Cache]:
     """Process a prompt, building the serving cache.
 
     Returns (last-position logits (B, V), cache ready for `decode_step`).
     A sliding window lays the last ``w`` keys out on their ring slots
-    ``p % w``."""
+    ``p % w``; an SSM layer leaves its conv and ssm states."""
     check_supported(cfg)
-    with torch.no_grad():
-        h = _embed_in(params, cfg, inputs)
-        b, s = h.shape[:2]
-        if positions is None:
-            positions = _default_positions(cfg, b, s, device=h.device)
-        max_len = max_len or s
-        tables = _rope_tables(cfg, positions)
-        # a prompt longer than max_len keeps all its keys (as the JAX pad)
-        cache = init_cache(cfg, b, max_len if cfg.sliding_window
-                           else max(max_len, s), device=h.device)
-        w = cache.k.shape[2]
-        for i, layer in enumerate(params.layers):
-            h, k, v = _attend_full(layer, cfg, h, positions, tables)
+    h = _embed_in(params, cfg, inputs)
+    b, s = h.shape[:2]
+    if positions is None:
+        positions = _default_positions(cfg, b, s, device=h.device)
+    max_len = max_len or s
+    tables = _rope_tables(cfg, positions)
+    # a prompt longer than max_len keeps all its keys (as the JAX pad)
+    cache = init_cache(cfg, b, max_len if cfg.sliding_window
+                       else max(max_len, s), device=h.device)
+    for i, layer in enumerate(params.layers):
+        h, _, new = _layer_full(layer, cfg, h, positions, tables)
+        if "k" in new:
+            k, v = new["k"], new["v"]
+            w = cache.k.shape[2]
             if cfg.sliding_window and s >= w:
                 k = torch.roll(k[:, -w:], s % w, dims=1)
                 v = torch.roll(v[:, -w:], s % w, dims=1)
             cache.k[i, :, :k.shape[1]] = k
             cache.v[i, :, :v.shape[1]] = v
-        h = L.rmsnorm(params.final_norm, h)
-        logits = L.linear(params.unembed, h[:, -1])
+        for f in ("c_kv", "k_rope"):
+            if f in new:
+                getattr(cache, f)[i, :, :s] = new[f]
+        for f in ("conv", "ssm"):
+            if f in new:
+                getattr(cache, f)[i] = new[f]
+    h = L.rmsnorm(params.final_norm, h)
+    logits = L.linear(params.unembed, h[:, -1])
     return logits, cache._replace(length=s)
 
 
+@torch.no_grad()
+@L.true_f32()
 def decode_step(params: LM, cfg: ArchConfig, tokens, cache: Cache
                 ) -> tuple[torch.Tensor, Cache]:
     """One decode step. tokens: (B, 1) ids (or (B, 1, d) embeds).
-    Returns (logits (B, 1, V), the cache with ``length + 1``; its k/v
-    tensors are updated in place)."""
+    Returns (logits (B, 1, V), the cache with ``length + 1``; its tensors
+    are updated in place)."""
     check_supported(cfg)
-    with torch.no_grad():
-        h = _embed_in(params, cfg, tokens)
-        b = h.shape[0]
-        length = int(cache.length)
-        positions = _default_positions(cfg, b, 1, offset=length,
-                                       device=h.device)
+    h = _embed_in(params, cfg, tokens)
+    b = h.shape[0]
+    length = int(cache.length)
+    positions = _default_positions(cfg, b, 1, offset=length,
+                                   device=h.device)
+    if cache.k is not None:
         smax = cache.k.shape[2]
         # ring buffer for a sliding window: all slots valid once full;
         # past the end the write lands on the last slot (XLA clamps a
         # dynamic_update_slice start the same way)
         idx = length % smax if cfg.sliding_window else min(length, smax - 1)
         cur = min(length + 1, smax) if cfg.sliding_window else length + 1
-        for i, layer in enumerate(params.layers):
-            x = L.rmsnorm(layer.ln1, h)
+    for i, layer in enumerate(params.layers):
+        x = L.rmsnorm(layer.ln1, h)
+        ssm_y = None
+        if layer.ssd is not None:
+            ssm_y, st = L.ssd_block(
+                layer.ssd, x, cfg.ssm_spec,
+                state={"conv": cache.conv[i], "ssm": cache.ssm[i]})
+            cache.conv[i] = st["conv"]
+            cache.ssm[i] = st["ssm"]
+        if cfg.ssm:
+            h = h + ssm_y
+            continue
+        if cfg.mla:
+            att = _mla_decode(layer.attn, cfg, x, positions, cache.c_kv[i],
+                              cache.k_rope[i], length)
+        else:
             q, k, v = _attn_qkv(layer.attn, cfg, x, positions)
             cache.k[i, :, idx] = k[:, 0]
             cache.v[i, :, idx] = v[:, 0]
             out = L.decode_attention(q, cache.k[i], cache.v[i], cur)
-            h = h + L.linear(layer.attn.o, out.reshape(b, 1, -1))
-            h = h + L.mlp(layer.mlp, L.rmsnorm(layer.ln2, h))
-        logits = L.linear(params.unembed, L.rmsnorm(params.final_norm, h))
+            att = L.linear(layer.attn.o, out.reshape(b, 1, -1))
+        if cfg.hybrid:
+            att = _hybrid(layer, att, ssm_y)
+        h, _ = _ffn(layer, cfg, h + att)
+    logits = L.linear(params.unembed, L.rmsnorm(params.final_norm, h))
     return logits, cache._replace(length=length + 1)

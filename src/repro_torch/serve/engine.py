@@ -179,10 +179,13 @@ class Engine:
                     row = np.zeros((1, cur_len), np.int32)
                     row[0, cur_len - len(nxt.prompt):] = nxt.prompt
                     jlogits, jcache = self._prefill(row)
-                    # splice the one-row cache into slot i (batch axis 1);
-                    # both caches sit at the same shared length
-                    cache.k[:, i] = jcache.k[:, 0]
-                    cache.v[:, i] = jcache.v[:, 0]
+                    # splice every field of the one-row cache into slot i
+                    # (batch axis 1); both caches sit at the same shared
+                    # length, which stays the live one's
+                    for f in lm.CACHE_FIELDS:
+                        live = getattr(cache, f)
+                        if live is not None:
+                            live[:, i] = getattr(jcache, f)[:, 0]
                     jtok = self._sample_slots(jlogits, [nxt])
                     tok[i] = jtok[0]
                     self._push_token(nxt, int(jtok[0]))

@@ -38,6 +38,17 @@ N = 64
 TENANTS = 3
 
 
+@pytest.fixture(autouse=True)
+def jax_mesh_cleared():
+    """Without --spec the JAX launcher installs its serving mesh process-
+    wide; clear it after each test so later test files in this worker (the
+    JAX LM's, `tests/test_lm_decode.py`) see none."""
+    from repro.distributed import context
+
+    yield
+    context.clear()
+
+
 def _spec(m, backend="kernel", slots=16, tau=6.0, **engine):
     return m.ServiceSpec(
         registry=m.RegistrySpec(num_features=N),

@@ -85,6 +85,32 @@ def test_ragged_finish_and_joins_like_jax(stacks, batch, max_len):
         assert ts.joins >= 1  # continuous batching happened
 
 
+@pytest.fixture(scope="module", params=["mamba2-2.7b", "deepseek-v3-671b"])
+def family_stacks(request):
+    """f32 SMOKE stacks of the families whose caches hold more than k / v:
+    mamba2 (conv, ssm) and deepseek-v3 (MLA's c_kv, k_rope)."""
+    jcfg = dataclasses.replace(jconfigs.get(request.param, smoke=True),
+                               dtype=jnp.float32)
+    tcfg = dataclasses.replace(tconfigs.get(request.param, smoke=True),
+                               dtype=torch.float32)
+    jp = jlm.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = convert.lm_params_from_numpy(jax.tree.map(np.asarray, jp), tcfg,
+                                      device="cpu")
+    return (jcfg, jp), (tcfg, tp)
+
+
+def test_joins_splice_every_cache_field_like_jax(family_stacks):
+    """Ragged requests with mid-flight joins: a joining request decodes
+    from its own prefilled state in every cache field (the JAX engine
+    splices every array leaf), so the tokens equal the JAX engine's."""
+    rng = np.random.RandomState(3)
+    specs = [dict(prompt=rng.randint(0, 512, size=4 + 3 * i),
+                  max_new_tokens=2 + 3 * (i % 3)) for i in range(7)]
+    tr, ts, jr, js = _both(family_stacks, specs, batch_size=3, max_len=48)
+    _equal(tr, ts, jr, js)
+    assert ts.joins >= 2
+
+
 def test_max_len_truncates_mid_flight_like_jax(stacks):
     prompt = np.arange(8, dtype=np.int32)
     tr, ts, jr, js = _both(stacks, [dict(prompt=prompt, max_new_tokens=16)],

@@ -25,8 +25,10 @@ Tolerances:
     unembedding. Measured: at most 1.1% of the logits' scale.
 
 The JAX package's own decode contracts (`tests/test_lm_decode.py`,
-`tests/test_models_zoo.py`) are ported as port-only tests, and the
-analytic parameter counts equal the JAX ones for all ten configs.
+`tests/test_models_zoo.py`) are ported as port-only tests, the analytic
+parameter counts equal the JAX ones for all ten configs, and all ten
+build, prefill and decode on the CPU. The MoE, MLA, SSM and hybrid
+families are held against JAX in `tests/test_torch_lm_families.py`.
 """
 import dataclasses
 
@@ -360,7 +362,7 @@ def test_encoder_prefill_only():
 
 
 # ---------------------------------------------------------------------------
-# configs, init and the families still to come
+# configs, init, and the layout still to come
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", jconfigs.list_archs())
@@ -376,15 +378,18 @@ def test_param_counts_match_jax(arch):
         assert tconfigs.get(alias) == tconfigs.get(jconfigs.ALIASES[alias])
 
 
-@pytest.mark.parametrize("arch,match", [
-    ("phi3.5-moe-42b-a6.6b", "MoE"), ("deepseek-v3-671b", "MoE"),
-    ("mamba2-2.7b", "SSD"), ("hymba-1.5b", "hybrid")])
-def test_later_families_raise(arch, match):
+@pytest.mark.parametrize("arch", jconfigs.list_archs())
+def test_every_config_builds_and_decodes(arch):
+    """All ten SMOKE configs build, prefill and decode a step on the CPU:
+    finite logits, the cache one token longer."""
     cfg = tconfigs.get(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match=match):
-        tlm.init_params(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.init_cache(cfg, 1, 8, device="cpu")
+    params = tlm.init_params(0, cfg, device="cpu")
+    x = _inputs(cfg, 2, 6, seed=8)
+    logits, cache = tlm.prefill(params, cfg, x[:, :5], max_len=8)
+    assert logits.shape == (2, cfg.vocab) and cache.length == 5
+    step, cache = tlm.decode_step(params, cfg, x[:, 5:], cache)
+    assert step.shape == (2, 1, cfg.vocab) and cache.length == 6
+    assert bool(torch.isfinite(logits).all() and torch.isfinite(step).all())
 
 
 def test_head_padding_waits_for_the_multi_gpu_slice():
