@@ -178,7 +178,7 @@ JAX:
               at a time and each freed before the next, at full width
               with the depth cut (`LM_FAMILIES`): phi3.5-moe (8 of 32
               layers), deepseek-v3 (2 of 61: MLA, 256 sigmoid-routed
-              experts), mamba2-2.7b (all 64) and hymba-1.5b (all 32),
+              experts), mamba2-2.7b (16 of 64) and hymba-1.5b (8 of 32),
               against forward within 2^-5 (phi3.5-moe) or the JAX
               package's 0.08 of the scale, the step's bound counting the
               experts it reads and the MLA / SSM caches. All six cut to 2
@@ -193,7 +193,35 @@ JAX:
               launched once a tick), the full-width tinyllama engine
               behind the same service (hit and miss latency), and
               `serving_bench.lm_cache_bench` at smoke size.
- 7. report    the card's name and power limit, metrics and the energy
+ 7. lm_train the LM trainer: tinyllama-1.1b at full width (all 22
+              layers, bf16, remat on, batch 8 x seq 64) through
+              `launch.train.main` for 8 steps, every loss finite and the
+              last below the first, peak memory, then one more step timed
+              (call and device time, idle share, events) against its bound
+              (`train_bound`: bytes against products). One config a family
+              (`TRAIN_FAMILIES`: tinyllama-1.1b, qwen2-vl-72b,
+              hubert-xlarge, phi3.5-moe, deepseek-v3 with 16 experts,
+              mamba2-2.7b, hymba-1.5b) cut to 2 layers in f32, TF32 off,
+              weights made on the CPU from a seed, card against CPU: the loss within 1e-5, every gradient within
+              relative L2 1e-4 per JAX leaf, the MoE routing ids identical
+              in the forward and the recompute, one AdamW step from the
+              same gradients within 1e-5 of each tensor's scale, the int8
+              compression of each JAX leaf (the layers' tensors stacked,
+              as the trainer compresses) bit-identical (batch 8 x 64, or
+              2 x 32 for
+              qwen2-vl-72b, phi3.5-moe and deepseek-v3, printed). SMOKE
+              tinyllama: two seeded runs with equal losses and
+              checkpoints, and a run checkpointed every 3 steps and
+              resumed from step 6 to 8 equal to the uninterrupted one, bit
+              for bit; a run with ``--compress``, its first loss equal to
+              the uncompressed run's and every loss finite. The HuBERT
+              ACAM-head example (`examples.acam_head_for_hubert`) at its
+              SMOKE size and on hubert-xlarge at full width (48 layers, d
+              1280, vocab 504; 4 training steps): B1 launched once for the
+              head's one call, its answers bit-identical to the plain
+              reference engine's; dense and ACAM accuracy and nJ per frame
+              printed.
+ 8. report    the card's name and power limit, metrics and the energy
               split, the training step's time, device time and idle share,
               the paper's tables and the tuning winners, the control
               plane's numbers, one ``{"kernels": [...]}`` line (ten
@@ -3452,14 +3480,16 @@ LM_GROUP, LM_PLEN = 4, 32  # one engine group: batch 4, prompts of 32
 LM_STEPS = 8  # teacher-forced greedy steps, card against CPU
 LM_CUT_LAYERS = 2  # the card-against-CPU configs: full width, 2 layers
 #: the zoo's MoE, MLA, SSM and hybrid families at full width on the card,
-#: their depth cut to fit one card in bf16: arch -> (layers, the tolerance
+#: their depth cut to fit one card in bf16 (phi3.5-moe, deepseek-v3) or
+#: the script's time (mamba2-2.7b, hymba-1.5b: at all 64 and 32 layers
+#: they took 35 and 42 s): arch -> (layers, the tolerance
 #: of prefill + decode_step against forward relative to the logits' scale:
 #: 2^-5 for phi3.5-moe, the JAX package's 0.08 where MLA decodes through
 #: the absorbed weights or an SSM steps in f32, tests/test_models_zoo.py)
 LM_FAMILIES = {"phi3.5-moe-42b-a6.6b": (8, LM_BF16_REL),
                "deepseek-v3-671b": (2, 0.08),
-               "mamba2-2.7b": (64, 0.08),
-               "hymba-1.5b": (32, 0.08)}
+               "mamba2-2.7b": (16, 0.08),
+               "hymba-1.5b": (8, 0.08)}
 #: card against CPU in f32 at 2 layers: deepseek-v3's 256 routed experts
 #: cut to 16 (with 256, f32 at 2 layers is about 100 GB a device)
 LM_CPU_CUTS = {"deepseek-v3-671b": dict(n_experts=16)}
@@ -3475,7 +3505,7 @@ def routes_recorded():
 
     def rec(p, xf, top_k, router_type):
         out = orig(p, xf, top_k, router_type)
-        got.append((out[3].cpu(), out[1].cpu()))
+        got.append((out[3].cpu(), out[1].detach().cpu()))
         return out
 
     L.route = rec
@@ -3965,14 +3995,14 @@ def lm_cached(device, *, smoke: bool = False) -> tuple[dict, dict]:
         bench=bench, bench_s=bench_s)
 
 
-def lm_phase(device, *, smoke: bool = False,
-             cut_cfgs=None) -> tuple[dict, dict]:
+def lm_phase(device, *, smoke: bool = False, cut_cfgs=None
+             ) -> tuple[dict, dict]:
     """Phase 6: full width (`lm_full_width`) for each of `LM_ARCHS` and,
     cut in depth, of `LM_FAMILIES` (one at a time, each freed before the
     next), card against CPU at 2 layers (`lm_card_vs_cpu`) for all six,
-    and `lm_cached` (the launcher's full-width tinyllama). ``smoke`` /
-    ``cut_cfgs`` (arch -> config) shrink the configs for a CPU
-    rehearsal."""
+    and `lm_cached` (the
+    launcher's full-width tinyllama). ``smoke`` / ``cut_cfgs`` (arch ->
+    config) shrink the configs for a CPU rehearsal."""
     import gc
 
     import torch
@@ -4061,6 +4091,469 @@ def print_lm(lmo: dict, card: str) -> None:
         print(f"lm_cache_bench ({card}): {json.dumps(e)}")
 
 
+# ---------------------------------------------------------------------------
+# 7. the LM trainer
+# ---------------------------------------------------------------------------
+
+#: full width on the card through `launch.train.main`: the launcher's
+#: default arch, batch 8 x seq 64, bf16, remat on, all 22 layers
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_STEPS = 8
+TRAIN_BATCH, TRAIN_SEQ = 8, 64
+#: card against CPU in f32 at `LM_CUT_LAYERS` layers, one config a family
+#: (dense, vlm, audio, moe, MLA + sigmoid moe, ssm, hybrid): arch ->
+#: (batch, seq), the launcher's 8 x 64 cut to 2 x 32 for the three
+#: largest (2.8-3.7 G parameters at 2 layers), where the CPU's side takes
+#: longest
+TRAIN_FAMILIES = {"tinyllama-1.1b": (8, 64), "qwen2-vl-72b": (2, 32),
+                  "hubert-xlarge": (8, 64), "phi3.5-moe-42b-a6.6b": (2, 32),
+                  "deepseek-v3-671b": (2, 32), "mamba2-2.7b": (8, 64),
+                  "hymba-1.5b": (8, 64)}
+#: one AdamW step from the same gradients on both devices: every
+#: parameter within this fraction of its tensor's scale
+TRAIN_STEP_REL = 1e-5
+#: SMOKE resume: (steps, ckpt-every, resumed to)
+TRAIN_RESUME = (6, 3, 8)
+#: hubert-xlarge at full width: its encoder's training steps
+HUBERT_FULL_STEPS = 4
+
+
+def train_bound(cfg, params, tokens: int) -> dict:
+    """The least time one training step could take: the bytes over the
+    HBM rate against the products over the tensor rate of the weights'
+    dtype. Bytes: every parameter read three
+    times (forward, remat's recompute, backward; the embedding only at the
+    ``tokens`` rows gathered) and written once (the update), each gradient
+    written once and read twice (the global norm, AdamW), AdamW's f32
+    ``mu`` / ``nu`` read and written. ``bytes_once`` counts each input read
+    once and each output written once (parameters and moments), the
+    algorithm's floor. Products: 2 x tokens x every matmul weight (MoE:
+    ``top_k`` experts a token and the shared one) and the attention's
+    full S x S score and value products (`chunked_attention` masks, it
+    skips nothing), times 4: forward, recompute and the backward's two."""
+    item = params.unembed.w.element_size()
+    named = dict(params.named_parameters())
+    n_all = sum(p.numel() for p in named.values())
+    p_bytes = sum(p.numel() * p.element_size() for p in named.values())
+    embed = named["embed"].numel() * item if "embed" in named else 0
+    rows = tokens * cfg.d_model * item if embed else 0
+    nbytes = (3 * (p_bytes - embed + rows) + p_bytes  # reads, the rewrite
+              + 3 * p_bytes  # gradients: written, read twice
+              + 16 * n_all)  # mu, nu: f32, read and written
+    once = 2 * p_bytes + 16 * n_all
+    matmul = sum(p.numel() for n, p in named.items() if n.endswith(".w"))
+    if cfg.n_experts:
+        matmul += cfg.n_layers * cfg.top_k * 3 * cfg.d_model * cfg.d_ff_expert
+    seq = TRAIN_SEQ
+    att = 0
+    if cfg.uses_attention:
+        hd = (cfg.qk_nope_dim + cfg.qk_rope_dim + cfg.v_head_dim) // 2 \
+            if cfg.mla else cfg.head_dim
+        att = cfg.n_layers * 4 * tokens * seq * cfg.n_heads * hd
+    flops = 4 * (2 * tokens * matmul + att)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / FLOPS_PER_S[str(cfg.dtype)] * 1e3
+    return dict(bytes=nbytes, bytes_ms=bytes_ms, bytes_once=once,
+                bytes_once_ms=once / HBM_BYTES_PER_S * 1e3, flops=flops,
+                flops_ms=flops_ms, bound_ms=max(bytes_ms, flops_ms),
+                bound_by="bytes" if bytes_ms >= flops_ms else "operations")
+
+
+def lm_train_full_width(device, *, smoke: bool = False) -> dict:
+    """`launch.train.main` at full width (`TRAIN_ARCH`, all layers, bf16,
+    remat on, the launcher's batch and seq; ``smoke`` takes the SMOKE
+    config for a CPU rehearsal) for `TRAIN_STEPS` steps: every loss finite
+    and the last below the first; peak memory; then one more step on the
+    same weights timed (CUDA events) and profiled (device time, idle
+    share, events) against `train_bound`."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.train.cnn_trainer import params_of
+
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
+    torch.zeros((), device=device)  # the allocator exists before its reset
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    res = train.main(argv + (["--smoke"] if smoke else []), device=device)
+    main_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    losses = res["losses"]
+    check(len(losses) == TRAIN_STEPS and bool(np.isfinite(losses).all()),
+          f"full-width training: losses {losses}")
+    check(losses[-1] < losses[0], f"full-width training: the loss did not "
+          f"fall ({losses})")
+    cfg = configs.get(TRAIN_ARCH, smoke=smoke)
+    model = lm.init_params(0, cfg, device=device)
+    opt = steps_lib.make_optimizer(cfg)
+    state = [opt.init(params_of(model))]
+    step = steps_lib.make_train_step(cfg, opt)
+    batch = train.synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 0,
+                                  device=device)
+
+    def one():
+        _, state[0], _, loss = step(model, state[0], None, batch)
+        return loss
+
+    out = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+               vocab=cfg.vocab, params=cfg.param_count(), dtype=str(cfg.dtype),
+               remat=cfg.remat, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               losses=losses, step_s=res["step_s"], main_s=main_s,
+               peak_mem_bytes=peak, step_ms=time_ms(one, iters=5),
+               step_profile=profile(one, reps=2),
+               bound=train_bound(cfg, model, TRAIN_BATCH * TRAIN_SEQ))
+    del model, state
+    return out
+
+
+def leaf_groups(named: dict) -> dict:
+    """The port's parameter names grouped by their JAX leaf (layers in
+    order): one stacked tensor at a time, not the whole stacked tree."""
+    import re
+
+    groups = {}
+    for name in named:
+        groups.setdefault(re.sub(r"^layers\.\d+\.", "layers.", name),
+                          []).append(name)
+    return groups
+
+
+#: the CPU's AdamW runs on row chunks of at most this many elements (the
+#: same elementwise arithmetic; whole-tensor temporaries page-fault on
+#: every op and take 5-7x longer)
+ADAMW_CHUNK = 1 << 20
+
+
+def lm_train_card_vs_cpu(device, arch: str, cpu, cfg) -> dict:
+    """The f32 model ``cpu`` (made on the CPU; `LM_CUT_LAYERS` layers at
+    full width) and its copy on the card, TF32 off, on the launcher's
+    synthetic batch at `TRAIN_FAMILIES`' size: the loss within
+    `LM_RTOL` relative, every gradient within relative L2 `GRAD_RTOL` per
+    JAX leaf, the routing ids of every MoE call (forward and recompute)
+    identical; one AdamW step (`make_optimizer`, clipped) from the CPU's
+    gradients on both devices within `TRAIN_STEP_REL` of each tensor's
+    scale (each device's step from its own gradients reported); the int8
+    compression of the same gradients bit-identical. The seconds of each
+    part are reported."""
+    import copy
+
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.optim import compression
+    from repro_torch.optim import optimizers as optim
+
+    b, s = TRAIN_FAMILIES[arch]
+    secs = {}
+    t0 = time.perf_counter()
+    # the parameters straight to the card, with no CPU copy of the model
+    card = copy.deepcopy(cpu, {id(p): torch.nn.Parameter(
+        p.detach().to(device), requires_grad=False)
+        for p in cpu.parameters()})
+    secs["copy"] = time.perf_counter() - t0
+    batch = train.synthetic_batch(cfg, b, s, 0, device="cpu")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        with routes_recorded() as routes:
+            lc, gc = steps_lib.value_and_grad(
+                card, cfg, {k: v.to(device) for k, v in batch.items()})
+            half = len(routes)
+            t1 = time.perf_counter()
+            lp, gp = steps_lib.value_and_grad(cpu, cfg, batch)
+        secs["grad_card"], secs["grad_cpu"] = t1 - t0, time.perf_counter() - t1
+        check(len(routes) == 2 * half, f"{cfg.name}: routing calls differ")
+        gaps = []
+        for (a, _), (bb, scores) in zip(routes[:half], routes[half:]):
+            gaps.append(min_gap(scores, cfg.top_k))
+            check(torch.equal(a, bb), f"{cfg.name} training card vs CPU: "
+                  f"routing ids differ (smallest gap {gaps[-1]})")
+        loss_err = abs(float(lc) - float(lp))
+        check(loss_err <= LM_RTOL * abs(float(lp)),
+              f"{cfg.name}: loss card {float(lc)} vs CPU {float(lp)}")
+        t0 = time.perf_counter()
+        grad_err = {}
+        for leaf, names in leaf_groups(gp).items():  # compared on the card
+            a = torch.stack([gc[n] for n in names]).double()
+            w = torch.stack([gp[n] for n in names]).to(device).double()
+            grad_err[leaf] = float((a - w).norm() / w.norm().clamp_min(1e-30))
+            check(grad_err[leaf] <= GRAD_RTOL, f"{cfg.name}: gradient {leaf} "
+                  f"rel L2 {grad_err[leaf]}")
+        secs["compare"] = time.perf_counter() - t0
+        # clipping as `make_train_step` clips, one tensor at a time (a
+        # clipped copy of every gradient would not fit beside deepseek-v3's);
+        # the CPU's side in row chunks, every comparison on the card
+        t0 = time.perf_counter()
+        opt = steps_lib.make_optimizer(cfg)
+        scale_p, scale_c = (torch.clamp(1.0 / (optim.global_norm(g) + 1e-9),
+                                        max=1.0) for g in (gp, gc))
+        pc = dict(card.named_parameters())
+        step_err, own_err = 0.0, 0.0
+        for k, p in cpu.named_parameters():
+            def update(g, q):
+                q = q.detach()
+                return opt.update({k: g}, opt.init({k: q}), {k: q})[0][k]
+
+            # a weight as (rows, last dim): chunks keep its rank class
+            # (ndim >= 2), on which the decay set depends
+            flat = (lambda x: x.reshape(-1, x.shape[-1])) if p.ndim > 1 \
+                else (lambda x: x)
+            rows = max(1, ADAMW_CHUNK // p.shape[-1]) if p.ndim > 1 \
+                else ADAMW_CHUNK
+            want = torch.empty_like(pc[k])
+            for i, (g, q) in enumerate(zip(flat(gp[k]).split(rows),
+                                           flat(p.detach()).split(rows))):
+                flat(want)[i * rows:i * rows + len(g)] = update(
+                    g * scale_p, q).to(device)
+            scale = float(want.abs().max()) or 1.0
+            got = update(gp[k].to(device) * scale_p.to(device), pc[k])
+            step_err = max(step_err, float((got - want).abs().max()) / scale)
+            own_err = max(own_err, float(
+                (update(gc[k] * scale_c, pc[k]) - want).abs().max()) / scale)
+        check(step_err <= TRAIN_STEP_REL, f"{cfg.name}: AdamW step card vs "
+              f"CPU {step_err} of the scale")
+        secs["adamw"] = time.perf_counter() - t0
+        del gc
+        # one scale per JAX leaf, the layers' tensors stacked as
+        # `make_train_step` stacks them (one leaf at a time), each leaf's
+        # CPU result compared on the card
+        t0 = time.perf_counter()
+        for names in leaf_groups(gp).values():
+            x = convert.lm_stack({n: gp[n] for n in names})
+            dp, ep = compression.compress_decompress(
+                x, compression.init_error_state(x))
+            y = {k: v.to(device) for k, v in x.items()}
+            dc, ec = compression.compress_decompress(
+                y, compression.init_error_state(y))
+            for k in x:
+                check(torch.equal(dc[k], dp[k].to(device))
+                      and torch.equal(ec[k], ep[k].to(device)),
+                      f"{cfg.name}: compression of {k} differs")
+            del x, y, dp, ep, dc, ec
+        secs["compression"] = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return dict(arch=cfg.name, layers=cfg.n_layers, n_experts=cfg.n_experts,
+                dtype="float32", batch=[b, s], loss_card=float(lc),
+                loss_cpu=float(lp), loss_err=loss_err,
+                grad_rel_l2_max=max(grad_err.values()),
+                grad_rel_l2_worst=max(grad_err, key=grad_err.get),
+                routing_calls=len(gaps),
+                routing_min_gap=min(gaps) if gaps else None,
+                adamw_step_rel=step_err, adamw_own_grads_rel=own_err,
+                compression="bit-identical", leaves=len(grad_err),
+                params=sum(p.numel() for p in cpu.parameters()), secs=secs)
+
+
+def lm_train_resume(device, tmp: Path) -> dict:
+    """SMOKE `TRAIN_ARCH` through `launch.train.main` on the card: two
+    uninterrupted runs from one seed, their losses and their final
+    checkpoints (parameters, ``mu``, ``nu``, ``step``) bitwise equal
+    under the deterministic mode; a run checkpointed every few steps and
+    resumed: the resumed steps' losses equal the uninterrupted run's, bit
+    for bit; a run with ``--compress``: its first loss (taken before any
+    update) equal to the uncompressed run's, every loss finite."""
+    import torch
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.convert import flatten_tree
+    from repro_torch.launch import train
+
+    steps, every, total = TRAIN_RESUME
+    base = ["--arch", TRAIN_ARCH, "--smoke"]
+    runs = []
+    for i in range(2):
+        d = str(tmp / f"run{i}")
+        runs.append((train.main([*base, "--steps", str(total), "--ckpt-dir",
+                                 d], device=device)["losses"],
+                     Checkpointer(d).restore_dict(total - 1)))
+    (full, ck0), (again, ck1) = runs
+    check(full == again, f"two seeded runs differ: {full} vs {again}")
+    leaves = 0
+    other = flatten_tree(ck1)
+    for k, v in flatten_tree(ck0).items():
+        w = other[k]
+        same = (torch.equal(v, w) if isinstance(v, torch.Tensor)
+                else np.array_equal(v, w))
+        check(same, f"two seeded runs: checkpoint leaf {k} differs")
+        leaves += 1
+    d = str(tmp / "resume")
+    first = train.main([*base, "--steps", str(steps), "--ckpt-every",
+                        str(every), "--ckpt-dir", d], device=device)["losses"]
+    check(first == full[:steps], "the checkpointed run's losses differ")
+    resumed = train.main([*base, "--steps", str(total), "--ckpt-dir", d,
+                          "--resume"], device=device)["losses"]
+    check(resumed == full[steps:], f"resumed losses {resumed} != "
+          f"uninterrupted {full[steps:]}")
+    compressed = train.main([*base, "--steps", str(every), "--compress"],
+                            device=device)["losses"]
+    check(compressed[0] == full[0]
+          and bool(np.isfinite(compressed).all()),
+          f"compressed run's losses {compressed} (uncompressed {full[0]})")
+    return dict(losses=full, resumed_losses=resumed,
+                compressed_losses=compressed,
+                checkpoint_leaves_equal=leaves, steps=steps,
+                ckpt_every=every, resumed_to=total)
+
+
+def hubert_example(device, *, full_width: bool) -> tuple[dict, dict]:
+    """`examples.acam_head_for_hubert.main` on the card, SMOKE (the JAX
+    example's size) or at full width (`HUBERT_FULL_STEPS` training steps):
+    every loss finite, B1 launched once for the one head call (the counts
+    zeroed just before), and its pred / per_class bit-identical to the
+    plain reference engine's on the same features. Returns (the driven
+    path, the numbers)."""
+    import torch
+
+    from repro_torch import match
+    from repro_torch.examples import acam_head_for_hubert as ex
+
+    argv = (["--full-width", "--steps", str(HUBERT_FULL_STEPS)]
+            if full_width else [])
+    name = "hubert_full_width" if full_width else "hubert_smoke"
+    r, counts, wall = drive(name, lambda: ex.main(argv, device=device),
+                            ["acam_match_classify"])
+    check(counts["acam_match_classify"] == 1,
+          f"{name}: B1 launched {counts['acam_match_classify']} times for "
+          "one head call")
+    check(bool(np.isfinite(r["losses"]).all()), f"{name}: losses finite")
+    pred, per_class = match.engine_for(backend="reference").classify_features(
+        r["features"], r["head"].bank)
+    check(torch.equal(r["pred"], pred)
+          and torch.equal(r["per_class"], per_class),
+          f"{name}: B1's answers differ from the plain path's")
+    nums = {k: r[k] for k in ("arch", "layers", "d_model", "vocab",
+                              "n_classes", "final_loss", "acc_dense",
+                              "acc_acam", "nj_per_frame")}
+    nums.update(steps=len(r["losses"]), frames=int(r["labels"].numel()),
+                features=int(r["features"].shape[1]), wall_s=wall)
+    # B1 at this launch site's shape, timed as phase 1 times it: the head
+    # call, the plain reference engine and the bipolar product (partial)
+    head, feats, bank = r["head"], r["features"], r["head"].bank
+    c, k, n = bank.templates.shape
+    q_pm = (feats > bank.thresholds).float() * 2 - 1
+    t_pm = bank.templates.reshape(c * k, n) * 2 - 1
+    ms, by, _ = bound("acam_match_classify", feats.shape[0], c, k, n, 8)
+    nums["b1"] = dict(
+        shape=[feats.shape[0], c, k, n], ms=time_ms(lambda: head(feats)),
+        plain_ms=time_ms(lambda: match.engine_for(
+            backend="reference").classify_features(feats, bank)),
+        library_ms=time_ms(lambda: torch.matmul(q_pm, t_pm.T)),
+        profile=profile(lambda: head(feats), reps=20), bound_ms=ms,
+        bound_by=by)
+    return dict(launches=counts, wall_s=wall), nums
+
+
+def lm_train_phase(device, out_dir: Path, *, smoke: bool = False,
+                   cut_cfgs=None) -> tuple[dict, dict]:
+    """Phase 7: full-width training (`lm_train_full_width`), card against
+    CPU for every family (`lm_train_card_vs_cpu`, each freed before the
+    next; ``cut_cfgs`` a CPU rehearsal's configs), the SMOKE resume and
+    repeatability (`lm_train_resume`), and the HuBERT example at SMOKE and
+    full width (`hubert_example`). Returns (the driven paths, the numbers).
+    """
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    out = {"card_vs_cpu": {}}
+    t0 = time.perf_counter()
+    out["full_width"] = lm_train_full_width(device, smoke=smoke)
+    out["full_width"]["wall_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in TRAIN_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = cut_cfgs[arch] if cut_cfgs else dataclasses.replace(
+            configs.get(arch), n_layers=LM_CUT_LAYERS, dtype=torch.float32,
+            **LM_CPU_CUTS.get(arch, {}))
+        cpu = lm.init_params(0, cfg, device="cpu")
+        init_s = time.perf_counter() - t0
+        res = lm_train_card_vs_cpu(device, arch, cpu, cfg)
+        res.update(wall_s=time.perf_counter() - t0, init_s=init_s)
+        out["card_vs_cpu"][arch] = res
+        del cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["resume"] = lm_train_resume(device, out_dir)
+    out["resume"]["wall_s"] = time.perf_counter() - t0
+    driven = {}
+    for full in (False, True):
+        path, nums = hubert_example(device, full_width=full and not smoke)
+        key = "hubert_full_width" if full else "hubert_smoke"
+        driven[key], out[key] = path, nums
+        gc.collect()
+        torch.cuda.empty_cache()
+    return driven, out
+
+
+def print_lm_train(t: dict, card: str) -> None:
+    fw = t["full_width"]
+    p, b = fw["step_profile"], fw["bound"]
+    print(f"lm_train {fw['arch']} ({fw['layers']} layers, d {fw['d_model']}, "
+          f"vocab {fw['vocab']}, {fw['params']} params, {fw['dtype']}, remat "
+          f"{fw['remat']}, batch {fw['batch']} x seq {fw['seq']}; {card}): "
+          f"losses {json.dumps(fw['losses'])}; step wall s "
+          f"{json.dumps(fw['step_s'])}; main {fw['main_s']:.3f} s; peak "
+          f"memory {fw['peak_mem_bytes'] / 2**30:.3f} GiB")
+    print(f"lm_train step: {fw['step_ms']:.3f} ms a call (CUDA events), "
+          f"profiled wall {p['wall_ms']} ms, device {p['device_ms']} ms, idle "
+          f"share {p['idle_share']}, {p['device_events']} device events "
+          f"({launch_us(p)} us of wall each); bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}: {b['bytes']} bytes = {b['bytes_ms']:.4f} ms, "
+          f"{b['flops']} FLOP = {b['flops_ms']:.4f} ms; each input and "
+          f"output once {b['bytes_once']} bytes = {b['bytes_once_ms']:.4f} "
+          f"ms)")
+    print(f"lm_train step profile: {json.dumps(p)}")
+    for arch, r in t["card_vs_cpu"].items():
+        print(f"lm_train card vs CPU {r['arch']} ({r['layers']} layers, "
+              f"{r['n_experts']} experts, f32, TF32 off, batch "
+              f"{r['batch'][0]} x {r['batch'][1]}, init {r['init_s']:.1f} s, "
+              f"{r['wall_s']:.1f} s): loss {r['loss_card']} vs "
+              f"{r['loss_cpu']} (|diff| {r['loss_err']}); worst gradient "
+              f"rel L2 {r['grad_rel_l2_max']:.3e} ({r['grad_rel_l2_worst']}; "
+              f"{r['leaves']} leaves); routing ids equal in "
+              f"{r['routing_calls']} calls (smallest gap "
+              f"{r['routing_min_gap']}); AdamW from the CPU's gradients "
+              f"{r['adamw_step_rel']:.3e} of the scale (from each device's "
+              f"own: {r['adamw_own_grads_rel']:.3e}); compression "
+              f"{r['compression']}; {r['params']} parameters, seconds "
+              f"{json.dumps({k: round(v, 2) for k, v in r['secs'].items()})}")
+    r = t["resume"]
+    print(f"lm_train resume (SMOKE {TRAIN_ARCH}): {r['steps']} steps, "
+          f"checkpoint every {r['ckpt_every']}, resumed to {r['resumed_to']}: "
+          f"losses {json.dumps(r['resumed_losses'])} == the uninterrupted "
+          f"run's; two seeded runs equal in {r['checkpoint_leaves_equal']} "
+          f"checkpoint leaves; --compress losses "
+          f"{json.dumps(r['compressed_losses'])}")
+    for key in ("hubert_smoke", "hubert_full_width"):
+        h = t[key]
+        print(f"lm_train {key} ({h['arch']}: {h['layers']} layers, d "
+              f"{h['d_model']}, vocab {h['vocab']}; {card}): {h['steps']} "
+              f"steps, final loss {h['final_loss']:.4f}; {h['frames']} "
+              f"frames x {h['features']} features, {h['n_classes']} classes: "
+              f"dense {h['acc_dense']:.4f}, ACAM {h['acc_acam']:.4f}, "
+              f"{h['nj_per_frame']:.4f} nJ/frame; {h['wall_s']:.1f} s")
+        b1 = h["b1"]
+        print(f"lm_train {key} B1 {b1['shape']}: call {b1['ms']:.4f} ms, "
+              f"device {b1['profile']['device_ms']} ms, plain (reference "
+              f"engine) {b1['plain_ms']:.4f} ms, bipolar matmul (partial) "
+              f"{b1['library_ms']:.4f} ms, bound {b1['bound_ms']:.6f} ms "
+              f"({b1['bound_by']})")
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -4129,6 +4622,12 @@ def main(argv: list[str]) -> int:
     t0 = time.perf_counter()
     driven, lm_out = lm_phase(device)
     lm_out["wall_s"] = time.perf_counter() - t0
+    report.update(driven)
+    train_dir = Path(scratch.name) / "lm_train"
+    train_dir.mkdir()
+    t0 = time.perf_counter()
+    driven, lm_train = lm_train_phase(device, train_dir)
+    lm_train["wall_s"] = time.perf_counter() - t0
     report.update(driven)
     launches = {}
     for path in report.values():
@@ -4213,8 +4712,10 @@ def main(argv: list[str]) -> int:
     print_paper_eval(paper)
     print_control_plane(control, smi)
     print_lm(lm_out, smi)
+    print_lm_train(lm_train, smi)
     print(f"phase walls: paper_eval {paper['wall_s']:.1f} s, control_plane "
-          f"{control['wall_s']:.1f} s, lm {lm_out['wall_s']:.1f} s")
+          f"{control['wall_s']:.1f} s, lm {lm_out['wall_s']:.1f} s, lm_train "
+          f"{lm_train['wall_s']:.1f} s")
     check(set(kernels) == set(KERNELS), "every ported kernel measured")
 
     line = {"kernels": [
@@ -4237,7 +4738,7 @@ def main(argv: list[str]) -> int:
                  kernels=line["kernels"], kernel_phases=kernels,
                  profile_retries=PROFILE_RETRIES,
                  paths=report, training=training, paper_eval=paper,
-                 control_plane=control, lm=lm_out),
+                 control_plane=control, lm=lm_out, lm_train=lm_train),
             indent=1, default=str))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

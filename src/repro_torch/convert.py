@@ -7,7 +7,10 @@ named like the port's modules: a conv or dense ``{"w", "b"}`` (HWIO / (in,
 out)) is a ``Conv2d`` / ``Linear`` (OIHW / (out, in)); a BatchNorm
 ``{"scale", "bias", "mean", "var"}`` is a ``BatchNorm2d``'s weight, bias
 and running statistics. The LM keeps the JAX names and layouts
-(`repro_torch.models.lm`), its layers stacked on axis 0 in the JAX tree.
+(`repro_torch.models.lm`), its layers stacked on axis 0 in the JAX tree;
+`lm_tree` / `lm_untree` carry its parameters and AdamW moments both ways
+(tensor leaves), so a checkpoint in the JAX on-disk format means the same
+thing to both packages' launchers.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models.cnn import (Student, StudentConfig, Teacher,
                                     TeacherConfig)
+from repro_torch.optim import optimizers as optim
 
 # JAX leaf name -> the port's, for dense/conv and BatchNorm dicts
 _DENSE = {"w": "weight", "b": "bias"}
@@ -226,3 +230,110 @@ def lm_params_from_numpy(params: dict, cfg: lm.ArchConfig, *,
     embed = tensor(params["embed"]) if "embed" in params else None
     return lm.LM(embed, linear(params["unembed"]),
                  norm(params["final_norm"]), layers).eval()
+
+
+# ---------------------------------------------------------------------------
+# the LM's parameters (and AdamW moments) as the JAX pytree
+# ---------------------------------------------------------------------------
+
+def lm_stack(named: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Tensors keyed by the port's parameter names (``layers.3.attn.q.w``)
+    -> the JAX leaves keyed by their paths joined with dots
+    (``layers.attn.q.w``): each per-layer leaf stacked over the layers on
+    axis 0, as the JAX package stacks its layer tree."""
+    out, per_layer = {}, {}
+    for name, x in named.items():
+        head, _, rest = name.partition(".")
+        if head == "layers":
+            i, _, leaf = rest.partition(".")
+            per_layer.setdefault(f"layers.{leaf}", {})[int(i)] = x
+        else:
+            out[name] = x
+    for path, by_layer in per_layer.items():
+        if sorted(by_layer) != list(range(len(by_layer))):
+            raise ValueError(f"{path}: layers {sorted(by_layer)}")
+        out[path] = torch.stack([by_layer[i] for i in range(len(by_layer))])
+    return out
+
+
+def lm_unstack(stacked: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The inverse of `lm_stack`: each stacked leaf split back into its
+    layers' tensors under the port's parameter names."""
+    out = {}
+    for path, x in stacked.items():
+        head, _, leaf = path.partition(".")
+        if head == "layers":
+            for i in range(x.shape[0]):
+                out[f"layers.{i}.{leaf}"] = x[i]
+        else:
+            out[path] = x
+    return out
+
+
+def nest(flat: dict) -> dict:
+    """Dotted paths -> the nested dicts of a JAX pytree."""
+    tree: dict = {}
+    for path, x in flat.items():
+        *parents, leaf = path.split(".")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = x
+    return tree
+
+
+def flatten_tree(tree: dict, prefix: str = "") -> dict:
+    """The inverse of `nest`: nested dicts -> dotted paths."""
+    flat = {}
+    for key, sub in tree.items():
+        if isinstance(sub, dict):
+            flat.update(flatten_tree(sub, f"{prefix}{key}."))
+        else:
+            flat[f"{prefix}{key}"] = sub
+    return flat
+
+
+def lm_tree(named: dict[str, torch.Tensor]) -> dict:
+    """Tensors keyed by the port's parameter names (the model's, or an
+    AdamW moment's) -> the JAX pytree of tensors, layers stacked on axis
+    0: what the JAX launcher checkpoints."""
+    return nest(lm_stack(named))
+
+
+def lm_untree(tree: dict) -> dict[str, torch.Tensor]:
+    """The inverse of `lm_tree`: a JAX LM pytree (tensor leaves) -> tensors
+    keyed by the port's parameter names."""
+    return lm_unstack(flatten_tree(tree))
+
+
+def _numpy(x: torch.Tensor) -> np.ndarray:
+    """A tensor -> numpy in its own dtype; bfloat16 as ``ml_dtypes``'
+    bfloat16 (numpy has none of its own)."""
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return x.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return x.numpy()
+
+
+def lm_params_to_numpy(params: lm.LM, cfg: lm.ArchConfig) -> dict:
+    """The inverse of `lm_params_from_numpy`: the port's `lm.LM` -> the
+    JAX pytree with numpy leaves, every leaf in its own dtype and the
+    layers stacked on axis 0."""
+    lm.check_supported(cfg)
+    stacked = lm_stack({k: p.detach() for k, p in params.named_parameters()})
+    return nest({k: _numpy(x) for k, x in stacked.items()})
+
+
+def lm_opt_state_tree(state: optim.OptState) -> optim.OptState:
+    """An AdamW (or SGD) state over the port's parameter names -> the JAX
+    one: ``mu`` / ``nu`` as `lm_tree`s, ``step`` as it is."""
+    return optim.OptState(state.step, lm_tree(state.mu),
+                          None if state.nu is None else lm_tree(state.nu))
+
+
+def lm_opt_state_untree(state: optim.OptState) -> optim.OptState:
+    """The inverse of `lm_opt_state_tree`."""
+    return optim.OptState(state.step, lm_untree(state.mu),
+                          None if state.nu is None else lm_untree(state.nu))

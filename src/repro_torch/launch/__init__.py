@@ -1,1 +1,3 @@
-"""Launchers of the port (`python -m repro_torch.launch.serve`)."""
+"""Launchers of the port (`python -m repro_torch.launch.serve`,
+`python -m repro_torch.launch.train`) and the LM's training step
+(`steps`)."""

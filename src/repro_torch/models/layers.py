@@ -416,13 +416,17 @@ def moe(p: MoE, x: torch.Tensor, *, top_k: int, router_type: str = "softmax",
 
     token_of_slot = sort_idx // top_k
     out = torch.zeros((t * top_k, d), dtype=x.dtype, device=x.device)
+    # views of the experts: under grad one backward for the whole stack (a
+    # `stack` of the experts' gradients), where each `gate[ex]` would add a
+    # zero-filled copy of the stack
+    gate, up, down = p.gate.unbind(0), p.up.unbind(0), p.down.unbind(0)
     start = 0
     for ex, n in enumerate(counts.tolist()):
         kept = min(n, cap)
         if kept:
             rows = xf[token_of_slot[start:start + kept]]
-            h = silu(rows @ p.gate[ex]) * (rows @ p.up[ex])
-            out[start:start + kept] = h @ p.down[ex]
+            h = silu(rows @ gate[ex]) * (rows @ up[ex])
+            out[start:start + kept] = h @ down[ex]
         start += n
     flat_w = w.reshape(-1)[sort_idx].to(x.dtype)
     contrib = torch.where(keep[:, None], out * flat_w[:, None], 0)

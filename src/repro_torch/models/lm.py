@@ -1,5 +1,5 @@
-"""The LM zoo, in PyTorch (inference): all ten of the JAX package's
-architectures.
+"""The LM zoo, in PyTorch: all ten of the JAX package's architectures,
+served and trained.
 
 One config dataclass and one model covering dense GQA transformers (llama /
 qwen, optional QKV bias and qk-norm), MoE (phi3.5 softmax top-2; deepseek-v3
@@ -18,6 +18,7 @@ pytree (layers stacked on axis 0) maps onto it name by name
 Entry points (the JAX package's names):
     init_params(key, cfg, device=None)        -> LM
     forward(params, cfg, tokens/embeds)       -> (logits, aux)
+    loss_fn(params, cfg, batch)               -> scalar loss
     prefill(params, cfg, inputs, max_len=...) -> (last logits, Cache)
     decode_step(params, cfg, tokens, cache)   -> (logits (B, 1, V), Cache)
 
@@ -28,6 +29,16 @@ place and returns the cache with ``length + 1``. MLA prefills with the
 expanded attention and decodes with the weight-absorbed one over the
 compressed cache, as the JAX package does (the two differ by rounding).
 Every f32 product runs in true f32 on the card (`layers.true_f32`).
+
+`forward` and `loss_fn` are differentiable: with grad mode on and the
+parameters requiring grad (`init_params` returns them frozen, for
+serving; the trainer, `repro_torch.launch.steps`, turns every leaf on, as
+JAX differentiates every leaf of its tree), ``cfg.remat`` recomputes each
+layer in the backward (`torch.utils.checkpoint`, the JAX package's
+``jax.checkpoint`` around its layer scan). Recomputation runs outside
+`forward`'s own `true_f32`, so a caller on the card takes the backward
+under `layers.true_f32` too. `prefill` and `decode_step` never build a
+graph.
 """
 from __future__ import annotations
 
@@ -36,6 +47,7 @@ from typing import Any, NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 from repro_torch.models import layers as L
@@ -433,6 +445,12 @@ def _layer_full(p: Layer, cfg: ArchConfig, h, positions, tables):
     return h, aux, new
 
 
+def _layer_train(p: Layer, cfg: ArchConfig, h, positions, tables):
+    """One layer for `forward` -> (h, aux or None)."""
+    h, aux, _ = _layer_full(p, cfg, h, positions, tables)
+    return h, aux
+
+
 def _embed_in(params: LM, cfg: ArchConfig, inputs) -> torch.Tensor:
     if cfg.input_mode == "tokens":
         idx = torch.as_tensor(inputs, device=params.embed.device)
@@ -450,26 +468,66 @@ def _default_positions(cfg: ArchConfig, b: int, s: int, offset: int = 0,
     return pos
 
 
-@torch.no_grad()
 @L.true_f32()
 def forward(params: LM, cfg: ArchConfig, inputs, positions=None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. inputs: tokens (B, S) or embeds (B, S, d).
     Returns (logits (B, S, V), aux_loss): the MoE layers' load-balance
-    losses summed over the layers, 0 without MoE."""
+    losses summed over the layers, 0 without MoE. Under grad mode each
+    layer is recomputed in the backward when ``cfg.remat`` is set; the
+    numbers are the same either way."""
     check_supported(cfg)
     h = _embed_in(params, cfg, inputs)
     b, s = h.shape[:2]
     if positions is None:
         positions = _default_positions(cfg, b, s, device=h.device)
+    else:
+        positions = torch.as_tensor(positions, device=h.device)
     tables = _rope_tables(cfg, positions)
+    remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for layer in params.layers:
-        h, a, _ = _layer_full(layer, cfg, h, positions, tables)
+        if remat:
+            h, a = checkpoint(_layer_train, layer, cfg, h, positions, tables,
+                              use_reentrant=False)
+        else:
+            h, a = _layer_train(layer, cfg, h, positions, tables)
         if a is not None:
             aux = aux + a
     logits = L.linear(params.unembed, L.rmsnorm(params.final_norm, h))
     return logits, aux
+
+
+def sharded_ce(logits: torch.Tensor, labels) -> torch.Tensor:
+    """Per-position cross entropy (B, S) in f32: the log-sum-exp of the
+    logits minus the true logit, the max held out of the gradient as in
+    the JAX package. The JAX one-hot contraction (there to keep a
+    vocabulary-sharded tensor sharded) is a gather here, the same sum: a
+    label outside [0, V) has a zero one-hot row, so it picks 0 and its CE
+    is the log-sum-exp (`loss_fn` masks labels < 0)."""
+    logits = logits.to(torch.float32)
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    shifted = logits - m
+    lse = torch.log(torch.exp(shifted).sum(dim=-1))
+    v = logits.shape[-1]
+    labels = torch.as_tensor(labels, device=logits.device).long()
+    true = torch.gather(shifted, -1, labels.clamp(0, v - 1)[..., None])
+    return lse - torch.where((labels >= 0) & (labels < v), true[..., 0], 0)
+
+
+def loss_fn(params: LM, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """Causal-LM CE (decoder) or frame-classification CE (encoder) over
+    the labels >= 0, plus the MoE load-balance loss. ``batch`` holds
+    ``inputs``, ``labels`` and, for M-RoPE, ``positions`` (tensors or
+    numpy)."""
+    logits, aux = forward(params, cfg, batch["inputs"],
+                          batch.get("positions"))
+    labels = torch.as_tensor(batch["labels"], device=logits.device)
+    if cfg.causal:
+        logits, labels = logits[:, :-1], labels[:, 1:]
+    nll = sharded_ce(logits, labels)
+    mask = labels >= 0
+    return (nll * mask).sum() / mask.sum().clamp_min(1) + aux
 
 
 # ---------------------------------------------------------------------------

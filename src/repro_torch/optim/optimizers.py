@@ -6,7 +6,10 @@ name; `update` returns new dicts and leaves its inputs alone, as the JAX
 version does. Two details differ from `torch.optim.AdamW` and are kept
 here: the weight decay is added to the Adam direction (``u = m_hat /
 (sqrt(v_hat) + eps) + wd * p``, then ``p - lr * u``), and it applies only to
-tensors with ``ndim >= 2`` (weights, not biases or norms).
+tensors with ``ndim >= 2`` (weights, not biases or norms). That rule reads
+the JAX leaf's rank: a model whose JAX tree stacks tensors that the port
+keeps apart (the LM's layers) passes `adamw` its own ``decay`` predicate
+(`repro_torch.launch.steps.decays`).
 """
 from __future__ import annotations
 
@@ -43,9 +46,17 @@ def _lr(lr, step: torch.Tensor):
     return lr(step) if callable(lr) else lr
 
 
+def _matrix(name: str, p: torch.Tensor) -> bool:
+    return p.ndim >= 2
+
+
 def adamw(lr: float | Callable[[torch.Tensor], torch.Tensor], *,
           b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-          weight_decay: float = 0.0) -> Optimizer:
+          weight_decay: float = 0.0,
+          decay: Callable[[str, torch.Tensor], bool] = _matrix) -> Optimizer:
+    """AdamW; ``decay(name, param)`` picks the tensors that take the weight
+    decay (default: ``ndim >= 2``)."""
+
     def init(params):
         return OptState(_step0(params), _zeros_like_f32(params),
                         _zeros_like_f32(params))
@@ -63,13 +74,14 @@ def adamw(lr: float | Callable[[torch.Tensor], torch.Tensor], *,
         bc2 = 1 - torch.tensor(b2, dtype=torch.float32,
                                device=stepf.device) ** stepf
 
-        def upd(p, m, v):
+        def upd(k, p, m, v):
             u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-            if weight_decay and p.ndim >= 2:  # decay weights, not bias/norm
+            if weight_decay and decay(k, p):  # weights, not bias/norm
                 u = u + weight_decay * p.float()
             return (p.float() - lr_t * u).to(p.dtype)
 
-        new = {k: upd(p.detach(), mu[k], nu[k]) for k, p in params.items()}
+        new = {k: upd(k, p.detach(), mu[k], nu[k])
+               for k, p in params.items()}
         return new, OptState(step, mu, nu)
 
     return Optimizer(init, update)
@@ -126,6 +138,10 @@ def global_norm(tree: Params) -> torch.Tensor:
 
 def clip_by_global_norm(grads: Params, max_norm: float
                         ) -> tuple[Params, torch.Tensor]:
+    """``g * min(1, max_norm / (norm + 1e-9))`` for every gradient, in
+    JAX's type promotion: a bf16 gradient times the f32 scale is an f32
+    product, not one rounded back to bf16."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return {k: g * scale for k, g in grads.items()}, norm
+    return {k: g.to(torch.promote_types(g.dtype, scale.dtype)) * scale
+            for k, g in grads.items()}, norm

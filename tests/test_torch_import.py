@@ -54,6 +54,10 @@ slice7 = {"repro_torch.models.lm", "repro_torch.serve.engine",
               "phi3_5_moe", "deepseek_v3", "qwen2_vl_72b", "hymba_1_5b",
               "hubert_xlarge", "mamba2_2_7b"))}
 assert slice7 <= set(names), sorted(slice7 - set(names))
+slice9 = {"repro_torch.launch.steps", "repro_torch.launch.train",
+          "repro_torch.optim.compression",
+          "repro_torch.examples.acam_head_for_hubert"}
+assert slice9 <= set(names), sorted(slice9 - set(names))
 import chip_smoke
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
@@ -67,7 +71,7 @@ def test_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", BLOCKED_IMPORT], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 97  # every module of the seven slices
+    assert int(out.stdout.strip()) >= 101  # every module of the nine slices
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -255,3 +259,25 @@ def test_lm_entry_points_need_the_card_or_an_explicit_cpu():
             serve.main(["--workload", workload, "--requests", "1"])
     eng = Engine(cfg, lm.init_params(0, cfg, device="cpu"))
     assert eng.device == torch.device("cpu")
+
+
+def test_lm_training_entry_points_need_the_card_or_an_explicit_cpu():
+    """The training launcher, its synthetic batches and the HuBERT example
+    resolve ``device=None`` to the card, and raise without one."""
+    from repro_torch import configs
+    from repro_torch.examples import acam_head_for_hubert
+    from repro_torch.launch import train
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    cfg = configs.get("tinyllama-1.1b", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.synthetic_batch(cfg, 1, 4, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        acam_head_for_hubert.main(["--steps", "1"])
+    assert train.synthetic_batch(cfg, 1, 4, 0, device="cpu")[
+        "inputs"].device.type == "cpu"
+    assert train.main(["--smoke", "--steps", "1", "--batch", "1", "--seq",
+                       "4"], device="cpu")["losses"][0] > 0
