@@ -221,6 +221,29 @@ JAX:
               head's one call, its answers bit-identical to the plain
               reference engine's; dense and ACAM accuracy and nJ per frame
               printed.
+ 9. sharded  the bank-sharded ACAM service (after `control_plane`) on
+              forced meshes of the one card (`forcemesh.install(shape,
+              device="cuda:0")`: every mesh virtual, its shards launched in
+              turn): `torch.argmax`'s NaN and tie order on the card; the
+              engine's four entry points at B 256, C 512, K 2, N 784 under
+              1x2, 1x4, 2x2 and 1x8 and both merges (all-gather, tree),
+              bit-identical to the replicated call and to the CPU's
+              sharded call, D*M B1 launches a call and two B3 on a 2x1
+              serve tick; the 2,304-class K 2 bank at 1x2 (B2 a shard) and
+              similarity at 1x4 (B5 a shard), against replicated and CPU;
+              the serve call timed against the replicated one (call and
+              device time, idle share) and its cross-shard merge alone;
+              the control-plane service at 2 shards (1x2) and 4 (2x2)
+              answering as the replicated service and the CPU, one engine
+              call a tick; `reconfigure` 1 -> 2, `rolling_reshard` 2 -> 4
+              against the drained path (flip against drained downtime),
+              `handle_device_loss([3])` and `restore_devices`, a 2-shard
+              snapshot restored at 4 on the card and the CPU, the autopilot
+              escalating over the JAX autopilot bench's trace (every
+              request answered once), the launcher with ``--bank-shards
+              2`` under ``REPRO_FORCE_MESH=1x2`` against the CPU; the
+              serving bench's bank-scaling, reshard and autopilot rows and
+              the kernel bench's sharded rows (B 1, 256).
  8. report    the card's name and power limit, metrics and the energy
               split, the training step's time, device time and idle share,
               the paper's tables and the tuning winners, the control
@@ -3465,6 +3488,493 @@ def print_control_plane(cp: dict, card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 9. the sharded super-bank (forced meshes on the one card)
+# ---------------------------------------------------------------------------
+
+SH_MESHES = ((1, 2), (1, 4), (2, 2), (1, 8))
+SH_STRATEGIES = ("allgather", "tree")
+SH_B, SH_C, SH_K = 256, 512, 2
+SH_BIG_C = 2304  # K 2: 1,152 rows a shard at 1x2, past MAX_FUSED_ROWS
+SH_ITERS = 20
+#: the autopilot bench's trace (JAX `autopilot_bench`): 6 tenants x 64
+#: classes at 16 slots, 160 requests
+SH_PILOT = dict(tenants=6, classes=64, requests=160, burst=48, calm=8,
+                phase_ticks=2, churn_every=3)
+
+
+@contextlib.contextmanager
+def forced(shape, device, strategy: str | None = None,
+           env: str | None = None):
+    """A forced (data, model) mesh of ``device`` repeated, installed for
+    the block (``strategy``: `REPRO_REDUCE_STRATEGY`; ``env``: also
+    `REPRO_FORCE_MESH`, for code that reads the request from there), then
+    cleared."""
+    from repro_torch.distributed import context, forcemesh
+
+    saved = {k: os.environ.get(k) for k in ("REPRO_REDUCE_STRATEGY",
+                                            "REPRO_FORCE_MESH")}
+    if strategy:
+        os.environ["REPRO_REDUCE_STRATEGY"] = strategy
+    if env:
+        os.environ["REPRO_FORCE_MESH"] = env
+    try:
+        yield forcemesh.install(shape, device=device) if shape else None
+    finally:
+        context.clear()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def sh_problem(device, c: int = SH_C, k: int = SH_K, b: int = SH_B,
+               method: str = "feature_count"):
+    """One engine call's operands on ``device``: a (C, K, 784) bank (binary
+    templates; dyadic windows for the similarity method), features,
+    windows edging and straddling the 1x2 / 1x4 / 1x8 shard edges and an
+    empty one, tenant slots and thresholds, taus."""
+    import torch
+
+    from repro_torch.core.templates import TemplateBank
+
+    rng = np.random.default_rng(c + b)
+    tm = (rng.random((c, k, N)) > 0.5).astype(np.float32)
+    lower = (rng.integers(-8, 1, (c, k, N)) / 4).astype(np.float32)
+    upper = lower + (rng.integers(0, 9, (c, k, N)) / 4).astype(np.float32)
+    valid = rng.random((c, k)) < 0.9
+    feats = rng.standard_normal((b, N)).astype(np.float32)
+    if method == "similarity":
+        feats = (rng.integers(-8, 9, (b, N)) / 4).astype(np.float32)
+    lo = rng.integers(0, c - 8, b)
+    hi = np.minimum(lo + rng.integers(1, 96, b), c)
+    lo[:6] = (c // 2 - 8, c // 2, c // 4 - 3, 0, c // 8 - 1, 7)
+    hi[:6] = (c // 2, c // 2 + 40, 3 * c // 4 + 3, c, c // 8 + 1, 7)
+
+    def t(x):
+        return torch.as_tensor(x, device=device)
+
+    return dict(bank=TemplateBank(t(tm), t(lower), t(upper), t(valid),
+                                  torch.zeros(N, device=device)),
+                feats=t(feats), queries=t((feats > 0).astype(np.float32)),
+                lo=t(lo.astype(np.int32)), hi=t(hi.astype(np.int32)),
+                thr=t((rng.standard_normal((8, N)) * 0.1).astype(
+                    np.float32)),
+                slot=t(rng.integers(0, 8, b).astype(np.int32)),
+                tau=t(rng.uniform(0, 12, b).astype(np.float32)))
+
+
+def sh_calls(eng, x) -> dict:
+    """The engine's four entry points on one problem."""
+    return {
+        "classify": eng.classify(x["queries"], x["bank"]),
+        "classify_features": eng.classify_features(x["feats"], x["bank"]),
+        "classify_features_margin": eng.classify_features_margin(
+            x["feats"], x["bank"], x["lo"], x["hi"]),
+        "classify_serve": eng.classify_serve(
+            x["feats"], x["thr"], x["slot"], x["bank"], x["lo"], x["hi"],
+            x["tau"]),
+    }
+
+
+def sh_same(name: str, got: dict, want: dict) -> None:
+    for call in want:
+        compare(f"{name} {call}", [g.cpu() for g in got[call]],
+                [w.cpu() for w in want[call]])
+
+
+def sh_serve_timed(eng, x, shape, strategy) -> dict:
+    """One sharded serve call against the replicated one on the card: call
+    time (CUDA events), device time and idle share (profiler), and the
+    cross-shard merge alone on this call's partials (its share of the
+    call)."""
+    from repro_torch.match import engine as eng_lib
+    from repro_torch.match import plan as plan_lib
+
+    def call():
+        return eng.classify_serve(x["feats"], x["thr"], x["slot"],
+                                  x["bank"], x["lo"], x["hi"], x["tau"])
+
+    out = {}
+    with forced(shape, x["feats"].device, strategy):
+        out["ms"] = time_ms(call, SH_ITERS)
+        out["profile"] = profile(call, reps=5)
+        plan, _ = plan_lib.plan_for(batch=SH_B, num_classes=SH_C)
+        be = eng.backend(x["feats"], x["bank"])
+        rows = SH_B // plan.dp_devices
+        parts = []
+        for s in range(plan.bank_shards):
+            sl = plan.class_slice(s)
+            bank = x["bank"]._replace(templates=x["bank"].templates[sl],
+                                      lower=x["bank"].lower[sl],
+                                      upper=x["bank"].upper[sl],
+                                      valid=x["bank"].valid[sl])
+            _, t1, gi, t2 = be.classify_serve_shard(
+                x["feats"][:rows], x["thr"], x["slot"][:rows], bank,
+                x["lo"][:rows], x["hi"][:rows], s * plan.rows_per_shard)
+            parts.append((t1, gi, t2))
+        merge_ms = time_ms(lambda: eng_lib._reduce_margin(
+            parts, float(N), plan.reduce), SH_ITERS)
+    # one merge per dp slice in each call
+    out["merge_ms"] = merge_ms * plan.dp_devices
+    out["merge_share"] = out["merge_ms"] / out["ms"]
+    out["reduce"] = plan.reduce
+    return out
+
+
+def sh_service_spec(shards: int, slots: int = 64):
+    from repro_torch.match import EngineConfig
+    from repro_torch.serve.spec import (CascadeSpec, MeshSpec, RegistrySpec,
+                                        SchedulerSpec, ServiceSpec)
+
+    return ServiceSpec(
+        registry=RegistrySpec(num_features=N, k_max=2, initial_classes=128),
+        engine=EngineConfig(backend="kernel", margin=True),
+        mesh=MeshSpec(bank_shards=shards, install=True),
+        scheduler=SchedulerSpec(slots=slots),
+        cascade=CascadeSpec(tau=CP_TAU, tau_units="count"))
+
+
+def sh_fresh(spec, device):
+    from repro_torch.serve.control import HybridService
+
+    svc = HybridService.from_spec(spec, device=device)
+    svc.apply_manifest(cp_manifest())
+    return svc
+
+
+def sh_argmax_probe(device) -> None:
+    """`torch.argmax` on the card as the merges assume and `jnp.argmax`
+    does: the first NaN wins, ties go to the first index, all -inf -> 0
+    (each row repeated 300 times: a reduction over several blocks)."""
+    import torch
+
+    nan, inf = float("nan"), float("inf")
+    for row, want in (([1.0, nan, 3.0, nan], 1), ([2.0, 5.0, 5.0, 1.0], 1),
+                      ([-inf] * 4, 0), ([nan] * 4, 0),
+                      ([-inf, 0.0, 0.0, -inf], 1)):
+        x = torch.tensor(row * 300, device=device)[None]
+        got = int(torch.argmax(x, dim=-1)[0])
+        on_cpu = int(torch.argmax(x.cpu(), dim=-1)[0])
+        check(got == on_cpu == want,
+              f"torch.argmax of {row}: {got} on the card, {on_cpu} on the "
+              f"CPU, {want} expected")
+
+
+def sharded_phase(device) -> tuple[dict, dict]:
+    """The bank-sharded ACAM service on forced meshes of the one card
+    (every mesh virtual: its shards run in turn on the card):
+
+    1. `MatchEngine`'s four entry points at B 256, C 512, K 2, N 784 under
+       1x2, 1x4, 2x2 and 1x8 and both merges, bit-identical to the
+       replicated call on the card and to the CPU's sharded call; D*M B1
+       launches a call, D B3 launches on a 2x1 serve tick; the 2,304-class
+       bank at 1x2 (B2 a shard); similarity at 1x4 (B5 a shard); the
+       serve call timed against the replicated one, and its merge alone;
+    2. the control-plane service (8 tenants x 10 classes, 128-class bank,
+       K 2, 64 slots) at 2 shards (1x2) and 4 (2x2), answering as the
+       replicated service on the card and the CPU, one engine call a tick;
+    3. `reconfigure` 1 -> 2 (drained), `rolling_reshard` 2 -> 4 against
+       the drained path, `handle_device_loss([3])` on 1x4 and
+       `restore_devices`, a 2-shard snapshot restored at 4 on the card and
+       on the CPU, the autopilot escalating over the JAX autopilot bench's
+       trace (every request answered once), `launch.serve.main(
+       ["--workload", "acam", "--bank-shards", "2"])` under 1x2 against
+       the CPU;
+    4. the serving bench's sharded rows and the kernel bench's.
+
+    Returns (the driven paths, the phase's measurements)."""
+    import torch
+
+    from repro_torch import match
+    from repro_torch.benchmarks import kernel_bench, serving_bench, traces
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.fleet import Autopilot, PolicySpec
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve.control import HybridService
+    from repro_torch.serve.spec import MeshSpec
+
+    report, out = {}, {"virtual_mesh": True}
+    cpu = torch.device("cpu")
+    sh_argmax_probe(device)
+
+    # -- 1. the engine ------------------------------------------------------
+    eng = match.engine_for(backend="kernel")
+    x, xc = sh_problem(device), sh_problem(cpu)
+    rep = sh_calls(eng, x)
+    check(bool(rep["classify_serve"][3].any())
+          and not bool(rep["classify_serve"][3].all()),
+          "the sharded problem escalates all or nothing")
+    rep_serve = time_ms(lambda: eng.classify_serve(
+        x["feats"], x["thr"], x["slot"], x["bank"], x["lo"], x["hi"],
+        x["tau"]), SH_ITERS)
+    out["replicated_serve"] = dict(
+        ms=rep_serve, profile=profile(lambda: eng.classify_serve(
+            x["feats"], x["thr"], x["slot"], x["bank"], x["lo"], x["hi"],
+            x["tau"]), reps=5))
+    out["engine"] = {}
+    for shape in SH_MESHES:
+        d, m = shape
+        for strategy in SH_STRATEGIES:
+            name = f"{d}x{m}_{strategy}"
+            with forced(shape, cpu, strategy):
+                on_cpu = sh_calls(eng, xc)
+            with forced(shape, device, strategy):
+                got, counts, wall = drive(
+                    f"sharded_engine_{name}", lambda: sh_calls(eng, x),
+                    ["acam_match_classify"])
+            sh_same(f"sharded {name} vs replicated", got, rep)
+            sh_same(f"sharded {name} vs the CPU", got, on_cpu)
+            check(counts["acam_match_classify"] == 4 * d * m,
+                  f"sharded {name}: {counts['acam_match_classify']} B1 "
+                  f"launches for 4 calls, expected {4 * d * m}")
+            report[f"sharded_engine_{name}"] = dict(launches=counts,
+                                                    wall_s=wall)
+            out["engine"][name] = sh_serve_timed(eng, x, shape, strategy)
+    with forced((2, 1), device):
+        _, counts, wall = drive(
+            "sharded_serve_2x1", lambda: eng.classify_serve(
+                x["feats"], x["thr"], x["slot"], x["bank"], x["lo"],
+                x["hi"], x["tau"]), ["acam_match_serve"])
+    check(counts["acam_match_serve"] == 2,
+          f"a 2x1 serve tick launched B3 {counts['acam_match_serve']} times")
+    report["sharded_serve_2x1"] = dict(launches=counts, wall_s=wall)
+    big, big_c = (sh_problem(device, c=SH_BIG_C, b=64),
+                  sh_problem(cpu, c=SH_BIG_C, b=64))
+    want = eng.classify_features(big["feats"], big["bank"])
+    with forced((1, 2), cpu):
+        on_cpu = eng.classify_features(big_c["feats"], big_c["bank"])
+    with forced((1, 2), device):
+        got, counts, wall = drive(
+            "sharded_big_bank", lambda: eng.classify_features(
+                big["feats"], big["bank"]),
+            ["acam_match_classify_margins_chunked"])
+    compare("sharded big bank vs replicated", got, want)
+    compare("sharded big bank vs the CPU", [g.cpu() for g in got], on_cpu)
+    check(counts["acam_match_classify_margins_chunked"] == 2,
+          "the 2,304-class bank at 1x2: "
+          f"{counts['acam_match_classify_margins_chunked']} B2 launches")
+    report["sharded_big_bank"] = dict(launches=counts, wall_s=wall)
+    sim = match.engine_for(method="similarity", alpha=0.37,
+                           backend="kernel")
+    sx, sxc = (sh_problem(device, b=64, method="similarity"),
+               sh_problem(cpu, b=64, method="similarity"))
+    want = sim.classify_features(sx["feats"], sx["bank"])
+    with forced((1, 4), cpu):
+        on_cpu = sim.classify_features(sxc["feats"], sxc["bank"])
+    with forced((1, 4), device):
+        got, counts, wall = drive(
+            "sharded_similarity", lambda: sim.classify_features(
+                sx["feats"], sx["bank"]), ["acam_similarity_classify"])
+    compare("sharded similarity vs replicated", got, want)
+    compare("sharded similarity vs the CPU", [g.cpu() for g in got], on_cpu)
+    check(counts["acam_similarity_classify"] == 4,
+          f"similarity at 1x4: {counts['acam_similarity_classify']} B5 "
+          "launches")
+    report["sharded_similarity"] = dict(launches=counts, wall_s=wall)
+
+    # -- 2. the service at 2 and 4 shards -----------------------------------
+    probe = cp_requests(256, 23)
+    want = answers(sh_fresh(sh_service_spec(1)._replace(
+        mesh=MeshSpec(install=False)), device).serve(probe))
+    out["service"] = {}
+    for shards, shape in ((2, (1, 2)), (4, (2, 2))):
+        with forced(shape, cpu):
+            on_cpu = answers(sh_fresh(sh_service_spec(shards), cpu).serve(
+                probe))
+        with forced(shape, device):
+            svc = sh_fresh(sh_service_spec(shards), device)
+            check(match.bank_shards_in_mesh() == shards,
+                  f"the {shards}-shard service installed no mesh")
+            svc.serve(probe[:64])  # warm-up
+            svc.reset_metrics()
+            got, counts, wall = drive(
+                f"sharded_service_{shards}",
+                lambda: answers(svc.serve(probe)), ["acam_match_classify"])
+            m = svc.metrics()
+        check(got == want, f"the {shards}-shard service answers differently "
+              "from the replicated one")
+        check(got == on_cpu, f"the {shards}-shard service on the card and "
+              "the CPU differ")
+        check(m["classify_dispatches"] == m["ticks"]
+              and counts["acam_match_classify"] == shards * m["ticks"],
+              f"{shards} shards: {m['ticks']} ticks, "
+              f"{m['classify_dispatches']} engine calls, "
+              f"{counts['acam_match_classify']} B1 launches")
+        report[f"sharded_service_{shards}"] = dict(launches=counts,
+                                                   wall_s=wall)
+        out["service"][shards] = dict(metrics=m, ticks=m["ticks"],
+                                      b1_launches=counts[
+                                          "acam_match_classify"])
+
+    # -- 3. transitions -------------------------------------------------------
+    pending, after = cp_requests(64, 31), cp_requests(128, 37)
+    fresh_answers = {}
+    for shards in (1, 2, 3, 4):
+        with forced((1, 4) if shards != 3 else (1, 3), device):
+            spec = sh_service_spec(shards)
+            if shards == 3:  # the loss target's capacity: 48-row multiples
+                spec = spec._replace(registry=spec.registry._replace(
+                    initial_classes=144))
+            fresh_answers[shards] = answers(sh_fresh(spec, device).serve(
+                after))
+    check(len({tuple(v) for v in fresh_answers.values()}) == 1,
+          "fresh builds at 1-4 shards answer differently")
+    trans = {}
+    with forced((1, 2), device):
+        svc = sh_fresh(sh_service_spec(1), device)
+        for r in pending:
+            svc.submit(r)
+        rep1 = svc.reconfigure(sh_service_spec(2))
+        check(svc.registry.bank_shards == match.bank_shards_in_mesh() == 2,
+              "reconfigure 1 -> 2 left the bank unsharded")
+        check(len(rep1.drained) == len(pending)
+              and answers(svc.serve(after)) == fresh_answers[2],
+              "reconfigure 1 -> 2 answers differ from a fresh build")
+        trans["reconfigure 1 -> 2"] = rep1.downtime_s * 1e3
+    with forced((1, 4), device):
+        rolling, drained = (sh_fresh(sh_service_spec(2), device),
+                            sh_fresh(sh_service_spec(2), device))
+        for r in pending:
+            rolling.submit(r)
+            drained.submit(r)
+        rep_r = rolling.rolling_reshard(sh_service_spec(4))
+        flipped = rolling.drain()
+        rep_d = drained.reconfigure(sh_service_spec(4))
+        check(rep_r.drained == [] and answers(flipped) ==
+              answers(rep_d.drained), "the rolling reshard's queued "
+              "answers differ from the drained path's")
+        check(answers(rolling.serve(after)) == answers(drained.serve(after))
+              == fresh_answers[4], "after the flip: answers differ")
+        trans["rolling_reshard 2 -> 4 (flip)"] = rep_r.downtime_s * 1e3
+        trans["reconfigure 2 -> 4 (drained)"] = rep_d.downtime_s * 1e3
+        rep_l = rolling.handle_device_loss([3])
+        check(rolling.registry.bank_shards == 3
+              and answers(rolling.serve(after)) == fresh_answers[3],
+              "after the loss of device 3: answers differ")
+        rep_h = rolling.restore_devices()
+        check(rolling.registry.bank_shards == 4
+              and answers(rolling.serve(after)) == fresh_answers[4],
+              "after the heal: answers differ")
+        trans["handle_device_loss [3] (4 -> 3)"] = rep_l.downtime_s * 1e3
+        trans["restore_devices (3 -> 4)"] = rep_h.downtime_s * 1e3
+    ckpt_dir = Path(tempfile.mkdtemp())
+    with forced((1, 4), device):
+        snap = sh_fresh(sh_service_spec(2), device)
+        snap.serve(pending)
+        snap.snapshot(Checkpointer(ckpt_dir))
+        back, rep_s = HybridService.restore(Checkpointer(ckpt_dir),
+                                            mesh=MeshSpec(bank_shards=4),
+                                            device=device)
+        card = answers(back.serve(after))
+    with forced((1, 4), cpu):
+        on_cpu, _ = HybridService.restore(Checkpointer(ckpt_dir),
+                                          mesh=MeshSpec(bank_shards=4),
+                                          device=cpu)
+        cpu_answers = answers(on_cpu.serve(after))
+    check(rep_s.resharded and back.registry.bank_shards == 4
+          and card == fresh_answers[4]
+          and [a[1:] for a in card] == [a[1:] for a in cpu_answers],
+          "the 2-shard snapshot restored at 4 answers differently")
+    trans["restore 2 -> 4 (recovery)"] = rep_s.restore_s * 1e3
+    out["transitions_ms"] = trans
+
+    cfg = traces.TraceConfig(seed=0, num_features=serving_bench.NUM_FEATURES,
+                             **SH_PILOT)
+    pool = traces.TenantPool(cfg)
+    with forced((1, 2), device):
+        svc = HybridService.from_spec(serving_bench.make_spec(
+            16, requests=cfg.requests, install_mesh=True), device=device)
+        pool.register_all(svc)
+        pilot = Autopilot(svc, policy=PolicySpec(interval=4, hysteresis=2,
+                                                 cooldown=8))
+        responses, submitted = [], 0
+        for op in traces.make_trace(cfg):
+            if op[0] == "submit":
+                svc.submit(pool.request(op[1], op[2]))
+                submitted += 1
+            elif op[0] == "evict":
+                if pool.tenant_id(op[1]) in svc.registry:
+                    svc.evict_tenant(pool.tenant_id(op[1]))
+            elif op[0] == "register":
+                if pool.tenant_id(op[1]) not in svc.registry:
+                    pool.register(svc, op[1])
+            elif op[0] == "tick":
+                responses.extend(svc.step())
+                pilot.observe_tick()
+                responses.extend(pilot.take_drained())
+        responses.extend(svc.drain())
+    acts = [a["action"] for a in pilot.actions]
+    check("escalate_shards" in acts and svc.registry.bank_shards == 2,
+          f"the autopilot did not escalate the shards: {pilot.actions}")
+    check(sorted(r.request_id for r in responses) ==
+          list(range(1, submitted + 1)),
+          "autopilot: not every request answered exactly once")
+    out["autopilot"] = dict(actions=pilot.actions, answered=len(responses))
+
+    argv = ["--workload", "acam", "--bank-shards", "2"]
+    with forced(None, device, env="1x2"):
+        got, counts, wall = drive("sharded_launcher",
+                                  lambda: launch_serve.main(argv,
+                                                            device=device),
+                                  ["acam_match_classify"])
+    with forced(None, cpu, env="1x2"):
+        on_cpu = launch_serve.main(argv, device="cpu")
+    for key in ("accuracy", "completed", "escalated", "classify_dispatches",
+                "escalation_rate", "nj_per_request"):
+        check(got[key] == on_cpu[key],
+              f"--bank-shards 2: {key} {got[key]} on the card, "
+              f"{on_cpu[key]} on the CPU")
+    report["sharded_launcher"] = dict(launches=counts, wall_s=wall)
+
+    # -- 4. the bench rows ----------------------------------------------------
+    t0 = time.perf_counter()
+    with forced(None, device, env="1x2"):
+        rows = serving_bench.bank_scaling_sweep(smoke=True, device=device)
+        rows.append(serving_bench.reshard_bench(device=device))
+        rows.append(serving_bench.autopilot_bench(smoke=True, device=device))
+        kernel_rows = kernel_bench.sharded_classify_entries(
+            (1, SH_B), device=device)
+    check(all(r is not None for r in rows) and len(kernel_rows) == 2,
+          "a sharded bench row was skipped")
+    check(rows[-1]["flip_downtime_ms"] < rows[-1]["drained_downtime_ms"],
+          "the autopilot's flip took longer than the drained reshard")
+    out["bench"] = dict(serving=rows, kernel=kernel_rows,
+                        wall_s=time.perf_counter() - t0)
+    return report, out
+
+
+def print_sharded(sh: dict, card: str) -> None:
+    print(f"sharded ({card}; every mesh virtual: one card, its shards run "
+          "in turn):")
+    r = sh["replicated_serve"]
+    print(f"  replicated serve B {SH_B} C {SH_C} K {SH_K} N {N}: "
+          f"{r['ms']:.4f} ms a call, device {r['profile']['device_ms']} ms, "
+          f"idle share {r['profile']['idle_share']}")
+    for name, e in sh["engine"].items():
+        print(f"  sharded serve {name}: {e['ms']:.4f} ms a call "
+              f"(x{e['ms'] / r['ms']:.2f} the replicated), device "
+              f"{e['profile']['device_ms']} ms, idle share "
+              f"{e['profile']['idle_share']}, merge ({e['reduce']}) "
+              f"{e['merge_ms']:.4f} ms = {e['merge_share']:.3f} of the call")
+    for shards, e in sh["service"].items():
+        m = e["metrics"]
+        print(f"  service at {shards} shards: {e['ticks']} ticks, "
+              f"{e['b1_launches']} B1 launches, {m['requests_per_s']:.1f} "
+              f"req/s, p50 {m['latency_p50_ms']} / p99 "
+              f"{m['latency_p99_ms']} ms")
+    for name, ms in sh["transitions_ms"].items():
+        print(f"  {name}: {ms:.3f} ms")
+    acts = [(a["tick"], a["action"]) for a in sh["autopilot"]["actions"]]
+    print(f"  autopilot: {acts}, {sh['autopilot']['answered']} requests "
+          "answered once")
+    for e in sh["bench"]["serving"]:
+        print(f"  serving bench row ({card}): {json.dumps(e)}")
+    for e in sh["bench"]["kernel"]:
+        print(f"  kernel bench row ({card}): {json.dumps(e)}")
+
+
+# ---------------------------------------------------------------------------
 # 6. the LM decode path and the ACAM semantic cache
 # ---------------------------------------------------------------------------
 
@@ -4222,10 +4732,21 @@ def leaf_groups(named: dict) -> dict:
     return groups
 
 
-#: the CPU's AdamW runs on row chunks of at most this many elements (the
-#: same elementwise arithmetic; whole-tensor temporaries page-fault on
-#: every op and take 5-7x longer)
+#: AdamW and the gradient comparison run on row chunks of at most this many
+#: elements (the same elementwise arithmetic; on the CPU whole-tensor
+#: temporaries page-fault on every op and take 5-7x longer, on the card
+#: they would not fit beside the largest model and its gradients)
 ADAMW_CHUNK = 1 << 20
+
+
+def row_chunks(x):
+    """``x`` in chunks of at most `ADAMW_CHUNK` elements: a weight as
+    (rows, last dim) row blocks, which keep its rank class (ndim >= 2, on
+    which the decay set depends), a vector as slices."""
+    if x.ndim > 1:
+        return x.reshape(-1, x.shape[-1]).split(
+            max(1, ADAMW_CHUNK // x.shape[-1]))
+    return x.split(ADAMW_CHUNK)
 
 
 def lm_train_card_vs_cpu(device, arch: str, cpu, cfg) -> dict:
@@ -4281,19 +4802,27 @@ def lm_train_card_vs_cpu(device, arch: str, cpu, cfg) -> dict:
         t0 = time.perf_counter()
         grad_err = {}
         for leaf, names in leaf_groups(gp).items():  # compared on the card
-            a = torch.stack([gc[n] for n in names]).double()
-            w = torch.stack([gp[n] for n in names]).to(device).double()
-            grad_err[leaf] = float((a - w).norm() / w.norm().clamp_min(1e-30))
+            diff = torch.zeros((), dtype=torch.float64, device=device)
+            norm = torch.zeros((), dtype=torch.float64, device=device)
+            for n in names:
+                for a, w in zip(row_chunks(gc[n]), row_chunks(gp[n])):
+                    w = w.to(device).double()
+                    diff += (a.double() - w).square().sum()
+                    norm += w.square().sum()
+            grad_err[leaf] = float(diff.sqrt() / norm.sqrt().clamp_min(1e-30))
             check(grad_err[leaf] <= GRAD_RTOL, f"{cfg.name}: gradient {leaf} "
                   f"rel L2 {grad_err[leaf]}")
         secs["compare"] = time.perf_counter() - t0
-        # clipping as `make_train_step` clips, one tensor at a time (a
-        # clipped copy of every gradient would not fit beside deepseek-v3's);
-        # the CPU's side in row chunks, every comparison on the card
+        # clipping as `make_train_step` clips, one tensor at a time and in
+        # row chunks on both devices (a clipped copy of every gradient, or
+        # a whole-tensor step's temporaries beside qwen2-vl's 4.6 GiB
+        # embedding, would not fit beside the model and its gradients);
+        # every comparison on the card
         t0 = time.perf_counter()
         opt = steps_lib.make_optimizer(cfg)
         scale_p, scale_c = (torch.clamp(1.0 / (optim.global_norm(g) + 1e-9),
                                         max=1.0) for g in (gp, gc))
+        scale_d = scale_p.to(device)
         pc = dict(card.named_parameters())
         step_err, own_err = 0.0, 0.0
         for k, p in cpu.named_parameters():
@@ -4301,22 +4830,18 @@ def lm_train_card_vs_cpu(device, arch: str, cpu, cfg) -> dict:
                 q = q.detach()
                 return opt.update({k: g}, opt.init({k: q}), {k: q})[0][k]
 
-            # a weight as (rows, last dim): chunks keep its rank class
-            # (ndim >= 2), on which the decay set depends
-            flat = (lambda x: x.reshape(-1, x.shape[-1])) if p.ndim > 1 \
-                else (lambda x: x)
-            rows = max(1, ADAMW_CHUNK // p.shape[-1]) if p.ndim > 1 \
-                else ADAMW_CHUNK
-            want = torch.empty_like(pc[k])
-            for i, (g, q) in enumerate(zip(flat(gp[k]).split(rows),
-                                           flat(p.detach()).split(rows))):
-                flat(want)[i * rows:i * rows + len(g)] = update(
-                    g * scale_p, q).to(device)
-            scale = float(want.abs().max()) or 1.0
-            got = update(gp[k].to(device) * scale_p.to(device), pc[k])
-            step_err = max(step_err, float((got - want).abs().max()) / scale)
-            own_err = max(own_err, float(
-                (update(gc[k] * scale_c, pc[k]) - want).abs().max()) / scale)
+            top, got, own = (torch.zeros((), device=device) for _ in range(3))
+            for g, q, gd, qd in zip(*map(row_chunks, (
+                    gp[k], p.detach(), gc[k], pc[k].detach()))):
+                want = update(g * scale_p, q).to(device)
+                top = torch.maximum(top, want.abs().max())
+                got = torch.maximum(got, (update(g.to(device) * scale_d, qd)
+                                          - want).abs().max())
+                own = torch.maximum(own, (update(gd * scale_c, qd)
+                                          - want).abs().max())
+            scale = float(top) or 1.0
+            step_err = max(step_err, float(got) / scale)
+            own_err = max(own_err, float(own) / scale)
         check(step_err <= TRAIN_STEP_REL, f"{cfg.name}: AdamW step card vs "
               f"CPU {step_err} of the scale")
         secs["adamw"] = time.perf_counter() - t0
@@ -4468,6 +4993,9 @@ def lm_train_phase(device, out_dir: Path, *, smoke: bool = False,
     from repro_torch.models import lm
 
     out = {"card_vs_cpu": {}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["mem_at_start_bytes"] = torch.cuda.memory_allocated(device)
     t0 = time.perf_counter()
     out["full_width"] = lm_train_full_width(device, smoke=smoke)
     out["full_width"]["wall_s"] = time.perf_counter() - t0
@@ -4480,8 +5008,10 @@ def lm_train_phase(device, out_dir: Path, *, smoke: bool = False,
             **LM_CPU_CUTS.get(arch, {}))
         cpu = lm.init_params(0, cfg, device="cpu")
         init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(device)
         res = lm_train_card_vs_cpu(device, arch, cpu, cfg)
-        res.update(wall_s=time.perf_counter() - t0, init_s=init_s)
+        res.update(wall_s=time.perf_counter() - t0, init_s=init_s,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(device))
         out["card_vs_cpu"][arch] = res
         del cpu
         gc.collect()
@@ -4517,6 +5047,8 @@ def print_lm_train(t: dict, card: str) -> None:
           f"output once {b['bytes_once']} bytes = {b['bytes_once_ms']:.4f} "
           f"ms)")
     print(f"lm_train step profile: {json.dumps(p)}")
+    print(f"lm_train: {t['mem_at_start_bytes'] / 2**30:.3f} GiB allocated "
+          "on the card when the phase began")
     for arch, r in t["card_vs_cpu"].items():
         print(f"lm_train card vs CPU {r['arch']} ({r['layers']} layers, "
               f"{r['n_experts']} experts, f32, TF32 off, batch "
@@ -4529,7 +5061,8 @@ def print_lm_train(t: dict, card: str) -> None:
               f"{r['routing_min_gap']}); AdamW from the CPU's gradients "
               f"{r['adamw_step_rel']:.3e} of the scale (from each device's "
               f"own: {r['adamw_own_grads_rel']:.3e}); compression "
-              f"{r['compression']}; {r['params']} parameters, seconds "
+              f"{r['compression']}; {r['params']} parameters, peak memory "
+              f"{r['peak_mem_bytes'] / 2**30:.3f} GiB, seconds "
               f"{json.dumps({k: round(v, 2) for k, v in r['secs'].items()})}")
     r = t["resume"]
     print(f"lm_train resume (SMOKE {TRAIN_ARCH}): {r['steps']} steps, "
@@ -4618,6 +5151,10 @@ def main(argv: list[str]) -> int:
     t0 = time.perf_counter()
     driven, control = control_plane(device, cp_dir)
     control["wall_s"] = time.perf_counter() - t0
+    report.update(driven)
+    t0 = time.perf_counter()
+    driven, sharded = sharded_phase(device)
+    sharded["wall_s"] = time.perf_counter() - t0
     report.update(driven)
     t0 = time.perf_counter()
     driven, lm_out = lm_phase(device)
@@ -4711,11 +5248,12 @@ def main(argv: list[str]) -> int:
     print_device_physics(report["device_physics"], report["serve_mega"])
     print_paper_eval(paper)
     print_control_plane(control, smi)
+    print_sharded(sharded, smi)
     print_lm(lm_out, smi)
     print_lm_train(lm_train, smi)
     print(f"phase walls: paper_eval {paper['wall_s']:.1f} s, control_plane "
-          f"{control['wall_s']:.1f} s, lm {lm_out['wall_s']:.1f} s, lm_train "
-          f"{lm_train['wall_s']:.1f} s")
+          f"{control['wall_s']:.1f} s, sharded {sharded['wall_s']:.1f} s, lm "
+          f"{lm_out['wall_s']:.1f} s, lm_train {lm_train['wall_s']:.1f} s")
     check(set(kernels) == set(KERNELS), "every ported kernel measured")
 
     line = {"kernels": [
@@ -4738,7 +5276,8 @@ def main(argv: list[str]) -> int:
                  kernels=line["kernels"], kernel_phases=kernels,
                  profile_retries=PROFILE_RETRIES,
                  paths=report, training=training, paper_eval=paper,
-                 control_plane=control, lm=lm_out, lm_train=lm_train),
+                 control_plane=control, sharded=sharded, lm=lm_out,
+                 lm_train=lm_train),
             indent=1, default=str))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -25,6 +25,11 @@ host clocks move up to 2x between calls.
                                    # | acam_similarity_classify_chunked (B6
                                    #   on the big bank; ref_us = the
                                    #   reference engine)
+                                   # | acam_match_classify_sharded (B1 a
+                                   #   shard under REPRO_FORCE_MESH;
+                                   #   ref_us = the replicated call, plus
+                                   #   bank_sharding / reduce /
+                                   #   virtual_mesh)
         "b": 256, "m": 10, "n": 784,
         "ref_us": 123.4,           # plain version / reference engine
         "kernel_us": 4.5,          # the kernel path, us/call
@@ -221,11 +226,60 @@ def serve_entries(batches=BENCH_SHAPES, *, iters: int = ITERS,
 
 def sharded_classify_entries(batches=BENCH_SHAPES, *, classes: int = 512,
                              iters: int = ITERS, device=None) -> list[dict]:
-    """The replicated-against-bank-sharded classify rows of the JAX bench.
-    The port serves from one card until the multi-GPU slice brings the
-    partition plan (`match/plan.py`, ROADMAP §A.7), so there is nothing to
-    shard yet: no rows."""
-    return []
+    """The replicated-against-bank-sharded classify rows of the JAX bench:
+    `MatchEngine.classify_features` over a ``classes``-row bank with the
+    ``REPRO_FORCE_MESH`` mesh installed (class rows over "model", the
+    batch over "data"; on one card a virtual mesh, its shards launched in
+    turn) against the same engine replicated, in turns. No rows without a
+    forced mesh, or when the model axis does not divide ``classes``."""
+    from repro_torch import match
+    from repro_torch.core import templates as T
+    from repro_torch.distributed import context, forcemesh
+
+    spec = forcemesh.env_spec()
+    if spec is None:
+        return []
+    dev = resolve(device)
+    mesh = forcemesh.install(spec, device=dev)
+    # what the engine will do, not the mesh shape: a model axis that does
+    # not divide `classes` runs bank-replicated
+    plan, _ = match.plan_for(batch=batches[0], num_classes=classes)
+    context.clear()
+    if plan.bank_shards == 1:
+        print(f"skipping sharded-classify rows: {classes} classes do not "
+              f"shard over the {mesh.shape} mesh")
+        return []
+    gen = torch.Generator().manual_seed(1)
+    tmpl = _binary(gen, (classes, 1, N)).to(dev)
+    bank = T.TemplateBank(
+        templates=tmpl, lower=torch.zeros_like(tmpl),
+        upper=torch.ones_like(tmpl),
+        valid=torch.ones((classes, 1), dtype=torch.bool, device=dev),
+        thresholds=torch.zeros(N, device=dev))
+    eng = match.engine_for(backend="kernel")
+
+    def run(f, axes):
+        context.clear()
+        if axes:
+            context.set_mesh_axes("data", "model", mesh)
+        return eng.classify_features(f, bank)
+
+    entries = []
+    try:
+        for b in batches:
+            f = torch.randn((b, N), generator=gen).to(dev)
+            it = max(3, iters // 4) if b >= 4096 else iters
+            sharded_us, rep_us = turns(lambda: run(f, True),
+                                       lambda: run(f, False), dev, it)
+            e = _compare_entry("acam_match_classify_sharded", b, classes, N,
+                               rep_us, sharded_us)
+            e["bank_sharding"] = plan.bank_shards
+            e["reduce"] = plan.reduce  # the merge the plan selected
+            e["virtual_mesh"] = mesh.virtual
+            entries.append(e)
+    finally:
+        context.clear()
+    return entries
 
 
 def write_bench_json(entries: list[dict],

@@ -26,8 +26,12 @@ its service through the spec path (`HybridService.from_spec`):
     SMOKE tinyllama, random weights from the seed), a decode-only baseline
     row and one row per exact hit rate 0, 0.5 and 0.9.
 
-Not here: the bank-scaling, reshard and autopilot rows (the super-bank
-sharded over several cards: the multi-GPU slice).
+The sharded rows need a mesh with a model axis: under ``REPRO_FORCE_MESH``
+(a forced mesh, one device repeated: its shards run in turn on that
+device) `bank_scaling_sweep` adds a sharded row beside each replicated
+one, `reshard_bench` prices the drained 1 -> 2 reshard and `autopilot_bench`
+the autopilot's double-buffered flip against it, and `chaos_bench` runs at
+two shards; without one they are skipped, as in the JAX bench.
 
 ``BENCH_torch_serving.json`` (or ``--out PATH``) keeps the JAX schema, with
 the kernel bench's ``backend`` / ``kernels`` / ``card`` in place of
@@ -63,10 +67,12 @@ class BenchError(RuntimeError):
 
 
 def make_spec(slots: int, *, requests: int, backend: str | None = None,
+              bank_shards: int = 1, install_mesh: bool = False,
               telemetry_dir: str | None = None, span_sample: float = 1.0):
-    """The bench's one `ServiceSpec` (one card: no mesh to install). Taus
-    ride in match-count units; the service converts them itself.
-    ``telemetry_dir`` arms the flight recorder's JSONL event log."""
+    """The bench's one `ServiceSpec`. Taus ride in match-count units; the
+    service converts them itself. ``install_mesh`` lets the spec own a
+    (data, model = ``bank_shards``) mesh; ``telemetry_dir`` arms the
+    flight recorder's JSONL event log."""
     from repro_torch import match as match_lib
     from repro_torch.match.config import EngineConfig
     from repro_torch.serve import spec as spec_lib
@@ -74,10 +80,11 @@ def make_spec(slots: int, *, requests: int, backend: str | None = None,
     return spec_lib.ServiceSpec(
         registry=spec_lib.RegistrySpec(
             num_features=NUM_FEATURES,
-            initial_classes=spec_lib.aligned_classes(1)),
+            initial_classes=spec_lib.aligned_classes(bank_shards)),
         engine=EngineConfig(backend=backend or match_lib.default_backend(),
                             margin=True),
-        mesh=spec_lib.MeshSpec(bank_shards=1, install=False),
+        mesh=spec_lib.MeshSpec(bank_shards=bank_shards,
+                               install=install_mesh),
         scheduler=spec_lib.SchedulerSpec(slots=slots),
         cascade=spec_lib.CascadeSpec(tau=8.0, tau_units="count",
                                      max_queue=max(requests, 4096)),
@@ -127,12 +134,16 @@ def bench_service(tenants: int, slots: int, *, requests: int | None = None,
                   seed: int = 0, backend: str | None = None,
                   classes: int = NUM_CLASSES, device=None) -> dict:
     """Serve a mixed-tenant burst through a fresh spec-built service on
-    ``device``; one warm-up request first, then the metrics are reset."""
+    ``device``; one warm-up request first, then the metrics are reset.
+    The registry aligns to whatever mesh is installed (`bank_scaling_sweep`
+    installs one around its sharded rows)."""
+    from repro_torch import match as match_lib
     from repro_torch.serve.control import HybridService
 
     requests = requests or max(4 * slots, 128)
-    svc = HybridService.from_spec(make_spec(slots, requests=requests,
-                                            backend=backend), device=device)
+    svc = HybridService.from_spec(make_spec(
+        slots, requests=requests, backend=backend,
+        bank_shards=match_lib.bank_shards_in_mesh()), device=device)
     reqs = _tenants_and_stream(svc, tenants, requests, seed, classes)
     svc.serve(reqs[:1])
     svc.reset_metrics()
@@ -156,6 +167,110 @@ def _report(e):
           f"{e['nj_per_request']:.2f} nJ/req, "
           f"occupancy {e['occupancy']:.2f}, "
           f"{e['classify_dispatches']} dispatches")
+
+
+def bank_scaling_sweep(*, smoke: bool = False, seed: int = 0,
+                       device=None) -> list[dict]:
+    """Grow the super-bank (tenants x classes), replicated and, under
+    ``REPRO_FORCE_MESH``, with the forced mesh installed around a second
+    measurement of each point (the engine then cuts the bank over the
+    model axis); without one only the replicated rows. The rows' fields
+    are the JAX bench's."""
+    from repro_torch.distributed import context, forcemesh
+
+    grid = ((4, 16), (8, 32)) if smoke else ((8, 16), (32, 32), (64, 48))
+    slots = min(SLOT_SWEEP[-1], 64)
+    spec = forcemesh.env_spec()
+    dev = resolve(device)
+    entries = []
+    for tenants, classes in grid:
+        requests = 2 * slots if smoke else 4 * slots
+        context.clear()
+        entries.append(bench_service(tenants, slots, requests=requests,
+                                     seed=seed, classes=classes,
+                                     device=dev))
+        _report(entries[-1])
+        if spec is None:
+            continue
+        forcemesh.install(spec, device=dev)
+        try:
+            entries.append(bench_service(tenants, slots, requests=requests,
+                                         seed=seed, classes=classes,
+                                         device=dev))
+        finally:
+            context.clear()
+        _report(entries[-1])
+    return entries
+
+
+def _sharded_devices(device, shards: int) -> bool:
+    """A forced mesh is requested and its devices divide ``shards``."""
+    from repro_torch.distributed import context, forcemesh
+
+    return forcemesh.env_spec() is not None \
+        and len(context.devices(device)) % shards == 0
+
+
+def reshard_bench(*, seed: int = 0, tenants: int = 8, slots: int = 64,
+                  to_shards: int = 2, device=None) -> dict | None:
+    """Live-reshard downtime: boot a spec-built service at one shard (the
+    spec owns the mesh), load it, then `reconfigure` to ``to_shards``
+    mid-stream and measure the drain -> resume wall time. The answers
+    must be the same across the transition, and the scheduler must keep
+    one engine call per tick under the bank-sharded plan. Needs a forced
+    mesh (``REPRO_FORCE_MESH``, devices divisible by ``to_shards``);
+    returns None otherwise."""
+    from repro_torch import match as match_lib
+    from repro_torch.distributed import context
+    from repro_torch.serve.control import HybridService
+
+    dev = resolve(device)
+    if not _sharded_devices(dev, to_shards):
+        print("skipping reshard row: set REPRO_FORCE_MESH (devices must "
+              f"divide {to_shards})")
+        return None
+    context.clear()
+    requests = 4 * slots
+    try:
+        svc = HybridService.from_spec(make_spec(slots, requests=requests,
+                                                bank_shards=1,
+                                                install_mesh=True),
+                                      device=dev)
+        reqs = _tenants_and_stream(svc, tenants, requests, seed)
+        before = _signature(svc.serve(reqs))
+        # mid-stream: enqueue a burst, reconfigure (drains it), resume
+        for req in reqs[:slots]:
+            svc.submit(req)
+        report = svc.reconfigure(svc.spec._replace(
+            mesh=svc.spec.mesh._replace(bank_shards=to_shards)))
+        if len(report.drained) != slots:
+            raise BenchError("the drain lost queued work")
+        if (svc.registry.bank_shards, match_lib.bank_shards_in_mesh()) \
+                != (to_shards, to_shards):
+            raise BenchError("the reshard did not reach the mesh")
+        plan, _ = match_lib.plan_for(
+            batch=slots, num_classes=svc.registry.capacity_classes)
+        if plan.bank_shards != to_shards:
+            raise BenchError(f"the tick's plan is {plan}")
+        svc.reset_metrics()
+        if _signature(svc.serve(reqs)) != before:
+            raise BenchError("the reshard changed served results")
+        m = svc.metrics()
+        if m["classify_dispatches"] != m["ticks"]:
+            raise BenchError(f"{m['classify_dispatches']} engine calls in "
+                             f"{m['ticks']} ticks")
+    finally:
+        context.clear()
+    entry = _row(m, tenants=tenants, slots=slots, requests=requests,
+                 classes=NUM_CLASSES, matching_backend="default",
+                 bank_sharding=to_shards,
+                 reshard_downtime_ms=round(report.downtime_s * 1e3, 3),
+                 tenants_moved=report.tenants_moved)
+    print(f"reshard 1->{to_shards}: downtime "
+          f"{entry['reshard_downtime_ms']:.1f} ms "
+          f"({entry['tenants_moved']} tenants moved, identical answers, "
+          f"{m['classify_dispatches']} sharded engine calls)")
+    return entry
 
 
 def _twice_served(build, arms: tuple[str, str], requests: int,
@@ -316,9 +431,14 @@ def chaos_bench(*, smoke: bool = False, seed: int = 0, device=None) -> dict:
     service's last ``tick`` line, checked against the replay harness."""
     from repro_torch.benchmarks import traces
     from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.distributed import context
     from repro_torch.obs import read_events
     from repro_torch.serve.control import HybridService
 
+    dev = resolve(device)
+    sharded = _sharded_devices(dev, 2)
+    if sharded:
+        context.clear()
     slots = 32
     # phase_ticks=1 keeps a standing queue, so the kill catches in-flight
     # work
@@ -328,6 +448,8 @@ def chaos_bench(*, smoke: bool = False, seed: int = 0, device=None) -> dict:
         burst=64, calm=8, phase_ticks=1)
     with tempfile.TemporaryDirectory() as td:
         spec = make_spec(slots, requests=cfg.requests,
+                         bank_shards=2 if sharded else 1,
+                         install_mesh=sharded,
                          telemetry_dir=os.path.join(td, "telemetry"))
         ckpt = Checkpointer(os.path.join(td, "ckpt"), keep=3)
         svc = HybridService.from_spec(spec, device=device)
@@ -362,14 +484,163 @@ def chaos_bench(*, smoke: bool = False, seed: int = 0, device=None) -> dict:
             raise BenchError(f"event log lost {lost}, harness "
                              f"{stats['lost_in_flight']}")
         recovery_ms = events[kills[0]]["duration_ms"]
+    if sharded:
+        context.clear()
     entry = _row(m, tenants=cfg.tenants, slots=slots,
                  requests=cfg.requests, classes=cfg.classes,
-                 matching_backend="default", bank_sharding=1,
+                 matching_backend="default",
+                 bank_sharding=2 if sharded else 1,
                  trace="chaos", recovery_ms=recovery_ms,
                  lost_in_flight=lost)
     print(f"chaos trace: killed mid-stream, restored bit-identical in "
-          f"{recovery_ms:.1f} ms ({lost} in-flight lost; numbers from the "
-          "event log)")
+          f"{recovery_ms:.1f} ms ({lost} in-flight lost, "
+          f"bank_shards={entry['bank_sharding']}; numbers from the event "
+          "log)")
+    return entry
+
+
+def autopilot_bench(*, smoke: bool = True, seed: int = 0,
+                    device=None) -> dict | None:
+    """The self-driving fleet row: a bursty Zipf churn trace served with
+    the `repro_torch.fleet` autopilot on, under a forced mesh.
+
+    Tenants arrive via a `FleetManifest`; the trace's churn ops are further
+    manifest applies. The policy escalates ``bank_shards`` under row
+    pressure through the double-buffered rolling reshard, and the row
+    prices that flip (``flip_downtime_ms``, from the event log's
+    ``buffer_flip`` lines) against the drained `reconfigure` measured on
+    an identical service (``drained_downtime_ms``). Requires: at least one
+    policy flip, the flip below the drained downtime, answers identical to
+    a pinned-spec run of the same trace, and every logged
+    ``policy_decision`` replaying to its action from its frozen view.
+    Needs ``REPRO_FORCE_MESH`` (an even device count); None otherwise."""
+    from repro_torch.benchmarks import traces
+    from repro_torch.distributed import context
+    from repro_torch.fleet import (Autopilot, FleetManifest, PolicySpec,
+                                   RegistryView, TenantSpec, explain,
+                                   should_compact)
+    from repro_torch.obs import read_events
+    from repro_torch.serve.control import HybridService
+
+    dev = resolve(device)
+    if not _sharded_devices(dev, 2):
+        print("skipping autopilot row: set REPRO_FORCE_MESH (even device "
+              "count)")
+        return None
+    slots = 16
+    # 6 tenants x 64 classes = 384 registered rows: 0.75 of the doubled
+    # 512-row capacity, the policy's row-pressure threshold
+    cfg = traces.TraceConfig(
+        seed=seed, tenants=6, classes=64, num_features=NUM_FEATURES,
+        requests=160 if smoke else 640, burst=48, calm=8, phase_ticks=2,
+        churn_every=3)
+    manifest = FleetManifest(tenants=tuple(
+        TenantSpec(tenant_id=f"t{t}", seed=cfg.seed * 1000 + t,
+                   num_classes=cfg.classes)
+        for t in range(cfg.tenants)))
+    coldest = int(np.argmin(traces.zipf_weights(cfg)))
+    without_cold = FleetManifest(tenants=tuple(
+        t for t in manifest.tenants if t.tenant_id != f"t{coldest}"))
+    pool = traces.TenantPool(cfg)
+    trace = traces.make_trace(cfg)
+
+    def serve_trace(svc, pilot):
+        sig = []
+        for op in trace:
+            kind = op[0]
+            if kind == "submit":
+                svc.submit(pool.request(op[1], op[2]))
+            elif kind == "evict":
+                svc.apply_manifest(without_cold)
+            elif kind == "register":
+                svc.apply_manifest(manifest)
+            elif kind == "tick":
+                sig.extend(_signature(svc.step()))
+                if pilot is not None:
+                    pilot.observe_tick()
+                    sig.extend(_signature(pilot.take_drained()))
+        return sig
+
+    def build(spec):
+        svc = HybridService.from_spec(spec, device=dev)
+        svc.apply_manifest(manifest)
+        return svc
+
+    context.clear()
+    try:
+        with tempfile.TemporaryDirectory() as td:
+            spec = make_spec(slots, requests=cfg.requests, bank_shards=1,
+                             install_mesh=True,
+                             telemetry_dir=os.path.join(td, "telemetry"))
+            untraced = spec._replace(obs=spec.obs._replace(
+                telemetry_dir=None))
+            svc = build(spec)
+            svc.serve([pool.request(0, seed + 1)])  # warm-up
+            svc.reset_metrics()
+            pilot = Autopilot(svc, policy=PolicySpec(interval=4,
+                                                     hysteresis=2,
+                                                     cooldown=8))
+            sig = serve_trace(svc, pilot)
+            m = svc.metrics()
+            events = read_events(svc.obs.events.path)
+            flips = [e for e in events if e["kind"] == "buffer_flip"]
+            decisions = [e for e in events
+                         if e["kind"] == "policy_decision"]
+            applies = sum(1 for e in events
+                          if e["kind"] == "manifest_apply")
+            if not flips:
+                raise BenchError("the autopilot never flipped a buffer")
+            if applies < 2:
+                raise BenchError("churn never went through the manifest")
+            for e in decisions:
+                view = RegistryView.from_dict(e["view"])
+                act = explain(view, pilot.policy)[0]
+                if act == "hold" and should_compact(view, pilot.policy):
+                    act = "compact"
+                if act != e["action"]:
+                    raise BenchError(f"decision replays to {act}, logged "
+                                     f"{e['action']}")
+
+            # the pinned-spec arm: same trace and churn, no autopilot
+            context.clear()
+            pinned = build(untraced)
+            pinned.serve([pool.request(0, seed + 1)])
+            pinned.reset_metrics()
+            if serve_trace(pinned, None) != sig:
+                raise BenchError("the autopilot changed served results")
+
+            # the drained alternative on an identical service: full queue,
+            # quiesce and reshard 1 -> 2
+            context.clear()
+            drained_svc = build(untraced)
+            warm = [pool.request(t % cfg.tenants, 777_000 + t)
+                    for t in range(4 * slots)]
+            drained_svc.serve(warm)  # warm every shape
+            for r in warm[:slots]:
+                drained_svc.submit(r)
+            report = drained_svc.reconfigure(drained_svc.spec._replace(
+                mesh=drained_svc.spec.mesh._replace(bank_shards=2)))
+            if len(report.drained) != slots:
+                raise BenchError("the drain lost queued work")
+            drained_ms = round(report.downtime_s * 1e3, 3)
+    finally:
+        context.clear()
+    flip_ms = max(e["flip_ms"] for e in flips)
+    if flip_ms >= drained_ms:
+        raise BenchError(f"flip {flip_ms} ms not below drained "
+                         f"{drained_ms} ms")
+    entry = _row(m, tenants=cfg.tenants, slots=slots,
+                 requests=cfg.requests, classes=cfg.classes,
+                 matching_backend="default",
+                 bank_sharding=svc.registry.bank_shards, trace="autopilot",
+                 flip_downtime_ms=flip_ms, drained_downtime_ms=drained_ms,
+                 policy_flips=len(flips), policy_decisions=len(decisions),
+                 manifest_applies=applies)
+    print(f"autopilot trace: {len(flips)} rolling reshards to "
+          f"bank_shards={entry['bank_sharding']}, flip {flip_ms:.2f} ms vs "
+          f"drained {drained_ms:.1f} ms ({len(decisions)} policy "
+          f"decisions, {applies} manifest applies, identical to the pinned "
+          "run)")
     return entry
 
 
@@ -528,8 +799,10 @@ def lm_cache_bench(*, smoke: bool = False, seed: int = 0,
 
 
 def sweep(*, smoke: bool = False, seed: int = 0, device=None) -> list[dict]:
-    """Every row: the tenants x slots grid, the device-physics row, then
-    the burst, chaos, telemetry and mega-kernel rows."""
+    """Every row: the tenants x slots grid, the device-physics row, the
+    bank-scaling and reshard rows, then the burst, chaos, autopilot,
+    telemetry, mega-kernel and semantic-cache rows (the sharded ones
+    under ``REPRO_FORCE_MESH`` only)."""
     tenant_grid = SMOKE_TENANTS if smoke else TENANT_SWEEP
     slot_grid = SMOKE_SLOTS if smoke else SLOT_SWEEP
 
@@ -549,8 +822,15 @@ def sweep(*, smoke: bool = False, seed: int = 0, device=None) -> list[dict]:
                                  requests=requests_for(slots), seed=seed,
                                  backend="device", device=device))
     _report(entries[-1])
+    entries.extend(bank_scaling_sweep(smoke=smoke, seed=seed, device=device))
+    reshard = reshard_bench(seed=seed, device=device)
+    if reshard is not None:
+        entries.append(reshard)
     entries.append(burst_bench(smoke=smoke, seed=seed, device=device))
     entries.append(chaos_bench(smoke=smoke, seed=seed, device=device))
+    pilot_row = autopilot_bench(smoke=smoke, seed=seed, device=device)
+    if pilot_row is not None:
+        entries.append(pilot_row)
     entries.append(telemetry_overhead_bench(smoke=smoke, seed=seed,
                                             device=device))
     entries.append(megakernel_bench(smoke=smoke, seed=seed, device=device))
@@ -583,11 +863,17 @@ def _row_name(e: dict) -> str:
         return "serving_megakernel"
     if "telemetry_overhead_pct" in e:
         return "serving_telemetry_overhead"
+    if "flip_downtime_ms" in e:
+        return "serving_autopilot"
+    if "reshard_downtime_ms" in e:
+        return f"serving_reshard_1to{e['bank_sharding']}"
     if e.get("trace") == "chaos":
         return "serving_chaos_recovery"
     if e.get("trace") == "burst":
         return f"serving_burst_t{e['tenants']}_s{e['slots']}"
     return (f"serving_t{e['tenants']}_c{e['classes']}_s{e['slots']}"
+            + ("" if e["bank_sharding"] == 1
+               else f"_shard{e['bank_sharding']}")
             + ("" if e["matching_backend"] == "default"
                else f"_{e['matching_backend']}"))
 
@@ -609,6 +895,15 @@ def _row_derived(e: dict) -> str:
         return (f"overhead={e['telemetry_overhead_pct']}%,"
                 f"base={e['base_us_per_request']}us,"
                 f"tel={e['telemetry_us_per_request']}us")
+    if "flip_downtime_ms" in e:
+        return (f"flip={e['flip_downtime_ms']}ms,"
+                f"drained={e['drained_downtime_ms']}ms,"
+                f"flips={e['policy_flips']},"
+                f"shards={e['bank_sharding']}")
+    if "reshard_downtime_ms" in e:
+        return (f"downtime={e['reshard_downtime_ms']}ms,"
+                f"moved={e['tenants_moved']},"
+                f"{e['requests_per_s']:.0f}req/s")
     if e.get("trace") == "chaos":
         return (f"recovery={e['recovery_ms']}ms,"
                 f"lost={e['lost_in_flight']},"

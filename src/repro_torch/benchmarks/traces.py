@@ -10,9 +10,11 @@ kill injected) and compares.
 `replay` drives a `HybridService` through a trace and returns p99 latency
 split by burst/calm phase, shed and escalation counts, and, when a
 `ChaosPlan` injects a mid-stream kill, the snapshot-restore recovery time.
-Chaos events are positioned by tick index. Device loss (``lose_devices_at``,
-``heal_at_tick``) needs the super-bank sharded over several cards and
-raises `NotImplementedError` until the multi-GPU slice.
+Chaos events are positioned by tick index; ``lose_devices_at`` /
+``heal_at_tick`` fail devices over through `HybridService.
+handle_device_loss` / `restore_devices` (indices into
+`repro_torch.distributed.context.devices()`: a forced mesh's entries on
+one card).
 
 Used by `repro_torch.benchmarks.serving_bench` (the burst and chaos rows).
 """
@@ -50,11 +52,9 @@ class ChaosPlan:
     snapshot_every: int = 8  # snapshot cadence in ticks (0: never)
     kill_at_tick: int | None = None  # SIGKILL-equivalent: drop the service
     #                                  object, restore from the checkpoint
-    #: device loss and heal (the JAX harness's fields; raise in `replay`
-    #: until the multi-GPU slice)
-    lose_devices_at: int | None = None
-    lose: tuple[int, ...] = (1,)
-    heal_at_tick: int | None = None
+    lose_devices_at: int | None = None  # simulate device loss at this tick
+    lose: tuple[int, ...] = (1,)  # which device indices fail
+    heal_at_tick: int | None = None  # restore_devices at this tick
 
 
 def zipf_weights(cfg: TraceConfig) -> np.ndarray:
@@ -150,11 +150,6 @@ def replay(svc, trace: list[tuple], pool: TenantPool, *,
     """
     from repro_torch.serve.acam_service import AdmissionError
 
-    if chaos is not None and (chaos.lose_devices_at is not None
-                              or chaos.heal_at_tick is not None):
-        raise NotImplementedError(
-            "ChaosPlan device loss / heal: failing over between cards comes "
-            "with the multi-GPU slice of the port")
     lat = {"burst": [], "calm": [], "drain": []}
     stats = {"submitted": 0, "rejected": 0, "completed": 0, "errors": 0,
              "shed": 0, "escalated": 0, "recovery_ms": None,
@@ -216,4 +211,10 @@ def _inject(svc, chaos: ChaosPlan, ticks: int, stats: dict):
         t0 = time.perf_counter()
         svc, _report = HybridService.restore(chaos.ckpt, device=device)
         stats["recovery_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+    if ticks == chaos.lose_devices_at:
+        report = svc.handle_device_loss(chaos.lose)
+        stats["device_loss_downtime_ms"] = round(report.downtime_s * 1e3, 3)
+        stats["post_loss_bank_shards"] = svc.registry.bank_shards
+    if ticks == chaos.heal_at_tick:
+        svc.restore_devices()
     return svc

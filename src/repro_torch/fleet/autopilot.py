@@ -17,15 +17,18 @@ post-action ``policy.cooldown`` window): snapshot `view_of(service)`, run
 `policy.explain`, and require the SAME proposal on ``policy.hysteresis``
 consecutive evaluations before acting. Actions execute as:
 
+  escalate_shards   the double-buffered rolling path: `reshard.prepare`
+                    builds the shadow bank NOW (overlapped with serving)
+                    and the flip lands at the next observed tick boundary,
+                    with no drain. A flip that finds its buffer stale
+                    (tenant churn won the race) re-prepares and retries at
+                    the following boundary. (With ``mesh.install`` set,
+                    one card without a forced mesh never proposes it:
+                    `policy._shards_allowed`.)
   swap_backend /    the drained `reconfigure` path; the drained responses
   widen_slots       surface through `take_drained()`.
   compact           `service.compact_registry()`, taken when the policy
                     proposes no spec change but `should_compact` fires.
-  escalate_shards   raises `NotImplementedError`: the double-buffered
-                    rolling reshard needs the super-bank sharded over
-                    several cards, which comes with the multi-GPU slice.
-                    (With ``mesh.install`` set, one card never proposes
-                    it: `policy._shards_allowed`.)
 
 Every executed action emits a `policy_decision` event carrying the full
 frozen view it decided from, so replaying `policy.explain` over the logged
@@ -33,8 +36,10 @@ views reproduces the action stream.
 """
 from __future__ import annotations
 
+from repro_torch.fleet import reshard as reshard_lib
 from repro_torch.fleet.policy import (PolicySpec, explain, should_compact,
                                       view_of)
+from repro_torch.serve.registry import RegistryError
 
 
 class Autopilot:
@@ -49,13 +54,17 @@ class Autopilot:
         self._streak_key = None
         self._streak = 0
         self._cooldown_until = -1
+        self._pending: reshard_lib.PreparedReshard | None = None
 
     # -- the serving loop's hook -------------------------------------------
 
     def observe_tick(self) -> str | None:
         """Call after every `service.step()`. Returns the action executed
-        at THIS boundary, or None."""
+        at THIS boundary (a pending buffer flip landing included), or
+        None."""
         self.ticks += 1
+        if self._pending is not None:
+            return self._flip_pending()
         if self.ticks % self.policy.interval:
             return None
         if self.ticks < self._cooldown_until:
@@ -91,11 +100,9 @@ class Autopilot:
             return None
 
         if action == "escalate_shards":
-            raise NotImplementedError(
-                f"autopilot proposes {reason}: sharding the super-bank over "
-                "several cards (the rolling reshard) comes with the "
-                "multi-GPU slice of the port")
-        if action == "compact":
+            # double-buffered: build the shadow now, flip next boundary
+            self._pending = reshard_lib.prepare(self.service, target)
+        elif action == "compact":
             self.service.compact_registry()
         else:
             report = self.service.reconfigure(target)
@@ -104,6 +111,22 @@ class Autopilot:
         self._streak_key, self._streak = None, 0
         self._cooldown_until = self.ticks + self.policy.cooldown
         return action
+
+    def _flip_pending(self) -> str | None:
+        prep = self._pending
+        try:
+            self.service.rolling_reshard(prep.spec, prepared=prep)
+        except RegistryError:
+            # tenant churn between prepare and flip: re-prepare against
+            # the registry as it is now, flip at the next boundary
+            try:
+                self._pending = reshard_lib.prepare(self.service, prep.spec)
+            except (RegistryError, ValueError):
+                self._pending = None  # target no longer viable; re-evaluate
+            return None
+        self._pending = None
+        self._cooldown_until = self.ticks + self.policy.cooldown
+        return "buffer_flip"
 
     def _record(self, action: str, reason: str, view,
                 applied: bool) -> None:

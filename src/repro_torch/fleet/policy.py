@@ -11,10 +11,10 @@ evaluation proposes at most ONE transition, in fixed priority order:
 
   1. **escalate `bank_shards`** when the fullest shard's registered rows
      approach its row budget, or the per-shard fused row count approaches
-     `MAX_FUSED_ROWS`. On one card this never fires with ``mesh.install``
-     set (`_shards_allowed`: two shards do not divide one device); with it
-     off the proposal stands, and the `Autopilot` raises
-     `NotImplementedError` rather than act on it (the multi-GPU slice).
+     `MAX_FUSED_ROWS`. With ``mesh.install`` set the new count must
+     divide the available devices (`_shards_allowed`: on one card that
+     takes a forced mesh); the `Autopilot` executes it through the
+     double-buffered rolling reshard.
   2. **swap kernel -> device backend** when the ledger says E_backend
      dominates fleet energy (per-shard programming noise forced, as in the
      JAX package).

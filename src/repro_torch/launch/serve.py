@@ -40,7 +40,15 @@ snapshot there (a restart serves what the first run would have):
   python -m repro_torch.launch.serve --workload acam --snapshot-dir ckpt \
       --restore
 
-``--bank-shards > 1`` raises `NotImplementedError` (the multi-GPU slice).
+``--bank-shards N`` shards the super-bank's class rows over a model mesh
+axis of N devices, installed through the spec (`HybridService.from_spec`).
+N must divide the devices of `repro_torch.distributed.context.devices()`:
+on one card (or the CPU) that takes a forced mesh, whose N shards then run
+in turn on the one device; without one, ``--bank-shards 2`` raises the
+JAX launcher's `ValueError`:
+
+  REPRO_FORCE_MESH=1x2 python -m repro_torch.launch.serve --workload acam \
+      --bank-shards 2
 ``--profile-annotations`` marks each fused dispatch with
 `torch.profiler.record_function`.
 """
@@ -77,14 +85,6 @@ def build_acam_spec(args):
                              span_sample=args.span_sample,
                              profile_annotations=args.profile_annotations),
     )
-
-
-def _unported(args) -> None:
-    """Raise for the flags whose machinery comes with a later slice."""
-    if args.bank_shards > 1:
-        raise NotImplementedError(
-            f"--bank-shards {args.bank_shards}: sharding the super-bank "
-            "over several cards comes with the multi-GPU slice of the port")
 
 
 def run_lm(args, device=None, cfg=None) -> dict:
@@ -199,11 +199,17 @@ def run_acam(args, device=None) -> dict:
         svc, report = HybridService.restore(Checkpointer(args.snapshot_dir),
                                             device=device)
         print(f"restored step {report.step}: {report.tenants} tenants, "
-              f"{report.restore_s * 1e3:.1f} ms")
+              f"{report.restore_s * 1e3:.1f} ms"
+              + (" (resharded)" if report.resharded else ""))
         spec = svc.spec
     else:
         svc = HybridService.from_spec(spec, device=device)
     n_features = spec.registry.num_features
+    if spec.mesh.bank_shards > 1:
+        from repro_torch.distributed import context
+
+        print(f"installed serving mesh model={spec.mesh.bank_shards} "
+              f"({len(context.devices(svc.device))} devices)")
 
     protos = {}
     if args.manifest:
@@ -355,7 +361,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "default: REPRO_MATCHING_BACKEND / auto")
     ap.add_argument("--bank-shards", type=int, default=1,
                     help="shard the template super-bank's class rows over "
-                         "this many cards (only 1 in the port yet)")
+                         "a model mesh axis of this size (must divide the "
+                         "device count; on one card set REPRO_FORCE_MESH)")
     ap.add_argument("--snapshot-dir", default=None, metavar="DIR",
                     help="snapshot the service into DIR after serving")
     ap.add_argument("--restore", action="store_true",
@@ -391,7 +398,6 @@ def main(argv=None, *, device=None) -> dict:
     """Parse the JAX launcher's flags and run the workload on ``device``
     (the card unless the caller asks for the CPU)."""
     args = parse_args(argv)
-    _unported(args)
     runner = {"lm": run_lm, "acam": run_acam,
               "lm-cached": run_lm_cached}[args.workload]
     return runner(args, device=device)

@@ -106,6 +106,36 @@ def window_margin(per_class: torch.Tensor, class_lo=None, class_hi=None, *,
                            class_hi.to(torch.int32)[:, None], cap)
 
 
+def shard_window_top2(per_class: torch.Tensor, class_lo, class_hi,
+                      row0: int) -> tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Shard-local windowed (top1, winner index, top2): the margin partial.
+
+    ``per_class`` is this shard's (B, C_local) slice of the per-class
+    scores, ``row0`` the shard's first *global* class row; windows are
+    global class indices and may straddle shards (the offset iota
+    intersects them with this shard's rows). Returns the three (B,)
+    partials the engine's cross-shard merge combines: the top1 value, its
+    global class index (the lowest among local ties, as `torch.argmax`),
+    and the runner-up *excluding only the winner's position* (a tie
+    elsewhere gives top2 == top1, margin 0, as
+    `repro_torch.kernels.layout.windowed_margin`). No cap clamp here: the
+    clamp is global and comes after the merge.
+    """
+    c = per_class.shape[1]
+    iota = torch.arange(c, dtype=torch.int32,
+                        device=per_class.device)[None, :]
+    s = per_class
+    if class_lo is not None:
+        giota = iota + row0
+        win = (giota >= class_lo[:, None]) & (giota < class_hi[:, None])
+        s = per_class.masked_fill(~win, NEG)
+    local = torch.argmax(s, dim=-1)
+    top1 = torch.gather(s, 1, local[:, None])[:, 0]
+    top2 = s.masked_fill(iota == local[:, None], NEG).amax(dim=-1)
+    return top1, (local + row0).to(torch.int32), top2
+
+
 def feature_count_scores_ref(queries, templates, valid=None):
     """Eq. 8 reference: materialises the (B, C, K, N) comparison."""
     eq = queries[:, None, None, :] == templates[None, :, :, :]
@@ -141,6 +171,13 @@ class MatchBackend:
     shared epilogues; subclasses override the paths they can fuse."""
 
     name = "base"
+
+    #: whether the engine may cut this backend's bank into class-row shards
+    #: (`repro_torch.match.plan`): the digital backends' scores are
+    #: row-independent, so a shard computes the same per-class bits. The
+    #: device backend overrides it (programming noise is drawn per
+    #: physical array).
+    supports_bank_sharding = True
 
     def __init__(self, config: EngineConfig):
         self.config = config
@@ -189,6 +226,44 @@ class MatchBackend:
         pred, per_class, margin = self.classify_features_margin(
             features - thr_rows, bank, class_lo, class_hi)
         return pred, per_class, margin, margin < tau
+
+    # -- shard-local entry points (bank-sharded plans) -----------------------
+    #
+    # Under a bank-sharded `PartitionPlan` a shard holds class rows
+    # [row0, row0 + C_local) of the bank. These run the backend's classify
+    # on that shard and return per_class plus the (top1, global winner
+    # index[, top2]) summary the engine's cross-shard merge combines into
+    # the exact global decision and margin.
+
+    def classify_shard(self, queries, bank: TemplateBank, row0: int):
+        """Binary queries -> (per_class (B, C_local), top1 (B,), gidx)."""
+        pred, per_class = self.classify(queries, bank)
+        return per_class, per_class.amax(dim=-1), \
+            (pred + row0).to(torch.int32)
+
+    def classify_features_shard(self, features, bank: TemplateBank,
+                                row0: int):
+        """Raw features -> (per_class (B, C_local), top1 (B,), gidx)."""
+        pred, per_class = self.classify_features(features, bank)
+        return per_class, per_class.amax(dim=-1), \
+            (pred + row0).to(torch.int32)
+
+    def classify_features_margin_shard(self, features, bank: TemplateBank,
+                                       class_lo, class_hi, row0: int):
+        """Margin partials (per_class, top1, gidx, top2); windows global."""
+        _, per_class = self.classify_features(features, bank)
+        top1, gidx, top2 = shard_window_top2(per_class, class_lo, class_hi,
+                                             row0)
+        return per_class, top1, gidx, top2
+
+    def classify_serve_shard(self, features, thr_table, tenant_slot,
+                             bank: TemplateBank, class_lo, class_hi,
+                             row0: int):
+        """Serve partials: gather + shift on this shard, then the margin
+        partials; the engine's merge gives the decision and applies tau."""
+        thr_rows = thr_table[tenant_slot.to(torch.int64)]
+        return self.classify_features_margin_shard(
+            features - thr_rows, bank, class_lo, class_hi, row0)
 
 
 class ReferenceBackend(MatchBackend):
@@ -462,6 +537,48 @@ class DeviceBackend(MatchBackend):
         prog = self.program_bank(bank, key, bank_shards=bank_shards)
         q = quant.binarize(features, bank.thresholds)
         return classify_scores(self._sense_rows(prog, q, c, k))
+
+    # -- shard-local entry points (bank-sharded plans) -----------------------
+    #
+    # Each shard programs its OWN physical array: under "per_shard" noise
+    # the programming key folds in the shard index (row0 / C_local), so
+    # shard s realises the same noise field whether it runs on its own
+    # device or is emulated by `program_bank(..., bank_shards=S)`.
+
+    def _shard_scores(self, queries, bank: TemplateBank, row0: int,
+                      sense=acam_lib.sense) -> torch.Tensor:
+        c, k, _ = bank.templates.shape
+        prog = self.program_bank(bank, shard_index=row0 // c)
+        return sense(prog, queries).reshape(queries.shape[0], c, k)
+
+    def classify_shard(self, queries, bank, row0):
+        pred, per_class = classify_scores(
+            self._shard_scores(queries, bank, row0))
+        return per_class, per_class.amax(dim=-1), \
+            (pred + row0).to(torch.int32)
+
+    def classify_features_shard(self, features, bank, row0):
+        q = quant.binarize(features, bank.thresholds)
+        return self.classify_shard(q, bank, row0)
+
+    def classify_features_margin_shard(self, features, bank, class_lo,
+                                       class_hi, row0, *,
+                                       sense=acam_lib.sense):
+        q = quant.binarize(features, bank.thresholds)
+        _, per_class = classify_scores(
+            self._shard_scores(q, bank, row0, sense))
+        top1, gidx, top2 = shard_window_top2(per_class, class_lo, class_hi,
+                                             row0)
+        return per_class, top1, gidx, top2
+
+    def classify_serve_shard(self, features, thr_table, tenant_slot, bank,
+                             class_lo, class_hi, row0):
+        """The served tick's shard: sensed through `acam.sense_compiled`,
+        as `classify_serve` is (the JAX package's tick is jitted)."""
+        thr_rows = thr_table[tenant_slot.to(torch.int64)]
+        return self.classify_features_margin_shard(
+            features - thr_rows, bank, class_lo, class_hi, row0,
+            sense=acam_lib.sense_compiled)
 
     def margin_cap(self, num_features: int) -> float:
         return 1.0  # sense outputs live in [0, 1] matchline units

@@ -4,8 +4,9 @@ Built from ONE `repro_torch.serve.spec.ServiceSpec` (the front door is
 `repro_torch.serve.control.HybridService.from_spec`):
 
     submit -> admission (known tenant, feature dim, queue bound)
-           -> micro-batching scheduler (ONE `acam_match_serve` kernel call
-              per tick over the registry's super-bank)
+           -> micro-batching scheduler (ONE engine call per tick over the
+              registry's super-bank: one `acam_match_serve` kernel, or one
+              kernel a tile under a sharded mesh)
            -> confidence cascade: the per-request Eq. 12 winner-vs-runner-up
               **margin** decides
                 accept-at-ACAM   (margin >= tau): charge E_backend only
@@ -33,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -130,18 +132,41 @@ class ACAMService:
 
     def __init__(self, spec, *, config: ServiceConfig | None = None,
                  k_max: int = 2, class_bucket: int = 16,
-                 backend: str | None = None, device=None):
+                 backend: str | None = None, bank_shards: int | None = None,
+                 device=None):
         """``ACAMService(spec)``, or the deprecated keyword form
         ``ACAMService(num_features, config=ServiceConfig(...), k_max=...,
-        class_bucket=..., backend=...)``, bridged onto a spec by
-        `repro_torch.serve.spec.from_legacy` (prefer
-        `HybridService.from_spec`)."""
+        class_bucket=..., backend=..., bank_shards=...)``, bridged onto a
+        spec by `repro_torch.serve.spec.from_legacy` (prefer
+        `HybridService.from_spec`).
+
+        ``bank_shards`` aligns the registry's tenant placement to the bank
+        shards the engine's `PartitionPlan` cuts the super-bank into. None
+        infers it from the installed mesh, and warns when none is
+        installed: it then resolves to 1, which is the ordering trap this
+        constructor is deprecated for (`from_spec` installs the mesh
+        first)."""
         from repro_torch.serve import spec as spec_lib
 
         if not isinstance(spec, spec_lib.ServiceSpec):
+            if bank_shards is None:
+                from repro_torch.distributed import context
+                from repro_torch.match import plan as plan_lib
+
+                if context.get_mesh() is None:
+                    warnings.warn(
+                        "ACAMService(bank_shards=None) with no mesh "
+                        "installed: bank_shards silently resolves to 1. "
+                        "Install the serving mesh BEFORE constructing the "
+                        "service to shard the super-bank, or use the spec "
+                        "path (repro_torch.serve.control.HybridService."
+                        "from_spec), which installs it itself.",
+                        UserWarning, stacklevel=2)
+                bank_shards = plan_lib.bank_shards_in_mesh()
             spec = spec_lib.from_legacy(
                 int(spec), config=config, k_max=k_max,
-                class_bucket=class_bucket, backend=backend)
+                class_bucket=class_bucket, backend=backend,
+                bank_shards=bank_shards)
         self._build(spec, resolve(device))
 
     def _build(self, spec, device: torch.device) -> None:
@@ -155,7 +180,8 @@ class ACAMService:
             spec.registry.num_features, k_max=spec.registry.k_max,
             class_bucket=spec.registry.class_bucket,
             initial_classes=spec.registry.initial_classes,
-            initial_tenants=spec.registry.initial_tenants, device=device)
+            initial_tenants=spec.registry.initial_tenants,
+            bank_shards=spec.mesh.bank_shards, device=device)
         self.scheduler = MicroBatchScheduler(
             self.registry, slots=spec.scheduler.slots, engine=spec.engine,
             recorder=self.obs)
@@ -164,6 +190,13 @@ class ACAMService:
         self.scheduler.tau_fn = self._margin_tau_of
         self.scheduler.monitor.sink = self.obs.record_straggler
         self.obs.slots_gauge.set(spec.scheduler.slots)
+        #: control-plane failure state (a simulated device loss): None =
+        #: every device of `context.devices()` is healthy; else the
+        #: surviving list every mesh (re)install is built over
+        #: (`HybridService.handle_device_loss`)
+        self._devices = None
+        self._lost_devices: set[int] = set()
+        self._healthy_spec = spec  # the spec in force before any loss
         self._tenants: dict[str, _TenantRuntime] = {}
         self._head_w: np.ndarray | None = None  # (T_cap, N, C_head)
         self._head_b: np.ndarray | None = None  # (T_cap, C_head)
@@ -569,13 +602,21 @@ class ACAMService:
             "vmem_budget_rows": MAX_FUSED_ROWS,
             "rolling_batch_fill": round(self.obs.rolling_batch_fill(), 3),
             "slots": self.scheduler.slots,
-            # the cards the service runs on: one until the multi-GPU slice
-            "devices": 1,
+            # the mesh devices the service may build over (survivors after
+            # a device loss)
+            "devices": self._device_count(),
             "device": str(self.device),
             "p99_ms": round(self.obs.latency_quantile_ms(0.99), 4),
             "energy_backend_j": self.obs.ledger.backend_j(),
             "energy_frontend_j": self.obs.ledger.frontend_j(),
         }
+
+    def _device_count(self) -> int:
+        from repro_torch.distributed import context
+
+        if self._devices is not None:
+            return len(self._devices)
+        return len(context.devices(self.device))
 
     def reset_metrics(self) -> None:
         """Zero the run counters (e.g. after a warmup burst); gauges, the

@@ -19,12 +19,15 @@ Host numpy mirrors hold the authoritative state; the device tensors
 device and cached per `generation`, so an unchanged registry never
 re-uploads.
 
-The registry is shard-aligned as the JAX package's is, at one shard: the
-port serves from one card (``bank_shards`` 1, `rows_per_shard` ==
-``C_cap``), and `reshard` / `prepare_reshard` come with the multi-GPU
-slice. `compact` re-packs every tenant into the smallest capacity after
-evictions (`_build_shadow` + `adopt_prepared`, the JAX code at one shard),
-and `snapshot_state` / `load_state` carry the whole durable state
+With ``bank_shards=S`` (the spec path passes `ServiceSpec.mesh.bank_shards`)
+capacity stays divisible by S whole buckets and no tenant's bucket run
+straddles a shard boundary (`_alloc_classes` skips to the next shard), so
+a tenant's rows share a device under the engine's bank-sharded plan.
+`reshard` re-packs the runs to new shard boundaries with zero
+re-registrations; `prepare_reshard` + `adopt_prepared` is its
+double-buffered form (`repro_torch.fleet.reshard`). `compact` re-packs
+every tenant into the smallest capacity after evictions, and
+`snapshot_state` / `load_state` carry the whole durable state
 (`repro_torch.serve.snapshot`) in the JAX package's layout, so a snapshot
 restores in either package.
 """
@@ -90,15 +93,21 @@ class TemplateBankRegistry:
 
     def __init__(self, num_features: int, *, k_max: int = 2,
                  class_bucket: int = 16, initial_classes: int = 128,
-                 initial_tenants: int = 8, device=None):
+                 initial_tenants: int = 8, bank_shards: int = 1,
+                 device=None):
         if initial_classes % class_bucket:
             raise ValueError("initial_classes must be a class_bucket multiple")
+        if bank_shards < 1:
+            raise ValueError("bank_shards must be >= 1")
         self.num_features = num_features
         self.k_max = k_max
         self.class_bucket = class_bucket
         self.device = resolve(device)
-        #: class-row shards of the super-bank: one card serves them all
-        self.bank_shards = 1
+        self.bank_shards = bank_shards
+        # capacity cuts into bank_shards equal shards of whole buckets (the
+        # engine's PartitionPlan cuts class rows in C_cap/S chunks)
+        align = bank_shards * class_bucket
+        initial_classes = -(-initial_classes // align) * align
         self._c_cap = initial_classes
         self._t_cap = initial_tenants
         n = num_features
@@ -156,7 +165,7 @@ class TemplateBankRegistry:
 
     @property
     def rows_per_shard(self) -> int:
-        """Class rows per bank shard (``C_cap`` at one shard)."""
+        """Class rows per bank shard (``C_cap`` when unsharded)."""
         return self._c_cap // self.bank_shards
 
     def stats(self) -> dict:
@@ -182,11 +191,16 @@ class TemplateBankRegistry:
     # -- allocation ---------------------------------------------------------
 
     def _alloc_classes(self, n_buckets: int) -> int:
-        """First-fit contiguous bucket run; grows capacity (doubling) when
-        fragmented or full — the only event that changes device shapes."""
+        """First-fit contiguous bucket run that never straddles a shard
+        boundary; grows capacity (doubling) when fragmented or full, the
+        only event that changes device shapes. Growth doubles the shard
+        size, so new boundaries are a subset of the old ones."""
         while True:
+            shard_buckets = self.rows_per_shard // self.class_bucket
             run = 0
             for i, used in enumerate(self._bucket_used):
+                if i % shard_buckets == 0:
+                    run = 0  # runs restart at every shard boundary
                 run = 0 if used else run + 1
                 if run == n_buckets:
                     start = i - n_buckets + 1
@@ -370,6 +384,31 @@ class TemplateBankRegistry:
                             arrays=arrays, bucket_used=bucket_used,
                             placements=placements, moved=moved)
 
+    def prepare_reshard(self, bank_shards: int) -> PreparedBank:
+        """Build the super-bank re-packed to ``bank_shards`` shards BESIDE
+        the live one (the prepare half of the double-buffered reshard,
+        `repro_torch.fleet.reshard`): the live bank keeps serving while
+        this copies, and `adopt_prepared` flips to it between ticks. The
+        buffer records the source generation, so a registry mutation after
+        prepare makes it stale and the flip refuses it."""
+        if bank_shards < 1:
+            raise ValueError("bank_shards must be >= 1")
+        align = bank_shards * self.class_bucket
+        cap = -(-self._c_cap // align) * align
+        return self._build_shadow(cap, bank_shards)
+
+    def reshard(self, bank_shards: int) -> int:
+        """Re-pack every tenant's bucket run to new shard boundaries
+        without re-registering anyone: ids, slots, thresholds, head tables,
+        template rows and `valid_rows` survive, only class offsets move
+        (and capacity grows when the new alignment needs more rows).
+        Returns the number of tenants whose offset changed. The control
+        plane drains the scheduler first (`prepare_reshard` +
+        `adopt_prepared` is the no-drain form)."""
+        if bank_shards == self.bank_shards:
+            return 0
+        return self.adopt_prepared(self.prepare_reshard(bank_shards))
+
     def adopt_prepared(self, prepared: PreparedBank) -> int:
         """Flip to a shadow bank from `_build_shadow`: swap the host arrays
         and allocation map, move tenant offsets and bump the generation
@@ -445,21 +484,17 @@ class TemplateBankRegistry:
 
     def load_state(self, arrays: dict, meta: dict) -> None:
         """Adopt a `snapshot_state` payload wholesale (zero
-        re-registrations). The bank-shape fields must match this registry's;
-        a snapshot of a bank sharded over several cards needs the multi-GPU
-        slice."""
+        re-registrations), its shard count included. The bank-shape fields
+        must match this registry's."""
         for field in ("num_features", "k_max", "class_bucket"):
             if meta[field] != getattr(self, field):
                 raise RegistryError(
                     f"snapshot {field}={meta[field]} does not match this "
                     f"registry's {field}={getattr(self, field)}; restore "
                     "through a spec built from the snapshot")
-        if int(meta["bank_shards"]) != 1:
-            raise NotImplementedError(
-                f"a snapshot of a super-bank in {meta['bank_shards']} shards "
-                "restores with the multi-GPU slice of the port")
         self._c_cap = int(meta["capacity_classes"])
         self._t_cap = int(meta["capacity_tenants"])
+        self.bank_shards = int(meta["bank_shards"])
         self._templates = np.array(arrays["templates"], np.float32)
         self._lower = np.array(arrays["lower"], np.float32)
         self._upper = np.array(arrays["upper"], np.float32)

@@ -8,7 +8,11 @@ served by ONE matching call per tick:
               super-bank: the per-slot tenant threshold-row gather,
               binarisation, match, per-slot class-window Eq. 12 decision +
               margin and the cascade's ``margin < tau`` bit — on the kernel
-              backend one `acam_match_serve` kernel call
+              backend one `acam_match_serve` kernel call; when a mesh is
+              installed the engine cuts the same call by its
+              `PartitionPlan` (slots over the dp axes, the bank's class
+              rows over the model axis, one kernel a tile and an exact
+              cross-shard merge), still one engine call per tick
            -> per-slot tenant-local predictions + margins + escalate bits
 
 The batch shape is pinned to ``slots``: ragged tails are padded with empty

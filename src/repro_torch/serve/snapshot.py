@@ -17,13 +17,17 @@ snapshot written by either restores in the other.
 
 Restore boots through the spec front door with ``mesh.install`` off (as
 the JAX package does), adopts the snapshot wholesale
-(`TemplateBankRegistry.load_state`: no `register()` call), and then
-reconfigures to the snapshot's own spec.
+(`TemplateBankRegistry.load_state`: no `register()` call, the snapshot's
+shard count included), and then reconfigures to the target spec: the
+snapshot's own, or its spec on another mesh (``mesh=``), which re-packs the
+super-bank to the new shard boundaries as a live reshard would.
 
     ckpt = Checkpointer("/var/lib/acam/ckpt")
     svc.snapshot(ckpt)                      # periodic, async-capable
     ...process dies...
-    svc, report = HybridService.restore(ckpt)
+    svc, report = HybridService.restore(ckpt)            # same mesh
+    svc, report = HybridService.restore(                 # 2 -> 4 shards
+        ckpt, mesh=MeshSpec(bank_shards=4))
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ import numpy as np
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.core import energy as energy_lib
-from repro_torch.serve.spec import ServiceSpec
+from repro_torch.serve.spec import MeshSpec, ServiceSpec
 
 _FORMAT = 1
 
@@ -115,10 +119,13 @@ def load_state(ckpt: Checkpointer, step: int | None = None
 
 
 def restore_service(ckpt: Checkpointer, step: int | None = None, *,
-                    cls=None, device=None):
+                    mesh: MeshSpec | None = None, cls=None, device=None):
     """Rebuild a ready-to-serve `HybridService` on ``device`` (the card
     unless the caller asks for the CPU) from its latest (or a given)
-    snapshot. Returns ``(service, RestoreReport)``."""
+    snapshot. ``mesh`` restores onto a DIFFERENT mesh than the one
+    snapshotted: the registry is adopted at the snapshot's shard count,
+    then `reconfigure` re-packs it to the target's. Returns ``(service,
+    RestoreReport)``."""
     from repro_torch.serve.acam_service import _TenantRuntime
     from repro_torch.serve.control import HybridService
 
@@ -150,11 +157,12 @@ def restore_service(ckpt: Checkpointer, step: int | None = None, *,
     if adopt is not None:
         adopt(meta.get("extra") or {})
 
+    target = spec if mesh is None else spec._replace(mesh=mesh)
+    resharded = target.mesh.bank_shards != meta["registry"]["bank_shards"]
     actions: tuple[str, ...] = ()
-    if spec != svc.spec:
-        actions = svc.reconfigure(spec).actions
+    if target != svc.spec:
+        actions = svc.reconfigure(target).actions
     return svc, RestoreReport(
         step=step, spec=svc.spec, tenants=len(meta["tenants"]),
-        restore_s=time.perf_counter() - t0,
-        resharded=spec.mesh.bank_shards != meta["registry"]["bank_shards"],
+        restore_s=time.perf_counter() - t0, resharded=resharded,
         actions=actions)

@@ -19,8 +19,10 @@ margins (0..N, the feature-count backends), "fraction" = matchline-fraction
 margins (0..1, the similarity method). The service converts the spec's
 units to the backend's native units itself (`tau_scale`).
 
-Not yet in the port: sharding the super-bank over several cards
-(``MeshSpec.bank_shards > 1``, the multi-GPU slice) — `validate` raises.
+`validate` raises on cross-field conflicts: the device backend refusing
+bank shards under "global" `sigma_program` noise, registry capacity not
+divisible into the requested shards, a fraction tau above the matchline
+cap.
 """
 from __future__ import annotations
 
@@ -32,9 +34,10 @@ from repro_torch.match.config import EngineConfig
 
 
 class MeshSpec(NamedTuple):
-    """How the service's devices are laid out. The port serves from one
-    card: ``bank_shards`` must be 1 until the multi-GPU slice, and the
-    other fields ride along for the spec's JSON."""
+    """How the service's mesh is laid out, and whether the control plane
+    installs it: with ``install`` set, `HybridService.from_spec` builds a
+    (data = devices/bank_shards, model = bank_shards) mesh over
+    `repro_torch.distributed.context.devices()` before anything else."""
 
     bank_shards: int = 1  # super-bank class-row shards (model-axis size)
     data_axis: str = "data"
@@ -212,11 +215,6 @@ class ServiceSpec(NamedTuple):
         if mesh.bank_shards < 1:
             raise ValueError(f"bank_shards must be >= 1, got "
                              f"{mesh.bank_shards}")
-        if mesh.bank_shards > 1:
-            raise NotImplementedError(
-                f"bank_shards={mesh.bank_shards}: sharding the super-bank "
-                "over several cards comes with the multi-GPU slice of the "
-                "port")
         align = mesh.bank_shards * reg.class_bucket
         if reg.initial_classes < 1 or reg.initial_classes % align:
             raise ValueError(

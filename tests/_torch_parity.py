@@ -7,6 +7,13 @@ Pallas kernels in interpret mode, as its own tests do.
 """
 from __future__ import annotations
 
+import contextlib
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
 import numpy as np
 import torch
 
@@ -69,6 +76,70 @@ def assert_equal_outputs(got, want, names=("pred", "per_class", "margin",
     assert len(got) == len(want)
     for name, g, w in zip(names, got, want):
         np.testing.assert_array_equal(to_np(g), to_np(w), err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# Sharded execution: forced meshes in the port, the JAX package's sharded
+# path in a subprocess (its host-device count is fixed when jax starts)
+# ---------------------------------------------------------------------------
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+
+@contextlib.contextmanager
+def port_mesh(shape: tuple[int, int]):
+    """A forced (data, model) mesh of the CPU repeated, installed in the
+    port's context for the ``with`` block and cleared after (the mesh is a
+    process global: a later test in this worker must not run sharded)."""
+    from repro_torch.distributed import context, forcemesh
+
+    try:
+        yield forcemesh.install(shape, device="cpu")
+    finally:
+        context.clear()
+
+
+class JaxJob:
+    """``code`` running in a fresh interpreter whose jax has ``ndev`` CPU
+    host devices (``env`` adds variables); the code prints one JSON
+    object on a line starting "OUT ". Started at construction, so the
+    port's side of a test can run meanwhile; `result` waits. One job per
+    scenario group: each costs a jax start-up."""
+
+    def __init__(self, code: str, ndev: int, env: dict | None = None):
+        full = dict(os.environ)
+        full["PYTHONPATH"] = SRC
+        full["JAX_PLATFORMS"] = "cpu"
+        full["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={ndev}"
+        full.pop("REPRO_FORCE_MESH", None)
+        full.pop("REPRO_REDUCE_STRATEGY", None)
+        full.update(env or {})
+        self._proc = subprocess.Popen(
+            [sys.executable, "-c", textwrap.dedent(code)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=full)
+        self._out = None
+
+    def result(self, timeout: int = 600) -> dict:
+        if self._out is None:
+            try:
+                stdout, stderr = self._proc.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                self._proc.kill()
+                self._proc.communicate()
+                raise
+            assert self._proc.returncode == 0, f"stderr:\n{stderr[-3000:]}"
+            lines = [li for li in stdout.splitlines()
+                     if li.startswith("OUT ")]
+            assert lines, f"no OUT line:\n{stdout[-2000:]}"
+            self._out = json.loads(lines[-1][4:])
+        return self._out
+
+
+def run_jax_sharded(code: str, ndev: int, env: dict | None = None,
+                    timeout: int = 600) -> dict:
+    """`JaxJob` run to its end."""
+    return JaxJob(code, ndev, env).result(timeout)
 
 
 # ---------------------------------------------------------------------------

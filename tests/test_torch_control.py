@@ -184,10 +184,16 @@ def test_load_state_across_packages():
     _same_state(t_from_j, j_from_t)
     np.testing.assert_array_equal(to_np(t_from_j.device_bank().templates),
                                   to_np(jreg.device_bank().templates))
-    arrays, meta = jreg.snapshot_state()
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        TRegistry(N, device="cpu").load_state(arrays,
-                                              dict(meta, bank_shards=2))
+    # a super-bank in two shards loads with its shard count, both ways
+    jreg2 = _churn(JRegistry(N, bank_shards=2), JBank)
+    treg2 = _churn(TRegistry(N, bank_shards=2, device="cpu"), TBank)
+    _same_state(treg2, jreg2)
+    t_from_j2, j_from_t2 = TRegistry(N, device="cpu"), JRegistry(N)
+    t_from_j2.load_state(*jreg2.snapshot_state())
+    j_from_t2.load_state(*treg2.snapshot_state())
+    assert t_from_j2.bank_shards == j_from_t2.bank_shards == 2
+    _same_state(t_from_j2, j_from_t2)
+    assert t_from_j2.shard_rows_used() == jreg2.shard_rows_used()
 
 
 # ---------------------------------------------------------------------------
@@ -307,10 +313,12 @@ def test_reconfigure_refusals_and_noop():
         with pytest.raises(ReconfigureError, match=field):
             svc.reconfigure(before._replace(
                 registry=before.registry._replace(**{field: value})))
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # an installed mesh of one CPU device cannot hold two shards: refused
+    # before anything changes
+    with pytest.raises(ReconfigureError, match="does not divide"):
         svc.reconfigure(before._replace(
-            mesh=before.mesh._replace(bank_shards=2)))
-    assert svc.spec == before
+            mesh=before.mesh._replace(bank_shards=2, install=True)))
+    assert svc.spec == before and svc.registry.bank_shards == 1
     report = svc.reconfigure(before)
     assert report.actions == () and report.drained == [] \
         and report.downtime_s == 0.0

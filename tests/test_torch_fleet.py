@@ -2,10 +2,10 @@
 (`repro.fleet`): manifests as values (JSON text, validation, diffs, tau
 units), bank checkpoints in both directions, `materialize`,
 `apply_manifest` on live services, the pure policy over a grid of views,
-and the autopilot's action log over one trace. On one card the policy's
-shard escalation (rule 1) is blocked with ``mesh.install`` set, and the
-port's `Autopilot` raises `NotImplementedError` where the JAX one would
-reshard.
+and the autopilot's action log over one trace. On one card without a
+forced mesh the policy's shard escalation (rule 1) is blocked with
+``mesh.install`` set; without an installed mesh the `Autopilot` executes
+it through the double-buffered rolling reshard, as the JAX one does.
 """
 import itertools
 import json
@@ -268,14 +268,44 @@ def test_shard_escalation_blocked_on_one_card():
 
 
 def test_autopilot_refuses_a_shard_escalation():
+    """The escalation the port once refused: with no installed mesh the
+    autopilot now prepares the shadow bank at its streak and flips it at
+    the next tick, as the JAX autopilot does, and the flipped service
+    serves what it served before."""
     svc = _full_service(install=False)
     assert tfleet.explain(tfleet.view_of(svc))[0] == "escalate_shards"
-    pilot = tfleet.Autopilot(svc, policy=tfleet.PolicySpec(
-        interval=1, hysteresis=2))
-    assert pilot.observe_tick() is None  # hysteresis: streak 1
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        pilot.observe_tick()
-    assert svc.registry.bank_shards == 1 and pilot.actions == []
+    jsvc = JService.from_spec(_spec(jspec, install=False))
+    for t in range(8):
+        bank, head, _ = jsvc_lib.make_synthetic_tenant(
+            50 + t, num_classes=10, num_features=N)
+        jsvc.register_tenant(f"t{t}", bank, head=head)
+    stream = []
+    for t in range(8):
+        _, _, p = jsvc_lib.make_synthetic_tenant(50 + t, num_classes=10,
+                                                 num_features=N)
+        f, _ = jsvc_lib.sample_tenant_queries(t, p, 4, noise=0.9)
+        stream += [(f"t{t}", f[i]) for i in range(4)]
+
+    def sig(s, lib):
+        return [(r.tenant_id, r.pred, r.escalated, round(r.margin, 6))
+                for r in s.serve([lib.ClassifyRequest(t, f)
+                                  for t, f in stream])]
+
+    before = sig(svc, tsvc_lib)
+    assert before == sig(jsvc, jsvc_lib)
+    policy = dict(interval=1, hysteresis=2)
+    pilot = tfleet.Autopilot(svc, policy=tfleet.PolicySpec(**policy))
+    jpilot = jfleet.Autopilot(jsvc, policy=jfleet.PolicySpec(**policy))
+    got = [pilot.observe_tick() for _ in range(3)]
+    assert got == [jpilot.observe_tick() for _ in range(3)] == [
+        None, "escalate_shards", "buffer_flip"]
+    assert svc.registry.bank_shards == jsvc.registry.bank_shards == 2
+    assert svc.spec.to_json() == jsvc.spec.to_json()
+    assert [a["action"] for a in pilot.actions] == ["escalate_shards"]
+    _, tmeta = svc.registry.snapshot_state()
+    _, jmeta = jsvc.registry.snapshot_state()
+    assert tmeta == jmeta
+    assert sig(svc, tsvc_lib) == before == sig(jsvc, jsvc_lib)
 
 
 def _drive(svc, pilot, reqs, burst):

@@ -58,6 +58,10 @@ slice9 = {"repro_torch.launch.steps", "repro_torch.launch.train",
           "repro_torch.optim.compression",
           "repro_torch.examples.acam_head_for_hubert"}
 assert slice9 <= set(names), sorted(slice9 - set(names))
+slice10 = {"repro_torch.distributed", "repro_torch.distributed.context",
+           "repro_torch.distributed.forcemesh", "repro_torch.launch.mesh",
+           "repro_torch.match.plan", "repro_torch.fleet.reshard"}
+assert slice10 <= set(names), sorted(slice10 - set(names))
 import chip_smoke
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
@@ -71,7 +75,7 @@ def test_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", BLOCKED_IMPORT], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 101  # every module of the nine slices
+    assert int(out.stdout.strip()) >= 107  # every module of the ten slices
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -116,6 +120,28 @@ def test_entry_points_need_the_card_or_an_explicit_cpu():
                      StudentConfig(filters=(2, 2, 2, 1)))
     svc = HybridService.from_spec(ServiceSpec(), device="cpu")
     assert svc.device == torch.device("cpu")
+
+
+def test_mesh_entry_points_need_the_card_or_an_explicit_cpu(monkeypatch):
+    """The device list a mesh is built over, a serving mesh and a forced
+    mesh all default to the card; on the CPU they are asked for."""
+    from repro_torch.distributed import context, forcemesh
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    monkeypatch.delenv("REPRO_FORCE_MESH", raising=False)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    context.clear()  # an earlier test's service may have installed one
+    try:
+        for fn in (context.devices, make_serving_mesh,
+                   lambda: forcemesh.install((1, 2))):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                fn()
+        assert context.get_mesh() is None
+        assert forcemesh.install((1, 2), device="cpu").virtual
+        assert context.devices() == [torch.device("cpu")] * 2
+    finally:
+        context.clear()
 
 
 def test_device_physics_entry_points_need_the_card_or_an_explicit_cpu():

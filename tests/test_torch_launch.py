@@ -6,12 +6,14 @@ multi-tenant service through `repro.launch.serve.main` and
 synthetic tenants, N = 100). Both must report the same accuracy,
 completed, escalated, classify_dispatches and escalation rate, and print the
 same resolved spec; so must the flag-built service under ``--backend
-device``. The ``lm`` and ``lm-cached`` workloads run; ``--bank-shards > 1``
-(the multi-GPU slice) raises `NotImplementedError`.
+device``. The ``lm`` and ``lm-cached`` workloads run. ``--bank-shards 2``
+raises the JAX launcher's `ValueError` on one device and, under a forced
+1x2 mesh, serves what the JAX launcher serves on two host devices.
 """
 import numpy as np
 import pytest
 
+from _torch_parity import run_jax_sharded
 from repro.launch import serve as jserve
 from repro.match.config import EngineConfig
 from repro.serve import spec as jspec
@@ -102,12 +104,49 @@ def test_backend_device_flag_matches_jax(capsys, jax_mesh_cleared, noise):
     assert 0.0 < got["escalation_rate"] < 1.0
 
 
+SHARDED_ARGV = ["--workload", "acam", "--bank-shards", "2", "--tenants",
+                "3", "--requests", "48", "--slots", "16", "--noise", "1.2",
+                "--print-spec"]
+
+
 @pytest.mark.parametrize("flags,match", [
-    (["--workload", "acam", "--bank-shards", "2"], "multi-GPU slice"),
+    (["--workload", "acam", "--bank-shards", "2"],
+     "must divide the 1 available devices"),
 ])
-def test_unported_flags_raise(flags, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_flags_raise(flags, match, capsys, monkeypatch):
+    """Once refused as unported, ``--bank-shards 2`` now shards: without a
+    forced mesh one CPU device cannot hold two shards (the JAX launcher's
+    `ValueError`, raised by both), and under ``REPRO_FORCE_MESH=1x2`` the
+    port serves what the JAX launcher serves on two host devices."""
+    from repro_torch.distributed import context
+
+    monkeypatch.delenv("REPRO_FORCE_MESH", raising=False)
+    with pytest.raises(ValueError, match=match):
+        jserve.main(flags)
+    with pytest.raises(ValueError, match=match):
         tserve.main(flags, device="cpu")
+    want = run_jax_sharded(f"""
+        import contextlib, io, json
+        from repro.launch import serve
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            got = serve.main({SHARDED_ARGV!r})
+        out = {{k: got[k] for k in {KEYS!r}}}
+        out["stdout"] = buf.getvalue().split("acam service:")[0]
+        print("OUT", json.dumps(out))
+        """, ndev=2)
+    capsys.readouterr()
+    monkeypatch.setenv("REPRO_FORCE_MESH", "1x2")
+    try:
+        got = tserve.main(SHARDED_ARGV, device="cpu")
+        assert context.get_mesh().shape == {"data": 1, "model": 2}
+    finally:
+        context.clear()
+    torch_out = capsys.readouterr().out
+    assert torch_out.split("acam service:")[0] == want["stdout"]
+    assert "installed serving mesh model=2 (2 devices)" in torch_out
+    for key in KEYS:
+        assert got[key] == want[key], key
 
 
 @pytest.mark.parametrize("workload,key,want", [("lm", "tokens", 8 * 16),

@@ -97,9 +97,29 @@ def test_spec_json_is_the_same_text():
 
 
 def test_spec_refuses_what_the_port_lacks():
+    """The port lacks nothing the spec can say any more: a sharded spec
+    validates in both packages as the same JSON, and both refuse the same
+    conflicts (a capacity that does not cut into the shards, global device
+    noise across shards)."""
     js, ts = _specs()
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        ts._replace(mesh=ts.mesh._replace(bank_shards=2)).validate()
+    for shards in (2, 4):
+        j2 = js._replace(mesh=js.mesh._replace(bank_shards=shards))
+        t2 = ts._replace(mesh=ts.mesh._replace(bank_shards=shards))
+        assert t2.validate().to_json() == j2.validate().to_json()
+    from repro.core.acam import ACAMConfig as JACAM
+    from repro_torch.core.acam import ACAMConfig as TACAM
+
+    for spec, acam in ((js, JACAM), (ts, TACAM)):
+        with pytest.raises(ValueError, match="shards of whole"):
+            spec._replace(mesh=spec.mesh._replace(bank_shards=3)).validate()
+        noisy = spec._replace(
+            mesh=spec.mesh._replace(bank_shards=2),
+            engine=spec.engine._replace(
+                backend="device", device=acam(sigma_program=0.05)))
+        with pytest.raises(ValueError, match="per_shard"):
+            noisy.validate()
+        noisy._replace(engine=noisy.engine._replace(
+            device_noise="per_shard")).validate()
     # a "device" spec validates in both packages, and both serve its
     # margins in matchline fractions with tau rescaled by 1/N
     jd = js._replace(engine=js.engine._replace(backend="device")).validate()

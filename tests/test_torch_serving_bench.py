@@ -102,11 +102,43 @@ def test_burst_and_chaos_rows_match_jax():
 
 
 def test_device_loss_needs_the_multi_gpu_slice():
-    cfg = ttraces.TraceConfig(requests=8)
-    pool = ttraces.TenantPool(cfg)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        ttraces.replay(None, ttraces.make_trace(cfg), pool,
-                       chaos=ttraces.ChaosPlan(lose_devices_at=2))
+    """Once refused, a chaos plan's device loss now fails over: under a
+    forced 1x2 mesh the 2-shard service loses device 1 at tick 2 and
+    finishes the trace on one shard (the queue drained by the transitions
+    is not counted, as in the JAX harness); the heal reinstalls the mesh
+    over both devices, and a probe serves what the loss-free service
+    serves."""
+    from _torch_parity import port_mesh
+    from repro_torch.serve import spec as spec_lib
+
+    cfg = ttraces.TraceConfig(seed=5, tenants=4, classes=10,
+                              num_features=tbench.NUM_FEATURES, requests=96,
+                              burst=24, calm=4, phase_ticks=1)
+    spec = tbench.make_spec(8, requests=cfg.requests)
+    spec = spec._replace(
+        registry=spec.registry._replace(
+            initial_classes=spec_lib.aligned_classes(2)),
+        mesh=spec.mesh._replace(bank_shards=2, install=True))
+    runs = {}
+    for name, chaos in (("clean", None),
+                        ("loss", ttraces.ChaosPlan(lose_devices_at=2,
+                                                   heal_at_tick=5))):
+        with port_mesh((1, 2)):
+            svc = TService.from_spec(spec, device="cpu")
+            pool = ttraces.TenantPool(cfg)
+            pool.register_all(svc)
+            svc, stats = ttraces.replay(svc, ttraces.make_trace(cfg), pool,
+                                        chaos=chaos)
+            probe = [pool.request(t % cfg.tenants, 555_000 + t)
+                     for t in range(32)]
+            runs[name] = (svc, stats, tbench._signature(svc.serve(probe)))
+    (_, clean, want), (svc, loss, got) = runs["clean"], runs["loss"]
+    assert loss["device_loss_downtime_ms"] is not None
+    assert loss["post_loss_bank_shards"] == 1
+    assert svc.registry.bank_shards == 1 and svc._devices is None
+    assert svc.scheduler.qsize == 0 and loss["completed"] > 0
+    assert loss["submitted"] == clean["submitted"]
+    assert got == want
 
 
 def test_run_writes_every_row(tmp_path, monkeypatch):
@@ -120,6 +152,8 @@ def test_run_writes_every_row(tmp_path, monkeypatch):
     assert names == [
         "serving_t1_c10_s1", "serving_t1_c10_s64", "serving_t8_c10_s1",
         "serving_t8_c10_s64", "serving_t8_c10_s64_device",
+        # the bank-scaling rows (replicated only: no forced mesh here)
+        "serving_t4_c16_s64", "serving_t8_c32_s64",
         "serving_burst_t8_s32", "serving_chaos_recovery",
         "serving_telemetry_overhead", "serving_megakernel",
         "serving_lm_decode_only", "serving_lm_cache_h0",
