@@ -244,6 +244,28 @@ JAX:
               2`` under ``REPRO_FORCE_MESH=1x2`` against the CPU; the
               serving bench's bank-scaling, reshard and autopilot rows and
               the kernel bench's sharded rows (B 1, 256).
+10. lm_mesh  the LM zoo on a mesh (after lm_train; plain PyTorch, no
+              kernel of the port): forced meshes of the one card
+              (virtual: the data coordinates run in turn). tinyllama-1.1b
+              at full width (22 layers, bf16) through
+              `launch.steps.build_train_step` (fsdp_tp) on 2x2 and on 1x1
+              from one seed, 4 steps on one batch of 8 x 64: losses
+              finite and falling, 2x2 within 2^-5 of 1x1; one more step
+              timed (CUDA events; the 2x2 step profiled: device time, idle
+              share, events), peak memory, each coordinate's resident
+              bytes equal to what the specs give it; `build_prefill_step`
+              (4 x 32, cache 64) and `build_decode_step` on 2x2 within
+              2^-5 of the unsharded `prefill` / `decode_step`'s scale.
+              tinyllama, phi3.5-moe with `moe_shardmap` (4 of its 16
+              experts) and qwen2.5-14b padded to 16 heads a group, each
+              at 2 layers in f32 (TF32 off): the 2x2 mesh step on the card
+              against the unsharded step on the CPU (loss 1e-5, gradients
+              rel L2 1e-4 a JAX leaf, the MoE routing ids identical), the
+              card's mesh AdamW from the CPU's gradients within 1e-5 of
+              the scale. qwen2.5-14b at 8 of 48 layers padded (48, 16)
+              against unpadded within 2^-5; `ft.elastic.remesh_restore`
+              of a SMOKE 2x2 checkpoint onto 1x2, bit for bit, and a step
+              there.
  8. report    the card's name and power limit, metrics and the energy
               split, the training step's time, device time and idle share,
               the paper's tables and the tuning winners, the control
@@ -395,7 +417,7 @@ def launch_counts() -> dict:
     return {k: v for mod in launch_modules() for k, v in mod.LAUNCHES.items()}
 
 
-def profile(fn, reps: int = 1, retries: int = 2) -> dict:
+def profile(fn, reps: int = 1, retries: int = 2, cpu: bool = True) -> dict:
     """`torch.profiler` over ``reps`` calls of ``fn`` (after one warm-up),
     per call: wall time, summed device time of every kernel and copy, the
     number of those device events, the device's idle share of the wall
@@ -405,7 +427,9 @@ def profile(fn, reps: int = 1, retries: int = 2) -> dict:
     ``retries`` times (two empty sessions in a row have happened on the
     card): each time the calling function and the kernels that launched
     go to `PROFILE_RETRIES` (the report lists them) and the result is
-    marked ``retried``."""
+    marked ``retried``. ``cpu=False`` traces the device alone (a step of
+    tens of thousands of launches takes half a minute to analyse with its
+    host events)."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -413,8 +437,9 @@ def profile(fn, reps: int = 1, retries: int = 2) -> dict:
     fn()
     torch.cuda.synchronize()
     before = launch_counts()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu
+                                            else [])
+    with torch_profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -436,7 +461,7 @@ def profile(fn, reps: int = 1, retries: int = 2) -> dict:
             caller = caller.f_back
         PROFILE_RETRIES.append(dict(caller=caller.f_code.co_name,
                                     launched=launched))
-        return dict(profile(fn, reps, retries - 1), retried=True)
+        return dict(profile(fn, reps, retries - 1, cpu), retried=True)
     return dict(wall_ms=wall_ms, device_ms=busy or None,
                 device_events=events / reps,
                 idle_share=1 - busy / wall_ms if busy else None,
@@ -5087,6 +5112,522 @@ def print_lm_train(t: dict, card: str) -> None:
               f"({b1['bound_by']})")
 
 
+# ---------------------------------------------------------------------------
+# 10. the LM zoo on a mesh
+# ---------------------------------------------------------------------------
+
+#: full width on forced meshes of the card: tinyllama-1.1b (all 22
+#: layers, bf16, remat on) at the launcher's batch 8 x seq 64
+MESH_ARCH = "tinyllama-1.1b"
+MESH_STEPS = 4
+MESH_SHAPE = (2, 2)
+#: card against CPU in f32 at `LM_CUT_LAYERS` layers on the 2x2 mesh:
+#: arch -> (the config's changes, batch, seq)
+MESH_CARD_VS_CPU = {
+    "tinyllama-1.1b": ({}, 4, 32),
+    "phi3.5-moe-42b-a6.6b": (dict(moe_impl="shard_map"), 2, 32),
+    "qwen2.5-14b": (dict(head_pad_multiple=16), 4, 32)}
+#: the card-against-CPU configs' other cuts, for the CPU's time: phi3.5's
+#: 16 experts to 4 (2 a model rank; with 16 its CPU side took 200 s)
+MESH_CPU_CUTS = {"phi3.5-moe-42b-a6.6b": dict(n_experts=4)}
+#: qwen2.5-14b's padded layout at full width, padded against unpadded
+MESH_PAD = ("qwen2.5-14b", 16, 8)  # (arch, head_pad_multiple, layers)
+
+
+def forced_mesh(shape, device):
+    """A forced mesh of ``device``, installed (`forcemesh.install`)."""
+    from repro_torch.distributed import forcemesh
+
+    return forcemesh.install(shape, device=device)
+
+
+def mesh_resident(tensors: list, mesh) -> dict:
+    """Bytes at each mesh coordinate: the blocks that live there, against
+    what the specs give it (each leaf's elements over the product of the
+    mesh axes its spec names, times its item size)."""
+    import torch
+
+    got, want = {}, {}
+    for st in tensors:
+        item = torch.empty((), dtype=st.dtype).element_size()
+        cut = 1
+        for axis in st.spec:
+            for a in (axis if isinstance(axis, tuple) else (axis,)):
+                if a is not None:
+                    cut *= mesh.shape[a]
+        for c, blk in st.blocks.items():
+            key = str(list(c))
+            got[key] = got.get(key, 0) + blk.numel() * blk.element_size()
+            want[key] = want.get(key, 0) + int(np.prod(st.shape)) // cut \
+                * item
+    return dict(got=got, want=want)
+
+
+def mesh_train_run(device, cfg, model, shape, batches, *,
+                   profiled: bool) -> dict:
+    """`build_train_step` (fsdp_tp) on a forced ``shape`` mesh of the
+    card from ``model``'s weights: one step a batch; then one more step
+    timed (CUDA events) and, when ``profiled``, one profiled; peak memory;
+    resident bytes per coordinate against the specs; the seconds of each
+    part."""
+    import torch
+
+    from repro_torch.distributed import context, sharding
+    from repro_torch.launch import steps
+
+    secs = {}
+    t0 = time.perf_counter()
+    mesh = forced_mesh(shape, device)
+    try:
+        fn, in_specs, _, opt = steps.build_train_step(cfg, mesh)
+        params = sharding.shard_model(model, in_specs[0], mesh)
+        state = [opt.init(params)]
+        torch.cuda.synchronize()
+        secs["place"] = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        losses = []
+        for b in batches:
+            _, state[0], met = fn(params, state[0], b)
+            losses.append(float(met["loss"]))
+        secs["train"] = time.perf_counter() - t0
+
+        def one():
+            return fn(params, state[0], batches[0])[2]["loss"]
+
+        t0 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        one()
+        stop.record()
+        stop.synchronize()
+        step_ms = start.elapsed_time(stop)
+        prof = profile(one, cpu=False) if profiled else None
+        secs["timed"] = time.perf_counter() - t0
+        tensors = list(sharding.sharded_tensors(params).values())
+        resident = mesh_resident(
+            tensors + list(state[0].mu.values()) + list(state[0].nu.values()),
+            mesh)
+        check(resident["got"] == resident["want"],
+              f"mesh {shape}: resident bytes {resident}")
+        return dict(shape=list(shape), losses=losses, step_ms=step_ms,
+                    step_profile=prof, secs=secs,
+                    peak_mem_bytes=torch.cuda.max_memory_allocated(device),
+                    resident_bytes=resident["got"])
+    finally:
+        context.clear()
+
+
+def mesh_full_width(device, smoke: bool = False) -> dict:
+    """tinyllama-1.1b at full width (SMOKE for a CPU rehearsal) through
+    `build_train_step` on 2x2 and on 1x1 from one seed, `MESH_STEPS`
+    steps on one batch: losses finite, falling, and within 2^-5 of each
+    other; `build_prefill_step` /
+    `build_decode_step` on 2x2 against the unsharded `prefill` /
+    `decode_step` within 2^-5 of the scale."""
+    import gc
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.distributed import context, sharding
+    from repro_torch.launch import steps, train
+    from repro_torch.models import lm
+
+    cfg = configs.get(MESH_ARCH, smoke=smoke)
+    model = lm.init_params(0, cfg, device=device)
+    # one batch seen every step: the loss falls from the first step (on
+    # fresh random batches it rises over the first few steps)
+    batches = [train.synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 0,
+                                     device=device)] * MESH_STEPS
+    out = dict(arch=cfg.name, layers=cfg.n_layers, params=cfg.param_count(),
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=MESH_STEPS)
+    runs = {}
+    for shape in (MESH_SHAPE, (1, 1)):  # the 1x1 run a reference, untraced
+        runs["x".join(map(str, shape))] = mesh_train_run(
+            device, cfg, model, shape, batches, profiled=shape == MESH_SHAPE)
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = runs["2x2"]["losses"], runs["1x1"]["losses"]
+    for name, ls in runs.items():
+        check(bool(np.isfinite(ls["losses"]).all())
+              and ls["losses"][-1] < ls["losses"][0],
+              f"mesh {name}: losses {ls['losses']}")
+    gap = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    check(gap <= LM_BF16_REL, f"mesh 2x2 vs 1x1 losses {a} vs {b}")
+    out.update(runs=runs, loss_gap_rel=gap)
+    # serving on 2x2 against the unsharded model
+    prompt = torch.randint(0, cfg.vocab, (LM_GROUP, LM_PLEN + 1),
+                           generator=torch.Generator().manual_seed(3)).to(
+        device)
+    want, cache = lm.prefill(model, cfg, prompt[:, :-1], max_len=2 * LM_PLEN)
+    want_d, _ = lm.decode_step(model, cfg, prompt[:, -1:], cache)
+    del cache
+    mesh = forced_mesh(MESH_SHAPE, device)
+    try:
+        pf, in_sp, _ = steps.build_prefill_step(
+            cfg, mesh, max_len=2 * LM_PLEN,
+            example_args=(model, prompt[:, :-1]))
+        params = sharding.shard_model(model, in_sp[0], mesh)
+        t0 = time.perf_counter()
+        logits, cache = pf(params, prompt[:, :-1])
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        dc, _, _ = steps.build_decode_step(
+            cfg, mesh, example_args=(model, prompt[:, -1:], cache))
+        t0 = time.perf_counter()
+        step, cache = dc(params, prompt[:, -1:], cache)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    finally:
+        context.clear()
+    errs = {}
+    for name, got, ref in (("prefill", logits.full(), want),
+                           ("decode", step.full(), want_d)):
+        errs[name] = float((got.float() - ref.float()).abs().max()
+                           / ref.float().abs().max())
+        check(errs[name] <= LM_BF16_REL, f"mesh {name} logits: {errs[name]}")
+    out.update(serve_rel_err=errs, prefill_s=prefill_s, decode_s=decode_s,
+               cache_specs={f: list(getattr(cache, f).spec)
+                            for f in lm.CACHE_FIELDS
+                            if getattr(cache, f) is not None})
+    del model, params
+    return out
+
+
+def mesh_grads(cfg, model, mesh, batch) -> tuple:
+    """`steps.mesh_loss` with the backward on ``mesh``: (loss, each owner
+    block's gradient by ``name@coord``)."""
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.models import cnn
+    from repro_torch.train import cnn_trainer
+
+    owned = steps._owned(model)
+    home = next(iter(owned.values())).device
+    for blk in owned.values():
+        blk.requires_grad_(True)
+    try:
+        with torch.enable_grad(), cnn.fp32(home), \
+                cnn_trainer.deterministic(home):
+            loss = steps.mesh_loss(model, cfg, mesh, steps._placed(
+                batch, steps.sharding.batch_specs(cfg, mesh), mesh),
+                backward=True)
+        grads = {k: b.grad for k, b in owned.items()}
+    finally:
+        for blk in owned.values():
+            blk.grad = None
+            blk.requires_grad_(False)
+    return loss, grads
+
+
+def mesh_card_vs_cpu(device, arch: str, cfg=None) -> dict:
+    """``arch`` at `LM_CUT_LAYERS` layers in f32 (TF32 off; `MESH_CPU_CUTS`)
+    from one set of weights (drawn on the card, held on the CPU): the mesh
+    step's loss and gradients on a forced 2x2 mesh of the card
+    (`mesh_grads`) against the unsharded step on the CPU
+    (`steps.value_and_grad`, which the CPU tests hold against JAX): the loss
+    within 1e-5, every gradient within relative L2 `GRAD_RTOL` per JAX
+    leaf (each owner block against its slice, compared on the card), the
+    MoE routing ids of each layer's forward identical (the coordinates'
+    calls in order make the CPU's one); then the card's mesh AdamW step
+    (`steps._mesh_update`) from the CPU's gradients against the same
+    AdamW on the CPU (`make_optimizer`, row chunks), within
+    `TRAIN_STEP_REL` of each block's scale."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.distributed import context, sharding
+    from repro_torch.launch import steps, train
+    from repro_torch.models import lm
+
+    changes, b, s = MESH_CARD_VS_CPU[arch]
+    if cfg is None:
+        cfg = dataclasses.replace(configs.get(arch), n_layers=LM_CUT_LAYERS,
+                                  dtype=torch.float32, **changes,
+                                  **MESH_CPU_CUTS.get(arch, {}))
+    secs = {}
+    t0 = time.perf_counter()
+    model = lm.init_params(0, cfg, device=device).to("cpu")
+    secs["init"] = time.perf_counter() - t0
+    batch = train.synthetic_batch(cfg, b, s, 0, device="cpu")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        mesh = forced_mesh(MESH_SHAPE, device)
+        try:
+            _, in_specs, _, opt = steps.build_train_step(cfg, mesh)
+            params = sharding.shard_model(model, in_specs[0], mesh)
+            with routes_recorded() as card_routes:
+                loss, grads = mesh_grads(cfg, params, mesh, {
+                    k: v.to(device) for k, v in batch.items()})
+        finally:
+            context.clear()
+        secs["grad_card"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with routes_recorded() as cpu_routes:
+            loss_cpu, g_cpu = steps.value_and_grad(model, cfg, batch)
+        secs["grad_cpu"] = time.perf_counter() - t0
+        # the forward's calls: the CPU's one a layer, the card's one a
+        # coordinate and layer, coordinate-major
+        moe_layers = len(cpu_routes) // 2
+        n_coord = MESH_SHAPE[0]
+        check(len(card_routes) == 2 * n_coord * moe_layers,
+              f"{cfg.name} mesh: {len(card_routes)} routing calls")
+        for layer in range(moe_layers):
+            ids = torch.cat([card_routes[i * moe_layers + layer][0]
+                             for i in range(n_coord)])
+            check(torch.equal(ids, cpu_routes[layer][0]),
+                  f"{cfg.name} mesh card vs CPU: layer {layer} routing ids "
+                  "differ")
+        loss_err = abs(float(loss) - float(loss_cpu))
+        check(loss_err <= LM_RTOL * abs(float(loss_cpu)),
+              f"{cfg.name} mesh: loss card {float(loss)} vs CPU "
+              f"{float(loss_cpu)}")
+        # the CPU's gradient cut into the owner blocks, on the card
+        t0 = time.perf_counter()
+        tensors = sharding.sharded_tensors(params)
+        want = {f"{n}@{c}": g_cpu[n][idx].to(device)
+                for n, st in tensors.items()
+                for c, idx in st.owners().items()}
+        grad_err = {}
+        for leaf, names in leaf_groups(tensors).items():
+            diff = torch.zeros((), dtype=torch.float64, device=device)
+            norm = torch.zeros((), dtype=torch.float64, device=device)
+            for n in names:
+                for c in tensors[n].owners():
+                    w = want[f"{n}@{c}"].double()
+                    diff += (grads[f"{n}@{c}"].double() - w).square().sum()
+                    norm += w.square().sum()
+            grad_err[leaf] = float(diff.sqrt() / norm.sqrt().clamp_min(1e-30))
+            check(grad_err[leaf] <= GRAD_RTOL, f"{cfg.name} mesh: gradient "
+                  f"{leaf} rel L2 {grad_err[leaf]}")
+        del grads
+        secs["compare"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state = opt.init(params)
+        steps._mesh_update(opt, params, state, want)
+        del want, state
+        ref, cpu_p = steps.make_optimizer(cfg), dict(model.named_parameters())
+        scale = torch.clamp(1.0 / (torch.sqrt(sum(
+            torch.sum(torch.square(g_cpu[n][idx]))
+            for n, st in tensors.items()
+            for idx in st.owners().values())) + 1e-9), max=1.0)
+        got = steps._owned(params)
+        step_err = 0.0
+        for n, st in tensors.items():
+            for c, idx in st.owners().items():
+                k = f"{n}@{c}"
+                top = err = 0.0
+                for g, q, d in zip(*map(row_chunks, (
+                        g_cpu[n][idx], cpu_p[n].detach()[idx], got[k]))):
+                    w = ref.update({k: g * scale}, ref.init({k: q}),
+                                   {k: q})[0][k].to(device)
+                    top = max(top, float(w.abs().max()))
+                    err = max(err, float((d - w).abs().max()))
+                step_err = max(step_err, err / (top or 1.0))
+        check(step_err <= TRAIN_STEP_REL, f"{cfg.name} mesh AdamW card vs "
+              f"CPU {step_err} of the scale")
+        del model, cpu_p, g_cpu
+        secs["adamw"] = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return dict(arch=cfg.name, layers=cfg.n_layers, dtype="float32",
+                changes={k: str(v) for k, v in changes.items()},
+                n_experts=cfg.n_experts, batch=[b, s],
+                mesh=list(MESH_SHAPE), loss_card=float(loss),
+                loss_cpu=float(loss_cpu), loss_err=loss_err,
+                grad_rel_l2_max=max(grad_err.values()),
+                grad_rel_l2_worst=max(grad_err, key=grad_err.get),
+                leaves=len(grad_err), routing_calls=len(card_routes),
+                adamw_step_rel=step_err,
+                padded_heads=list(lm.padded_heads(cfg)), secs=secs)
+
+
+def mesh_head_padding(device, smoke: bool = False) -> dict:
+    """qwen2.5-14b at full width (`MESH_PAD`: 8 of 48 layers, bf16),
+    padded to a multiple of 16 heads, against the unpadded model from the
+    same seed: forward logits within 2^-5 of the scale."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    arch, multiple, layers = MESH_PAD
+    base = configs.get(arch, smoke=smoke)
+    if not smoke:
+        base = dataclasses.replace(base, n_layers=layers)
+    x = torch.randint(0, base.vocab, (2, 64),
+                      generator=torch.Generator().manual_seed(5)).to(device)
+    out = {}
+    for name, cfg in (("unpadded", base), ("padded", dataclasses.replace(
+            base, head_pad_multiple=multiple))):
+        model = lm.init_params(0, cfg, device=device)
+        with torch.no_grad():
+            out[name], _ = lm.forward(model, cfg, x)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref = out["unpadded"].float()
+    err = float((out["padded"].float() - ref).abs().max() / ref.abs().max())
+    check(err <= LM_BF16_REL, f"{arch} padded vs unpadded: {err}")
+    cfg = dataclasses.replace(base, head_pad_multiple=multiple)
+    return dict(arch=arch, layers=base.n_layers, multiple=multiple,
+                heads=[base.n_heads, base.n_kv_heads],
+                padded_heads=list(lm.padded_heads(cfg)),
+                geometry=list(lm._pad_geom(cfg) or []), rel_err=err)
+
+
+def mesh_remesh(device, tmp: Path) -> dict:
+    """SMOKE `MESH_ARCH`: one step on a forced 2x2 mesh, checkpointed,
+    `remesh_restore` onto 1x2: every logical leaf bit for bit, each in
+    the 1x2 layout, and one more step there."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.convert import flatten_tree
+    from repro_torch.distributed import context, sharding
+    from repro_torch.ft import elastic
+    from repro_torch.launch import steps, train
+    from repro_torch.models import lm
+
+    cfg = configs.get(MESH_ARCH, smoke=True)
+    model = lm.init_params(0, cfg, device=device)
+    mesh = forced_mesh(MESH_SHAPE, device)
+    try:
+        fn, in_specs, _, opt = steps.build_train_step(cfg, mesh)
+        params = sharding.shard_model(model, in_specs[0], mesh)
+        state = opt.init(params)
+        _, state, _ = fn(params, state, train.synthetic_batch(
+            cfg, 4, 16, 0, device=device))
+        tree = {"params": sharding.model_tree(
+            sharding.sharded_tensors(params), mesh),
+            "opt": state._replace(mu=sharding.model_tree(state.mu, mesh),
+                                  nu=sharding.model_tree(state.nu, mesh))}
+        Checkpointer(tmp).save(1, tree)
+    finally:
+        context.clear()
+    mesh = forced_mesh((1, 2), device)
+    try:
+        specs = sharding.param_specs(cfg, mesh)
+        like = sharding.tree_map(
+            lambda st: torch.empty(0), tree,
+            is_leaf=lambda x: isinstance(x, sharding.ShardedTensor))
+        got = elastic.remesh_restore(Checkpointer(tmp), 1, like, mesh, {
+            "params": specs, "opt": sharding.opt_state_specs(specs)})
+        def flat(t):
+            return flatten_tree({"params": t["params"], "mu": t["opt"].mu,
+                                 "nu": t["opt"].nu, "step": t["opt"].step})
+
+        leaves = 0
+        want = flat(tree)
+        for k, st in flat(got).items():
+            check(torch.equal(st.full(), want[k].full())
+                  and st.mesh is mesh, f"remesh: leaf {k} differs")
+            leaves += 1
+        fn, in_specs, _, opt = steps.build_train_step(cfg, mesh)
+        new = sharding.shard_model(model, in_specs[0], mesh)
+        sharding.load_tensors(new, sharding.untree(got["params"]))
+        state = state._replace(step=got["opt"].step,
+                               mu=sharding.untree(got["opt"].mu),
+                               nu=sharding.untree(got["opt"].nu))
+        _, state, met = fn(new, state, train.synthetic_batch(
+            cfg, 4, 16, 1, device=device))
+        check(bool(np.isfinite(float(met["loss"]))) and int(
+            state.step.full()) == 2, "remesh: the step after restore")
+    finally:
+        context.clear()
+    return dict(leaves=leaves, from_mesh=list(MESH_SHAPE), to_mesh=[1, 2],
+                loss_after=float(met["loss"]))
+
+
+def lm_mesh_phase(device, out_dir: Path, *, smoke: bool = False,
+                  cut_cfgs=None) -> dict:
+    """Phase 10: the LM zoo on forced meshes of the card
+    (`mesh_full_width`, `mesh_card_vs_cpu` for each of
+    `MESH_CARD_VS_CPU`, `mesh_head_padding`, `mesh_remesh`). ``smoke`` /
+    ``cut_cfgs`` shrink the configs for a CPU rehearsal."""
+    import gc
+
+    import torch
+
+    out = {"card_vs_cpu": {}}
+    t0 = time.perf_counter()
+    out["full_width"] = mesh_full_width(device, smoke=smoke)
+    out["full_width"]["wall_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in MESH_CARD_VS_CPU:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats(device)
+        r = mesh_card_vs_cpu(device, arch,
+                             cut_cfgs[arch] if cut_cfgs else None)
+        r.update(wall_s=time.perf_counter() - t0,
+                 peak_mem_bytes=torch.cuda.max_memory_allocated(device))
+        out["card_vs_cpu"][arch] = r
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["head_padding"] = mesh_head_padding(device, smoke=smoke)
+    out["head_padding"]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["remesh"] = mesh_remesh(device, out_dir)
+    out["remesh"]["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def print_lm_mesh(m: dict, card: str) -> None:
+    fw = m["full_width"]
+    for name, r in fw["runs"].items():
+        p = r["step_profile"] or {}
+        print(f"lm_mesh {fw['arch']} ({fw['layers']} layers, {fw['params']} "
+              f"params, bf16, batch {fw['batch']} x seq {fw['seq']}) on a "
+              f"forced {name} mesh ({card}): losses "
+              f"{json.dumps(r['losses'])}; step {r['step_ms']:.3f} "
+              f"ms a call (CUDA events), profiled wall {p.get('wall_ms')} "
+              f"ms, device {p.get('device_ms')} ms, idle share "
+              f"{p.get('idle_share')}, {p.get('device_events')} device "
+              f"events; peak memory "
+              f"{r['peak_mem_bytes'] / 2**30:.3f} GiB; resident bytes a "
+              f"coordinate {json.dumps(r['resident_bytes'])}; seconds "
+              f"{json.dumps({k: round(v, 2) for k, v in r['secs'].items()})}")
+    print(f"lm_mesh 2x2 vs 1x1 losses: worst relative gap "
+          f"{fw['loss_gap_rel']:.3e}; prefill {LM_GROUP} x {LM_PLEN} and a "
+          f"decode step on 2x2 against the unsharded calls: "
+          f"{json.dumps(fw['serve_rel_err'])} of the scale (prefill "
+          f"{fw['prefill_s']:.3f} s, decode {fw['decode_s']:.3f} s; cache "
+          f"specs {json.dumps(fw['cache_specs'])})")
+    for r in m["card_vs_cpu"].values():
+        print(f"lm_mesh card vs CPU {r['arch']} ({r['layers']} layers, "
+              f"{r['n_experts']} experts, f32, TF32 off, "
+              f"{json.dumps(r['changes'])}, heads "
+              f"{r['padded_heads']}, batch {r['batch'][0]} x {r['batch'][1]} "
+              f"on {r['mesh']}, {r['wall_s']:.1f} s): loss {r['loss_card']} "
+              f"vs {r['loss_cpu']} (|diff| {r['loss_err']}); worst gradient "
+              f"rel L2 {r['grad_rel_l2_max']:.3e} ({r['grad_rel_l2_worst']}; "
+              f"{r['leaves']} leaves); routing ids equal in "
+              f"{r['routing_calls']} calls; AdamW from the CPU's gradients "
+              f"{r['adamw_step_rel']:.3e} of the scale; peak memory "
+              f"{r['peak_mem_bytes'] / 2**30:.3f} GiB; seconds "
+              f"{json.dumps({k: round(v, 2) for k, v in r['secs'].items()})}")
+    h = m["head_padding"]
+    print(f"lm_mesh head padding {h['arch']} ({h['layers']} layers, heads "
+          f"{h['heads']} -> {h['padded_heads']}, geometry {h['geometry']}): "
+          f"padded vs unpadded logits {h['rel_err']:.3e} of the scale")
+    r = m["remesh"]
+    print(f"lm_mesh remesh_restore {r['from_mesh']} -> {r['to_mesh']}: "
+          f"{r['leaves']} leaves bit for bit, loss after {r['loss_after']}")
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -5166,6 +5707,11 @@ def main(argv: list[str]) -> int:
     driven, lm_train = lm_train_phase(device, train_dir)
     lm_train["wall_s"] = time.perf_counter() - t0
     report.update(driven)
+    mesh_dir = Path(scratch.name) / "lm_mesh"
+    mesh_dir.mkdir()
+    t0 = time.perf_counter()
+    lm_mesh = lm_mesh_phase(device, mesh_dir)
+    lm_mesh["wall_s"] = time.perf_counter() - t0
     launches = {}
     for path in report.values():
         for k, v in path["launches"].items():
@@ -5251,9 +5797,11 @@ def main(argv: list[str]) -> int:
     print_sharded(sharded, smi)
     print_lm(lm_out, smi)
     print_lm_train(lm_train, smi)
+    print_lm_mesh(lm_mesh, smi)
     print(f"phase walls: paper_eval {paper['wall_s']:.1f} s, control_plane "
           f"{control['wall_s']:.1f} s, sharded {sharded['wall_s']:.1f} s, lm "
-          f"{lm_out['wall_s']:.1f} s, lm_train {lm_train['wall_s']:.1f} s")
+          f"{lm_out['wall_s']:.1f} s, lm_train {lm_train['wall_s']:.1f} s, "
+          f"lm_mesh {lm_mesh['wall_s']:.1f} s")
     check(set(kernels) == set(KERNELS), "every ported kernel measured")
 
     line = {"kernels": [
@@ -5277,7 +5825,7 @@ def main(argv: list[str]) -> int:
                  profile_retries=PROFILE_RETRIES,
                  paths=report, training=training, paper_eval=paper,
                  control_plane=control, sharded=sharded, lm=lm_out,
-                 lm_train=lm_train),
+                 lm_train=lm_train, lm_mesh=lm_mesh),
             indent=1, default=str))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

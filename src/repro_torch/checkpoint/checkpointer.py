@@ -20,7 +20,9 @@ on-disk format (`repro/checkpoint/checkpointer.py`).
     viewed from the raw bits (``torch.bfloat16``).
 
 Leaves may be torch tensors (on any device: saved from host copies taken
-at `save` time) or numpy arrays. ``treedef`` describes the tree in the
+at `save` time), numpy arrays, or sharded tensors
+(`repro_torch.distributed.sharding.ShardedTensor`: saved as the logical
+array, so a checkpoint does not depend on the mesh that wrote it). ``treedef`` describes the tree in the
 form of JAX's ``str(treedef)`` for dict, list and tuple trees; nothing
 reads it back.
 """
@@ -93,6 +95,10 @@ def _treedef(tree) -> str:
 
 def _host(leaf) -> tuple[np.ndarray, str]:
     """A leaf as (host array to save, logical dtype name)."""
+    from repro_torch.distributed.sharding import ShardedTensor
+
+    if isinstance(leaf, ShardedTensor):
+        leaf = leaf.full(torch.device("cpu"))
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         logical = str(t.dtype).removeprefix("torch.")
@@ -230,15 +236,19 @@ class Checkpointer:
         d = self._step_dir(step)
         return json.loads((d / "manifest.json").read_text()), d
 
-    def restore(self, step: int, like: Tree) -> Tree:
+    def restore(self, step: int, like: Tree, *, shardings=None) -> Tree:
         """Restore into the structure of ``like`` (its values are ignored):
         a leaf that is a tensor in ``like`` comes back as a tensor on that
         tensor's device, any other leaf as a numpy array (or a tensor where
-        numpy has no such dtype)."""
+        numpy has no such dtype). ``shardings``, a tree of
+        `repro_torch.distributed.sharding.NamedSharding` in ``like``'s
+        structure (None leaves none), places each restored leaf by its
+        sharding: a `ShardedTensor` on that mesh (`ft.elastic.
+        remesh_restore`)."""
         manifest, d = self._load(step)
         leaves = iter(_leaves(like))
 
-        def rebuild(node, prefix):
+        def rebuild(node, prefix, put):
             if node is None:
                 return None
             kids = _children(node)
@@ -248,8 +258,11 @@ class Checkpointer:
                 arr = _from_saved(np.load(d / info["file"]), info["dtype"])
                 if isinstance(leaf, torch.Tensor):
                     arr = torch.as_tensor(arr).to(leaf.device)
+                if put is not None:
+                    arr = put.place(torch.as_tensor(arr))
                 return arr
-            vals = {part: rebuild(sub, prefix + (part,))
+            sub_put = dict(_children(put) or []) if put is not None else {}
+            vals = {part: rebuild(sub, prefix + (part,), sub_put.get(part))
                     for part, sub in kids}
             if isinstance(node, dict):
                 return {k: vals[k] for k in node}
@@ -257,7 +270,7 @@ class Checkpointer:
                 return type(node)(**vals)
             return type(node)(vals[i] for i in range(len(node)))
 
-        return rebuild(like, ())
+        return rebuild(like, (), shardings)
 
     def restore_dict(self, step: int) -> dict:
         """Restore a checkpoint saved from (nested) string-keyed dicts into

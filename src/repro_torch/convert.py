@@ -163,7 +163,6 @@ def lm_params_from_numpy(params: dict, cfg: lm.ArchConfig, *,
     port's `lm.LM` on ``device``, every leaf in its own dtype: attention
     or MLA, the MLP or the MoE (``router.w`` f32, the expert stacks, the
     shared expert), the SSD block and hymba's output norms."""
-    lm.check_supported(cfg)
     dev = resolve(device)
 
     def tensor(x):
@@ -321,7 +320,6 @@ def lm_params_to_numpy(params: lm.LM, cfg: lm.ArchConfig) -> dict:
     """The inverse of `lm_params_from_numpy`: the port's `lm.LM` -> the
     JAX pytree with numpy leaves, every leaf in its own dtype and the
     layers stacked on axis 0."""
-    lm.check_supported(cfg)
     stacked = lm_stack({k: p.detach() for k, p in params.named_parameters()})
     return nest({k: _numpy(x) for k, x in stacked.items()})
 

@@ -82,3 +82,11 @@ def binarize(features: torch.Tensor, thresholds: torch.Tensor
              ) -> torch.Tensor:
     """1 where feature > threshold else 0 (float32)."""
     return (features > thresholds).to(torch.float32)
+
+
+def binarize_with_stats(features: torch.Tensor,
+                        method: Literal["mean", "median"] = "mean"
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(binary features, the per-feature thresholds they were cut at)."""
+    thr = feature_thresholds(features, method)
+    return binarize(features, thr), thr

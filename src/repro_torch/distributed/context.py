@@ -14,9 +14,21 @@ one physical device repeated: the CPU in the tests, the card in the smoke
 run. Such a mesh is `Mesh.virtual`: its shards run one after another on
 the same device. On a machine with several cards the grid holds
 ``cuda:0 .. cuda:{n-1}`` and shard s runs on its own card.
+
+The LM's hooks keep the JAX contract: `constrain` is the identity on
+values (and a no-op with no mesh), and `constrain_layer` /
+`constrain_head` apply the ZeRO-3 gather-at-use constraint that
+`repro_torch.distributed.sharding.register_zero3_constraints` installs.
+On the port's single controller a layer's parameters may be sharded
+tensors (`sharding.ShardedTensor`); while a mesh step runs a data
+coordinate (`data_shard`), the same two calls then place each one whole
+on that coordinate's device, where the dense products run (see
+`repro_torch.distributed.sharding`).
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -51,6 +63,22 @@ class Mesh:
         mesh): the shards then share that device and run in turn."""
         flat = [str(d) for d in self.devices.flat]
         return len(set(flat)) < len(flat)
+
+    def ranks(self, dp, model: str = "model") -> list[list[tuple]]:
+        """Grid coordinates by (data-parallel index, model index): the dp
+        index runs over the ``dp`` axes (one name or a tuple) with the
+        first one major, as a ``P(("pod", "data"))`` block order does."""
+        dp = dp if isinstance(dp, tuple) else (dp,)
+        names = self.axis_names
+        dims = [self.shape[a] for a in dp]
+        out = []
+        for flat in np.ndindex(*dims):
+            row = []
+            for j in range(self.shape[model]):
+                at = dict(zip(dp, flat), **{model: j})
+                row.append(tuple(at.get(a, 0) for a in names))
+            out.append(row)
+        return out
 
     def __repr__(self) -> str:
         shape = ", ".join(f"{a}={n}" for a, n in self.shape.items())
@@ -88,12 +116,106 @@ def generation() -> int:
 
 
 def clear() -> None:
-    """Drop the installed mesh and any forced device list."""
-    global _AXES, _MESH, _FORCED, _GENERATION
+    """Drop the installed mesh, any forced device list and the layer and
+    head hooks."""
+    global _AXES, _MESH, _FORCED, _GENERATION, _LAYER_CONSTRAINT
+    global _HEAD_CONSTRAINT
     _AXES = None
     _MESH = None
     _FORCED = None
+    _LAYER_CONSTRAINT = None
+    _HEAD_CONSTRAINT = None
     _GENERATION += 1
+
+
+def constrain(x, *spec):
+    """A sharding constraint on an activation: the identity on values, and
+    a no-op with no mesh installed. The port's mesh steps run each data
+    coordinate's rows whole on its device, so there is nothing to move.
+    ``spec`` entries are "dp", "model" or None, as in the JAX package."""
+    return x
+
+
+# --- ZeRO-3 gather-at-use --------------------------------------------------
+# FSDP-stored weights are gathered to their tensor-parallel compute
+# sharding where a layer (or the head) uses them; the step builders
+# register the constraint and model code applies it at layer entry.
+
+_LAYER_CONSTRAINT = None
+_HEAD_CONSTRAINT = None
+
+
+def set_layer_constraint(fn) -> None:
+    global _LAYER_CONSTRAINT
+    _LAYER_CONSTRAINT = fn
+
+
+def set_head_constraint(fn) -> None:
+    global _HEAD_CONSTRAINT
+    _HEAD_CONSTRAINT = fn
+
+
+def constrain_layer(layer_params):
+    """The layer hook, then (inside a mesh step) the layer's sharded
+    tensors placed whole on the running data coordinate's device."""
+    p = _LAYER_CONSTRAINT(layer_params) if _LAYER_CONSTRAINT else \
+        layer_params
+    return _SHARD.place(p) if _SHARD is not None else p
+
+
+def constrain_head(head_params):
+    """The head hook (``embed``, ``unembed``, ``final_norm``), then placed
+    as `constrain_layer` places a layer."""
+    p = _HEAD_CONSTRAINT(head_params) if _HEAD_CONSTRAINT else head_params
+    return _SHARD.place(p) if _SHARD is not None else p
+
+
+# --- the data coordinate a mesh step is running -----------------------------
+
+@dataclasses.dataclass
+class DataShard:
+    """One data-parallel coordinate of a mesh step (single controller).
+
+    ``index`` is its dp index and ``ranks`` the grid coordinates of its
+    model ranks (`Mesh.ranks`); it computes on ``device``, its model rank
+    0's. ``tokens`` is the step's global token count and ``place`` the
+    function that puts a module's sharded tensors on ``device``. The MoE
+    layers record their routing statistics here (``moe``: layer -> (expert
+    counts, summed router probabilities, the loss's coefficient) over this
+    coordinate's tokens),
+    so the step can take the load-balance loss over the global batch, and
+    read ``prefix`` (layer -> the expert counts of the coordinates before
+    this one) to keep the global capacity's drops."""
+
+    index: int
+    mesh: Mesh
+    ranks: list
+    tokens: int
+    place: object
+    moe: dict = dataclasses.field(default_factory=dict)
+    prefix: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.devices[self.ranks[0]]
+
+
+_SHARD: DataShard | None = None
+
+
+@contextlib.contextmanager
+def running(shard: DataShard):
+    """Run a mesh step's data coordinate: model code reads `data_shard`."""
+    global _SHARD
+    prev, _SHARD = _SHARD, shard
+    try:
+        yield shard
+    finally:
+        _SHARD = prev
+
+
+def data_shard() -> DataShard | None:
+    return _SHARD
 
 
 def force_devices(devs: list[torch.device] | None) -> None:

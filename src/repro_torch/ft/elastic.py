@@ -1,15 +1,48 @@
-"""Straggler detection over step / tick heartbeats.
+"""Elastic scaling and straggler mitigation.
+
+Elastic re-mesh: a checkpoint written on mesh A restores onto mesh B with
+another data-parallel degree (a lost node, a scale-up). Checkpoints hold
+full logical arrays (`repro_torch.checkpoint`, the JAX on-disk format) and
+the shardings are recomputed from the *target* mesh's rules, so
+`remesh_restore` is a restore that places each leaf by its new sharding;
+`rescale_schedule` keeps the global batch through gradient accumulation.
 
 `StragglerMonitor` tracks per-step durations and flags those past a deadline
 of ``deadline_factor`` x the median; repeated strikes mark a host for
 eviction. The serving scheduler feeds every tick's wall time into
-`StragglerMonitor.observe`. (Elastic re-mesh across cards comes with the
-multi-GPU slice of the port.)
+`StragglerMonitor.observe`. `Heartbeat` is the liveness tracker a launcher
+polls between steps.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Any
+
+PyTree = Any
+
+
+def remesh_restore(ckpt, step: int, like: PyTree, new_mesh,
+                   new_specs: PyTree) -> PyTree:
+    """Restore ``step`` onto another mesh and sharding (elastic restart):
+    each leaf a `ShardedTensor` placed by ``new_specs`` on ``new_mesh``."""
+    from repro_torch.distributed.sharding import to_shardings
+
+    return ckpt.restore(step, like,
+                        shardings=to_shardings(new_specs, new_mesh))
+
+
+def rescale_schedule(global_batch: int, old_hosts: int, new_hosts: int,
+                     per_host_batch: int) -> dict:
+    """Keep the global batch constant across an elastic resize via
+    gradient accumulation."""
+    new_per_step = new_hosts * per_host_batch
+    accum = max(1, -(-global_batch // new_per_step))
+    return {
+        "grad_accum_steps": accum,
+        "per_host_batch": per_host_batch,
+        "effective_global_batch": accum * new_per_step,
+    }
 
 
 @dataclass
@@ -85,3 +118,18 @@ class StragglerMonitor:
         }
         self._publish(verdict)
         return verdict
+
+
+class Heartbeat:
+    """Minimal liveness tracker the launcher polls between steps."""
+
+    def __init__(self, timeout_s: float = 60.0):
+        self.timeout_s = timeout_s
+        self.last: dict[int, float] = {}
+
+    def beat(self, host: int, now: float | None = None) -> None:
+        self.last[host] = time.monotonic() if now is None else now
+
+    def dead_hosts(self, now: float | None = None) -> list[int]:
+        now = time.monotonic() if now is None else now
+        return [h for h, t in self.last.items() if now - t > self.timeout_s]

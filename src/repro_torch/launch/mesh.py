@@ -1,5 +1,5 @@
-"""Serving meshes: the port's `repro.launch.mesh.make_serving_mesh` and
-`make_host_mesh`.
+"""Meshes: the port's `repro.launch.mesh` (`make_production_mesh`,
+`make_host_mesh`, `make_serving_mesh`).
 
 A function, not a module-level constant, so importing this module touches
 no device.
@@ -9,6 +9,25 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.distributed import context
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None
+                         ) -> context.Mesh:
+    """The pod mesh (data=16, model=16); two pods add a leading "pod"
+    axis: (pod=2, data=16, model=16). Built over `context.devices(device)`
+    (every card, or a forced mesh's repeated device); raises unless that
+    many devices exist."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    devs = context.devices(device)
+    need = int(np.prod(shape))
+    if len(devs) < need:
+        raise ValueError(f"the production mesh {shape} needs {need} "
+                         f"devices; {len(devs)} are available (a forced "
+                         "mesh, REPRO_FORCE_MESH, provides them on one card)")
+    grid = np.empty(need, dtype=object)
+    grid[:] = devs[:need]
+    return context.Mesh(grid.reshape(shape), axes)
 
 
 def make_host_mesh(device="cpu") -> context.Mesh:

@@ -13,9 +13,21 @@ set ``CUBLAS_WORKSPACE_CONFIG`` first), so a run is a function of its
 seed.
 
 `state_tree` / `load_state` are the checkpoint's ``{"params", "opt"}``
-in the JAX launcher's layout. The sharded builders (``build_train_step``,
-``build_prefill_step``, ``build_decode_step``) need a mesh and come with
-the multi-GPU slice.
+in the JAX launcher's layout.
+
+The sharded builders (`build_train_step`, `build_prefill_step`,
+`build_decode_step`) are the JAX ones on a `context.Mesh`: each returns
+``(fn, in_specs, out_specs[, opt])``, the specs of
+`repro_torch.distributed.sharding`, fitted to ``example_batch`` /
+``example_args`` as in JAX. ``fn`` takes the model stored on the mesh
+(`sharding.shard_model`) and its operands as tensors or `ShardedTensor`s
+(placed by the in-specs first, as jit's in-shardings do) and returns
+sharded outputs laid out by the out-specs. Parameters, moments and the
+decode cache are updated in place where JAX donates them. One controller
+runs every data coordinate's rows on its device in turn
+(`sharding` says how); the MoE's load-balance loss and capacity are the
+global batch's, as in JAX's global function. A 1x1 mesh gives
+`make_train_step`'s result.
 """
 from __future__ import annotations
 
@@ -24,7 +36,10 @@ from typing import Callable
 import torch
 
 from repro_torch import convert
-from repro_torch.models import lm
+from repro_torch.distributed import context
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import P, ShardedTensor
+from repro_torch.models import cnn, lm
 from repro_torch.optim import compression
 from repro_torch.optim import optimizers as optim
 from repro_torch.train import cnn_trainer
@@ -98,3 +113,339 @@ def load_state(ckpt, step: int, model: lm.LM) -> optim.OptState:
         torch.empty(0, device=device), like, like)})
     cnn_trainer.assign(model, convert.lm_untree(state["params"]))
     return convert.lm_opt_state_untree(state["opt"])
+
+
+# ---------------------------------------------------------------------------
+# the sharded builders
+# ---------------------------------------------------------------------------
+
+def _placed(tree, specs, mesh):
+    """Operands as `ShardedTensor`s: a tensor is placed by its spec, a
+    sharded one by another spec re-placed (jit's in-shardings)."""
+    def put(spec, x):
+        if x is None:
+            return None
+        if isinstance(x, ShardedTensor) and tuple(x.spec) == tuple(spec):
+            return x
+        return sharding.NamedSharding(mesh, spec).place(
+            x.full() if isinstance(x, ShardedTensor) else torch.as_tensor(x))
+    return sharding.tree_map(put, specs, tree)
+
+
+def _coordinates(rows: ShardedTensor, axis: int, mesh) -> list:
+    """The data coordinates that compute, in dp order, with the rows
+    (slice of ``axis``) each holds: one per distinct row block (a batch
+    the dp axes do not cut is computed once, by dp index 0)."""
+    ranks = mesh.ranks(sharding.dp_axes(mesh), "model")
+    seen, out = set(), []
+    for i, row in enumerate(ranks):
+        sl = rows.index[row[0]][axis]
+        if (sl.start, sl.stop) not in seen:
+            seen.add((sl.start, sl.stop))
+            out.append((i, sl))
+    return out
+
+
+def _shard(mesh, i: int, tokens: int, prefix: dict) -> context.DataShard:
+    ranks = mesh.ranks(sharding.dp_axes(mesh), "model")
+    dev = mesh.devices[ranks[i][0]]
+    return context.DataShard(i, mesh, ranks[i], tokens, sharding.placer(dev),
+                             prefix=dict(prefix))
+
+
+def _add_counts(prefix: dict, shard: context.DataShard) -> None:
+    """The expert counts of ``shard`` added to the running prefix."""
+    for layer, (counts, _, _) in shard.moe.items():
+        c = counts.to(torch.int64)
+        prefix[layer] = c if layer not in prefix else \
+            prefix[layer].to(c.device) + c
+
+
+def _read(x: ShardedTensor | None, rows: slice, axis: int, device):
+    if x is None:
+        return None
+    return x.read((slice(None),) * axis + (rows,), device)
+
+
+def _full_region(shape: tuple, rows: slice, axis: int) -> tuple:
+    return tuple(rows if a == axis else slice(0, n)
+                 for a, n in enumerate(shape))
+
+
+def mesh_loss(params: lm.LM, cfg: lm.ArchConfig, mesh, batch: dict,
+              *, backward: bool = False) -> torch.Tensor:
+    """`lm.loss_fn` of the global batch, each data coordinate's rows on
+    its device: the CE summed per coordinate and divided once by the
+    global count of labels >= 0, plus each MoE layer's load-balance loss
+    from the global batch's expert counts and mean router probabilities.
+    With ``backward`` each coordinate's share of the loss is
+    differentiated in turn (coordinate 0 first), adding into the storage
+    blocks' ``.grad``. Returns the loss (on the first coordinate's
+    device)."""
+    coords = _coordinates(batch["labels"], 0, mesh)
+    b, s = batch["labels"].shape
+    tokens, prefix, runs = b * s, {}, []
+    for i, rows in coords:
+        shard = _shard(mesh, i, tokens, prefix)
+        dev = shard.device
+        with context.running(shard):
+            logits, _ = lm.forward(
+                params, cfg, _read(batch["inputs"], rows, 0, dev),
+                _read(batch.get("positions"), rows, 1, dev))
+            labels = _read(batch["labels"], rows, 0, dev)
+            if cfg.causal:
+                logits, labels = logits[:, :-1], labels[:, 1:]
+            mask = labels >= 0
+            nll = (lm.sharded_ce(logits, labels) * mask).sum()
+        _add_counts(prefix, shard)
+        runs.append((shard, nll, mask.sum()))
+    home = runs[0][0].device
+    count = torch.clamp_min(sum(c.to(home) for _, _, c in runs), 1)
+    frac = {}  # layer -> (global dispatch fraction, coefficient)
+    for layer in sorted(runs[0][0].moe):
+        counts = sum(sh.moe[layer][0].to(home) for sh, _, _ in runs)
+        frac[layer] = (counts / tokens, runs[0][0].moe[layer][2])
+
+    def aux_of(shard, dev):
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        for layer, (f, coeff) in frac.items():
+            psum = shard.moe[layer][1]
+            total = total + coeff * f.numel() * (
+                f.to(dev) * (psum / tokens)).sum()
+        return total
+
+    if backward:
+        for shard, nll, _ in runs:
+            with context.running(shard):
+                part = nll / count.to(shard.device) + aux_of(shard,
+                                                             shard.device)
+                part.backward()
+    with torch.no_grad():
+        loss = sum(nll.detach().to(home) for _, nll, _ in runs) / count
+        for layer, (f, coeff) in frac.items():
+            psum = sum(sh.moe[layer][1].detach().to(home)
+                       for sh, _, _ in runs)
+            loss = loss + coeff * f.numel() * (f * (psum / tokens)).sum()
+    return loss
+
+
+def _owned(params: lm.LM) -> dict[str, torch.Tensor]:
+    """Each parameter's owner blocks, keyed ``name@coord``: the tensors the
+    gradients add into and the update writes."""
+    return {f"{name}@{c}": st.blocks[c]
+            for name, st in sharding.sharded_tensors(params).items()
+            for c in st.owners()}
+
+
+def init_mesh_opt_state(params: lm.LM) -> optim.OptState:
+    """AdamW's zero state for a sharded model: f32 moments laid out as the
+    parameters, the step counter replicated."""
+    tensors = sharding.sharded_tensors(params)
+    mesh = next(iter(tensors.values())).mesh
+
+    def zeros(st):
+        return st.sharding.place(torch.zeros(st.shape, dtype=torch.float32,
+                                             device=st.mesh.devices.flat[0]),
+                                 st.path)
+    mu = {k: zeros(st) for k, st in tensors.items()}
+    nu = {k: zeros(st) for k, st in tensors.items()}
+    step = sharding.NamedSharding(mesh, P()).place(
+        torch.zeros((), dtype=torch.int32, device=mesh.devices.flat[0]))
+    return optim.OptState(step, mu, nu)
+
+
+def _mesh_update(opt: optim.Optimizer, params: lm.LM,
+                 opt_state: optim.OptState, grads: dict) -> torch.Tensor:
+    """Clip at global norm 1.0 over the owner blocks, then AdamW block by
+    block, written into the owner blocks in place and copied to their
+    copies. Returns the norm."""
+    tensors = sharding.sharded_tensors(params)
+    owned = _owned(params)
+    home = next(iter(tensors.values())).mesh.devices.flat[0]
+    norm = torch.sqrt(sum(torch.sum(torch.square(g.float())).to(home)
+                          for g in grads.values()))
+    scale = torch.clamp(1.0 / (norm + 1e-9), max=1.0)
+    mu, nu = _owned_tree(opt_state.mu), _owned_tree(opt_state.nu)
+    steps = {str(b.device): b for b in opt_state.step.blocks.values()}
+    with torch.no_grad():
+        # one block at a time: the clip's and the update's temporaries
+        # stay one block's
+        for k, p in owned.items():
+            g = grads[k]
+            g = g.to(torch.promote_types(g.dtype, scale.dtype)) * scale.to(
+                g.device)
+            new, st = opt.update({k: g}, optim.OptState(
+                steps[str(p.device)], {k: mu[k]}, {k: nu[k]}), {k: p})
+            p.copy_(new[k])
+            mu[k].copy_(st.mu[k])
+            nu[k].copy_(st.nu[k])
+        for blk in opt_state.step.blocks.values():
+            blk.add_(1)
+        for tree in (tensors, opt_state.mu, opt_state.nu):
+            for st in tree.values():
+                st.sync()
+    return norm
+
+
+def _owned_tree(tree: dict[str, ShardedTensor]) -> dict:
+    return {f"{name}@{c}": st.blocks[c] for name, st in tree.items()
+            for c in st.owners()}
+
+
+def build_train_step(cfg: lm.ArchConfig, mesh, *, mode: str = "fsdp_tp",
+                     lr: float = 3e-4, example_batch=None):
+    """train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics): the loss and its gradient over the mesh (`mesh_loss`),
+    clipping at global norm 1.0, AdamW (``opt.init`` makes its state on
+    the mesh). The parameters and moments are updated in place, where JAX
+    donates them."""
+    register = sharding.register_zero3_constraints
+    register(cfg, mesh, mode)
+    opt = make_optimizer(cfg, lr)
+    opt = optim.Optimizer(init_mesh_opt_state, opt.update)
+    p_specs = sharding.param_specs(cfg, mesh, mode)
+    o_specs = sharding.opt_state_specs(p_specs)
+    b_specs = sharding.batch_specs(cfg, mesh)
+    if example_batch is not None:
+        b_specs = sharding.fit_tree(b_specs, example_batch, mesh)
+    metric_specs = {"loss": P(), "grad_norm": P()}
+    in_specs = (p_specs, o_specs, b_specs)
+    out_specs = (p_specs, o_specs, metric_specs)
+
+    def train_step(params, opt_state, batch):
+        register(cfg, mesh, mode)
+        batch = _placed({k: batch[k] for k in b_specs}, b_specs, mesh)
+        owned = _owned(params)
+        home = next(iter(owned.values())).device
+        for blk in owned.values():
+            blk.requires_grad_(True)
+        try:
+            with torch.enable_grad(), cnn.fp32(home), \
+                    cnn_trainer.deterministic(home):
+                loss = mesh_loss(params, cfg, mesh, batch, backward=True)
+            grads = {k: torch.zeros_like(b) if b.grad is None else b.grad
+                     for k, b in owned.items()}
+        finally:
+            for blk in owned.values():
+                blk.grad = None
+                blk.requires_grad_(False)
+        gnorm = _mesh_update(opt, params, opt_state, grads)
+        metrics = {"loss": loss, "grad_norm": gnorm}
+        return params, opt_state, metrics
+
+    return train_step, in_specs, out_specs, opt
+
+
+def _cache_shapes(cfg: lm.ArchConfig, b: int, max_len: int) -> lm.Cache:
+    return lm.init_cache(cfg, b, max_len, device="meta")
+
+
+def build_prefill_step(cfg: lm.ArchConfig, mesh, *, mode: str = "fsdp_tp",
+                       max_len: int | None = None, example_args=None):
+    """prefill(params, inputs[, positions]) -> (last_logits, cache), the
+    cache laid out by `sharding.cache_specs`."""
+    sharding.register_zero3_constraints(cfg, mesh, mode)
+    dp = sharding.dp_axes(mesh)
+    p_specs = sharding.param_specs(cfg, mesh, mode)
+    in_sp: tuple = (p_specs, P(dp, None, None) if cfg.input_mode == "embeds"
+                    else P(dp, None))
+    if cfg.rope == "mrope":
+        in_sp += (P(None, dp, None),)
+    out_sp = (P(dp, "model"), sharding.cache_specs(cfg, mesh))
+    if example_args is not None:
+        # the parameter specs come fitted; example_args[0] may be a model
+        in_sp = (p_specs,) + sharding.fit_tree(in_sp[1:], example_args[1:],
+                                               mesh)
+        b, s = example_args[1].shape[:2]
+        length = max_len or s
+        out_shapes = (torch.empty((b, cfg.vocab), device="meta"),
+                      _cache_shapes(cfg, b, length if cfg.sliding_window
+                                    else max(length, s)))
+        out_sp = sharding.fit_tree(out_sp, out_shapes, mesh)
+
+    @torch.no_grad()
+    def prefill_step(params, inputs, positions=None):
+        sharding.register_zero3_constraints(cfg, mesh, mode)
+        inputs = _placed(inputs, in_sp[1], mesh)
+        if positions is not None:
+            positions = _placed(positions, in_sp[2], mesh)
+        b, s = inputs.shape[:2]
+        logit_parts, cache_parts, prefix = [], [], {}
+        cache = None
+        for i, rows in _coordinates(inputs, 0, mesh):
+            shard = _shard(mesh, i, b * s, prefix)
+            with context.running(shard):
+                logits, cache = lm.prefill(
+                    params, cfg, _read(inputs, rows, 0, shard.device),
+                    _read(positions, rows, 1, shard.device),
+                    max_len=max_len)
+            _add_counts(prefix, shard)
+            logit_parts.append(((rows, slice(0, cfg.vocab)), logits))
+            cache_parts.append((rows, cache))
+        logits = ShardedTensor.assemble(out_sp[0], mesh, (b, cfg.vocab),
+                              logit_parts[0][1].dtype, logit_parts)
+        fields = {}
+        for f in lm.CACHE_FIELDS:
+            x = getattr(cache, f)
+            if x is None:
+                continue
+            shape = (x.shape[0], b, *x.shape[2:])
+            fields[f] = ShardedTensor.assemble(
+                getattr(out_sp[1], f), mesh, shape, x.dtype,
+                [(_full_region(shape, rows, 1), getattr(c, f))
+                 for rows, c in cache_parts])
+        return logits, cache._replace(**fields)
+
+    return prefill_step, in_sp, out_sp
+
+
+def build_decode_step(cfg: lm.ArchConfig, mesh, *, mode: str = "fsdp_tp",
+                      example_args=None):
+    """decode(params, tokens, cache) -> (logits, cache): the cache's blocks
+    updated in place (JAX donates it)."""
+    sharding.register_zero3_constraints(cfg, mesh, mode)
+    dp = sharding.dp_axes(mesh)
+    p_specs = sharding.param_specs(cfg, mesh, mode)
+    tok_sp = P(dp, None, None) if cfg.input_mode == "embeds" else P(dp, None)
+    cache_sp = sharding.cache_specs(cfg, mesh)
+    in_sp = (p_specs, tok_sp, cache_sp)
+    out_sp = (P(dp, None, "model"), cache_sp)
+    if example_args is not None:
+        # the parameter specs come fitted; example_args[0] may be a model
+        in_sp = (p_specs,) + sharding.fit_tree(in_sp[1:], example_args[1:],
+                                               mesh)
+        b = example_args[1].shape[0]
+        out_shapes = (torch.empty((b, 1, cfg.vocab), device="meta"),
+                      example_args[2])
+        out_sp = sharding.fit_tree(out_sp, out_shapes, mesh)
+
+    @torch.no_grad()
+    def decode_step(params, tokens, cache):
+        sharding.register_zero3_constraints(cfg, mesh, mode)
+        tokens = _placed(tokens, in_sp[1], mesh)
+        cache = cache._replace(**{
+            f: _placed(getattr(cache, f), getattr(in_sp[2], f), mesh)
+            for f in lm.CACHE_FIELDS if getattr(cache, f) is not None})
+        b = tokens.shape[0]
+        parts, prefix = [], {}
+        for i, rows in _coordinates(tokens, 0, mesh):
+            shard = _shard(mesh, i, b, prefix)
+            dev = shard.device
+            local = cache._replace(**{
+                f: _read(getattr(cache, f), rows, 1, dev)
+                for f in lm.CACHE_FIELDS if getattr(cache, f) is not None})
+            with context.running(shard):
+                logits, local = lm.decode_step(
+                    params, cfg, _read(tokens, rows, 0, dev), local)
+            _add_counts(prefix, shard)
+            for f in lm.CACHE_FIELDS:
+                st = getattr(cache, f)
+                if st is not None:
+                    st.write(_full_region(st.shape, rows, 1),
+                             getattr(local, f))
+            parts.append(((rows, slice(0, 1), slice(0, cfg.vocab)), logits))
+        logits = ShardedTensor.assemble(out_sp[0], mesh, (b, 1, cfg.vocab),
+                              parts[0][1].dtype, parts)
+        return logits, cache._replace(length=cache.length + 1)
+
+    return decode_step, in_sp, out_sp

@@ -1,5 +1,4 @@
-"""Training launcher of the port: the JAX package's `repro.launch.train`
-on one device.
+"""Training launcher of the port: the JAX package's `repro.launch.train`.
 
 Runs any of the zoo's ten architectures (the full config unless
 ``--smoke``) with the JAX launcher's flags and semantics:
@@ -16,7 +15,13 @@ Runs any of the zoo's ten architectures (the full config unless
 
 It runs on the card unless the caller asks for the CPU
 (``main(argv, device="cpu")``; the command line always means the card),
-under PyTorch's deterministic algorithms (`launch.steps`):
+under PyTorch's deterministic algorithms (`launch.steps`). As in JAX, the
+run installs a mesh for the model code (`context.set_mesh_axes`, cleared
+at the end): the host mesh with fewer than 16 devices, else the
+production mesh (`launch.mesh`). The devices are `context.devices`: every
+card, or ``REPRO_FORCE_MESH=DxM`` copies of one (16x16 gives a production
+mesh on one card). The step itself runs on the first device, as the JAX
+launcher's jitted step does; the mesh reaches `layers.moe_shardmap`.
 
   python -m repro_torch.launch.train --arch tinyllama-1.1b --steps 20
   python -m repro_torch.launch.train --arch hymba-1.5b --smoke \
@@ -35,6 +40,8 @@ import torch
 from repro_torch import configs
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.device import resolve
+from repro_torch.distributed import context, sharding
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import lm
 from repro_torch.train import cnn_trainer
@@ -84,6 +91,16 @@ def main(argv=None, *, device=None) -> dict:
     cnn_trainer.deterministic_cublas()  # before the first cuBLAS handle
     dev = resolve(device)
     cfg = configs.get(args.arch, smoke=args.smoke)
+    mesh = mesh_lib.make_host_mesh(dev) if len(context.devices(dev)) < 16 \
+        else mesh_lib.make_production_mesh(device=dev)
+    context.set_mesh_axes(sharding.dp_axes(mesh), "model", mesh=mesh)
+    try:
+        return _train(args, cfg, dev)
+    finally:
+        context.clear()
+
+
+def _train(args, cfg, dev) -> dict:
     opt = steps_lib.make_optimizer(cfg, args.lr)
     train_step = steps_lib.make_train_step(cfg, opt, compress=args.compress)
 

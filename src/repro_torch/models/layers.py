@@ -34,7 +34,17 @@ from torch import nn
 from repro_torch.device import resolve
 
 
-def _normal(shape, generator: torch.Generator) -> torch.Tensor:
+class MetaDraws:
+    """A generator stand-in that draws nothing: ``*_init`` given one builds
+    the parameters on the meta device, shapes and dtypes alone (the
+    sharding rules read a full-width model's shapes this way)."""
+
+    device = torch.device("meta")
+
+
+def _normal(shape, generator: torch.Generator | MetaDraws) -> torch.Tensor:
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     return torch.randn(shape, generator=generator, dtype=torch.float32,
                        device=generator.device)
 
@@ -313,6 +323,8 @@ def _normal_stack(n: int, shape, scale: float, dtype,
     a time (an f32 draw of a whole expert stack at deepseek-v3 width would
     be a 15 GB temporary)."""
     out = torch.empty((n, *shape), dtype=dtype, device=generator.device)
+    if out.device.type == "meta":
+        return out
     for i in range(n):
         out[i] = (_normal(shape, generator) * scale).to(dtype)
     return out
@@ -370,10 +382,12 @@ def capacity(t: int, top_k: int, n_experts: int,
     return max(int(-(-t * top_k // n_experts) * capacity_factor), top_k)
 
 
-def dispatch(ids: torch.Tensor, n_experts: int, cap: int):
+def dispatch(ids: torch.Tensor, n_experts: int, cap: int, offset=None):
     """Sort the (token, k) slots by expert id (stable) -> (sort_idx,
     sorted_ids, pos_in_seg, keep, counts): a slot is kept when its position
-    in its expert's segment is below ``cap``. Segments come from
+    in its expert's segment is below ``cap``. ``offset`` (E,) counts the
+    slots that earlier data coordinates put in each segment (a global
+    batch cut over a mesh): positions start there. Segments come from
     `torch.searchsorted` (deterministic on the card, as `bincount` is
     not)."""
     flat = ids.reshape(-1)
@@ -383,7 +397,86 @@ def dispatch(ids: torch.Tensor, n_experts: int, cap: int):
     seg_start = torch.searchsorted(sorted_ids, experts)
     counts = torch.searchsorted(sorted_ids, experts, right=True) - seg_start
     pos = torch.arange(flat.numel(), device=ids.device) - seg_start[sorted_ids]
+    if offset is not None:
+        pos = pos + offset.to(pos.device)[sorted_ids]
     return sort_idx, sorted_ids, pos, pos < cap, counts
+
+
+def _experts(gate, up, down, xf, w, ids, slots, cap: int, lo: int = 0,
+             offset=None) -> torch.Tensor:
+    """The weighted outputs of experts ``[lo, lo + len(gate))`` for (T, d)
+    tokens -> (T, d) in xf's dtype; ``gate`` / ``up`` / ``down`` hold those
+    experts alone, ``slots`` is `dispatch` of ``ids`` at ``cap`` (and
+    ``offset``).
+
+    Only experts that received a kept slot are computed, one product per
+    occupied segment: each row of the JAX zero-padded (E, C, d) buffer goes
+    through its expert on its own, so the rows are the same. The outputs
+    are added back to their tokens each in ascending expert id (the order
+    of the JAX scatter's slots); a slot of another expert adds zero."""
+    t, d = xf.shape
+    top_k = ids.shape[1]
+    hi = lo + gate.shape[0]
+    sort_idx, sorted_ids, _, keep, counts = slots
+    keep = keep & (sorted_ids >= lo) & (sorted_ids < hi)
+    before = [0] * len(counts) if offset is None else offset.tolist()
+    token_of_slot = sort_idx // top_k
+    out = torch.zeros((t * top_k, d), dtype=xf.dtype, device=xf.device)
+    # views of the experts: under grad one backward for the whole stack (a
+    # `stack` of the experts' gradients), where each `gate[ex]` would add a
+    # zero-filled copy of the stack
+    gate, up, down = gate.unbind(0), up.unbind(0), down.unbind(0)
+    start = 0
+    for ex, n in enumerate(counts.tolist()):
+        kept = min(n, max(cap - before[ex], 0))
+        if kept and lo <= ex < hi:
+            rows = xf[token_of_slot[start:start + kept]]
+            h = silu(rows @ gate[ex - lo]) * (rows @ up[ex - lo])
+            out[start:start + kept] = h @ down[ex - lo]
+        start += n
+    flat_w = w.reshape(-1)[sort_idx].to(xf.dtype)
+    contrib = torch.where(keep[:, None], out * flat_w[:, None], 0)
+    # back to (token, k) order, each token's slots by ascending expert id
+    by_slot = torch.empty_like(contrib)
+    by_slot[sort_idx] = contrib
+    order = torch.argsort(ids, dim=-1)
+    by_slot = torch.gather(by_slot.reshape(t, top_k, d), 1,
+                           order[..., None].expand(t, top_k, d))
+    y = torch.zeros((t, d), dtype=xf.dtype, device=xf.device)
+    for j in range(top_k):
+        y = y + by_slot[:, j]
+    return y
+
+
+def _aux(p: MoE, logits, scores, counts, router_type: str,
+         aux_coeff: float):
+    """The load-balance loss (fraction dispatched x mean router
+    probability, softmax probabilities for either router) over these
+    tokens, ``counts`` their slots an expert; inside a mesh step also
+    recorded for the global batch's
+    (`repro_torch.distributed.context.DataShard`)."""
+    from repro_torch.distributed import context
+
+    t, e = logits.shape
+    probs = scores if router_type == "softmax" else _softmax(logits)
+    counts = counts.to(torch.float32)
+    aux = aux_coeff * e * (counts / t * probs.mean(dim=0)).sum()
+    shard = context.data_shard()
+    if shard is not None and getattr(p, "layer", None) is not None:
+        shard.moe[p.layer] = (counts, probs.sum(dim=0), aux_coeff)
+    return aux
+
+
+def _global_drops(p: MoE, t: int):
+    """(tokens, offset) for the capacity and its drops: this call's own,
+    or, inside a mesh step, the global batch's and the expert counts of
+    the data coordinates before this one."""
+    from repro_torch.distributed import context
+
+    shard = context.data_shard()
+    if shard is None or getattr(p, "layer", None) is None:
+        return t, None
+    return shard.tokens, shard.prefix.get(p.layer)
 
 
 @true_f32()
@@ -393,55 +486,92 @@ def moe(p: MoE, x: torch.Tensor, *, top_k: int, router_type: str = "softmax",
     """MoE layer. x: (B, S, d) -> (y, aux_loss), the JAX semantics.
 
     Slots are sorted by expert id and the first ``cap`` of each expert's
-    segment are kept (`capacity`). Only experts that received a kept slot
-    are computed, one product per occupied segment: each row of the JAX
-    zero-padded (E, C, d) buffer goes through its expert on its own, so
-    the rows are the same, and a decode step reads only the experts its
-    tokens chose. The weighted outputs are added back to their tokens in
-    x's dtype, each token's in ascending expert id (the order of the JAX
-    scatter's slots). ``aux`` uses softmax probabilities for either
-    router."""
+    segment are kept (`capacity`), then go through their experts
+    (`_experts`: a decode step reads only the experts its tokens chose).
+    ``aux`` uses softmax probabilities for either router. Inside a mesh
+    step the capacity and its drops are the global batch's, as JAX's
+    global function keeps them."""
     b, s, d = x.shape
     e = p.gate.shape[0]
     t = b * s
     xf = x.reshape(t, d)
     logits, scores, w, ids = route(p, xf, top_k, router_type)
-    cap = capacity(t, top_k, e, capacity_factor)
-    sort_idx, _, _, keep, counts = dispatch(ids, e, cap)
-
-    # load-balance aux loss (fraction dispatched x mean router probability)
-    probs = scores if router_type == "softmax" else _softmax(logits)
-    dispatch_frac = counts.to(torch.float32) / t
-    aux = aux_coeff * e * (dispatch_frac * probs.mean(dim=0)).sum()
-
-    token_of_slot = sort_idx // top_k
-    out = torch.zeros((t * top_k, d), dtype=x.dtype, device=x.device)
-    # views of the experts: under grad one backward for the whole stack (a
-    # `stack` of the experts' gradients), where each `gate[ex]` would add a
-    # zero-filled copy of the stack
-    gate, up, down = p.gate.unbind(0), p.up.unbind(0), p.down.unbind(0)
-    start = 0
-    for ex, n in enumerate(counts.tolist()):
-        kept = min(n, cap)
-        if kept:
-            rows = xf[token_of_slot[start:start + kept]]
-            h = silu(rows @ gate[ex]) * (rows @ up[ex])
-            out[start:start + kept] = h @ down[ex]
-        start += n
-    flat_w = w.reshape(-1)[sort_idx].to(x.dtype)
-    contrib = torch.where(keep[:, None], out * flat_w[:, None], 0)
-    # back to (token, k) order, each token's slots by ascending expert id
-    by_slot = torch.empty_like(contrib)
-    by_slot[sort_idx] = contrib
-    order = torch.argsort(ids, dim=-1)
-    by_slot = torch.gather(by_slot.reshape(t, top_k, d), 1,
-                           order[..., None].expand(t, top_k, d))
-    y = torch.zeros((t, d), dtype=x.dtype, device=x.device)
-    for j in range(top_k):
-        y = y + by_slot[:, j]
+    t_all, offset = _global_drops(p, t)
+    cap = capacity(t_all, top_k, e, capacity_factor)
+    slots = dispatch(ids, e, cap, offset)
+    aux = _aux(p, logits, scores, slots[4], router_type, aux_coeff)
+    y = _experts(p.gate, p.up, p.down, xf, w, ids, slots, cap,
+                 offset=offset)
     if p.shared is not None:
         y = y + mlp(p.shared, xf)
     return y.reshape(b, s, d), aux
+
+
+@true_f32()
+def moe_shardmap(p: MoE, x: torch.Tensor, *, top_k: int,
+                 router_type: str = "softmax", capacity_factor: float = 1.25,
+                 aux_coeff: float = 0.01
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE, the JAX package's ``shard_map`` form.
+
+    With no mesh installed it is `moe`. Under one, each (dp, model) rank
+    routes its dp-local tokens (activations are replicated over "model",
+    so dispatch moves nothing), packs only its ``E / model`` experts with
+    the capacity of ``T / dp`` tokens, and the combine sums the ranks'
+    outputs over "model" in the activation dtype, rank 0 first (JAX's
+    ``psum``). Rank (i, j) computes on its own device. Router, shared
+    expert and the load-balance loss stay outside, as in JAX.
+
+    Inside a mesh step the tokens here are one data coordinate's block;
+    called on a whole batch under an installed mesh, they are cut into
+    the dp blocks here."""
+    from repro_torch.distributed import context
+
+    ax, mesh = context.get(), context.get_mesh()
+    if ax is None or mesh is None:
+        return moe(p, x, top_k=top_k, router_type=router_type,
+                   capacity_factor=capacity_factor, aux_coeff=aux_coeff)
+    b, s, d = x.shape
+    e = p.gate.shape[0]
+    t = b * s
+    xf = x.reshape(t, d)
+    logits, scores, w, ids = route(p, xf, top_k, router_type)
+    aux = _aux(p, logits, scores, dispatch(ids, e, t)[4], router_type,
+               aux_coeff)
+    ranks = mesh.ranks(ax.dp, ax.model)
+    dp_size, mp_size = len(ranks), len(ranks[0])
+    e_loc = e // mp_size
+    shard = context.data_shard()
+    if shard is not None:
+        t_loc = max(shard.tokens // dp_size, 1)
+        blocks = [(shard.index, slice(0, t))]
+    else:
+        t_loc = max(t // dp_size, 1)
+        if t % dp_size:
+            raise ValueError(f"{t} tokens do not cut into {dp_size} "
+                             "data-parallel blocks")
+        blocks = [(i, slice(i * t_loc, (i + 1) * t_loc))
+                  for i in range(dp_size)]
+    cap = capacity(t_loc, top_k, e, capacity_factor)
+    parts = []
+    for i, rows in blocks:
+        home = xf.device
+        y = None
+        for j in range(mp_size):
+            dev = mesh.devices[ranks[i][j]]
+            ex = slice(j * e_loc, (j + 1) * e_loc)
+            ids_j = ids[rows].to(dev)
+            y_j = _experts(p.gate[ex].to(dev), p.up[ex].to(dev),
+                           p.down[ex].to(dev), xf[rows].to(dev),
+                           w[rows].to(dev), ids_j, dispatch(ids_j, e, cap),
+                           cap, lo=j * e_loc).to(home)
+            y = y_j if y is None else y + y_j
+        parts.append(y)
+    y = torch.cat(parts) if len(parts) > 1 else parts[0]
+    y = y.reshape(b, s, d)
+    if p.shared is not None:
+        y = y + mlp(p.shared, x)
+    return y, aux
 
 
 # ---------------------------------------------------------------------------

@@ -5,9 +5,12 @@ One config dataclass and one model covering dense GQA transformers (llama /
 qwen, optional QKV bias and qk-norm), MoE (phi3.5 softmax top-2; deepseek-v3
 sigmoid top-8 with a shared expert and MLA), VLM backbones (M-RoPE,
 embeddings as input), hybrid attention + SSM heads (hymba), encoder-only
-backbones (hubert) and the pure SSM (mamba2's SSD). Only
-``head_pad_multiple > 0``, a tensor-parallel head layout, raises
-`NotImplementedError` until the multi-GPU slice (ROADMAP §A.3).
+backbones (hubert) and the pure SSM (mamba2's SSD).
+``head_pad_multiple > 0`` pads the attention heads to a multiple of the
+tensor-parallel degree, as the JAX package does (`padded_heads`): the
+unpadded q, k, v and o are drawn and then re-laid, duplicated kv heads and
+dead q slots with zero weights, so the padded model computes the unpadded
+one's function.
 
 The model is an `LM` module: ``embed`` (V, d) for token inputs, ``unembed``
 (a `layers.Linear`), ``final_norm`` and ``layers``, an `nn.ModuleList` of
@@ -50,6 +53,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
+from repro_torch.distributed import context as mesh_ctx
 from repro_torch.models import layers as L
 
 
@@ -103,7 +107,6 @@ class ArchConfig:
     precompute_rope: bool = False  # hoist cos/sin tables out of the layers
     moe_impl: str = "gspmd"  # "gspmd" | "shard_map" (manual EP collectives)
     #: pad attention heads to a multiple of the tensor-parallel degree
-    #: (a multi-device layout: raises here, ROADMAP §A.3)
     head_pad_multiple: int = 0
 
     @property
@@ -169,14 +172,6 @@ class ArchConfig:
                                                      - per_moe_active)
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for the layout whose slice has not landed."""
-    if cfg.head_pad_multiple > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: head_pad_multiple > 0 is a tensor-parallel head "
-            "layout, which comes with the multi-GPU slice (ROADMAP §A.3)")
-
-
 # ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
@@ -232,13 +227,114 @@ class LM(nn.Module):
         self.layers = nn.ModuleList(layers)
 
 
+# ---------------------------------------------------------------------------
+# head padding: the JAX package's mesh-aligned head layout
+# ---------------------------------------------------------------------------
+
+def _pad_geom(cfg: ArchConfig):
+    """Mesh-aligned head geometry (hp, kvp, dup, gp), or None.
+
+    The kv heads pad to ``kvp = m`` by duplication (which needs KV | m, or
+    g == 1, where plain dead heads do); the q heads pad to ``hp = kvp *
+    gp`` with ``gp = ceil(g / dup)``. Padded q slot s belongs to padded
+    group s // gp; its original head is ``g * ((s // gp) // dup) + ((s //
+    gp) % dup) * gp + s % gp``, valid while that offset in its group is
+    below g."""
+    m = cfg.head_pad_multiple
+    if m <= 0:
+        return None
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    g = H // KV
+    if KV % m == 0 and H % m == 0:
+        return None  # already aligned
+    if g == 1:
+        hp = -(-H // m) * m
+        return (hp, hp, 1, 1)
+    if m % KV != 0:
+        return None  # unsupported geometry (e.g. hymba's kv 5)
+    kvp = m
+    dup = kvp // KV
+    gp = -(-g // dup)
+    return (kvp * gp, kvp, dup, gp)
+
+
+def _q_head_map(cfg: ArchConfig) -> tuple[list[int], list[bool]]:
+    """(original head, valid) for each slot of the padded q layout."""
+    hp, kvp, dup, gp = _pad_geom(cfg)
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    g = H // KV if KV else 1
+    idx, valid = [], []
+    for s_ in range(hp):
+        grp, t = s_ // gp, s_ % gp
+        if dup == 1:  # MHA dead-head padding
+            o = s_
+            ok = o < H
+        else:
+            o = g * (grp // dup) + (grp % dup) * gp + t
+            ok = ((grp % dup) * gp + t) < g and (grp // dup) < KV
+        idx.append(o if ok else 0)
+        valid.append(ok)
+    return idx, valid
+
+
+def _relay(x: torch.Tensor, heads: int, axis: int, idx, valid
+           ) -> torch.Tensor:
+    """The heads of ``x`` (``heads * hd`` along ``axis``) picked by
+    ``idx``, the invalid ones zeroed, in x's dtype."""
+    shape = list(x.shape)
+    hd = shape[axis] // heads
+    xh = x.reshape(*shape[:axis], heads, hd, *shape[axis + 1:])
+    index = torch.as_tensor(idx, device=x.device)
+    mask = torch.as_tensor(valid, dtype=x.dtype, device=x.device).reshape(
+        [-1] + [1] * (xh.ndim - axis - 1))
+    out = xh.index_select(axis, index) * mask
+    return out.reshape(*shape[:axis], len(idx) * hd, *shape[axis + 1:])
+
+
+def pad_q(p: L.Linear, cfg: ArchConfig, axis: int) -> L.Linear:
+    """A q-side linear re-laid into the padded head layout (dead slots
+    zero): ``w`` (d, H*hd) on axis 1 (q), or (H*hd, d) on axis 0 (o); a
+    bias follows the head axis (q only)."""
+    idx, valid = _q_head_map(cfg)
+    w = _relay(p.w.data, cfg.n_heads, axis, idx, valid)
+    b = None if p.b is None else _relay(p.b.data, cfg.n_heads, 0, idx, valid)
+    return L.Linear(w, b)
+
+
+def pad_kv(p: L.Linear, cfg: ArchConfig) -> L.Linear:
+    """A k or v linear with its kv-head columns duplicated into the padded
+    layout."""
+    hp, kvp, dup, gp = _pad_geom(cfg)
+    KV = cfg.n_kv_heads
+    idx = [min(i // max(dup, 1), KV - 1) for i in range(kvp)]
+    valid = [i < KV * max(dup, 1) if dup > 1 else i < KV
+             for i in range(kvp)]
+    w = _relay(p.w.data, KV, 1, idx, valid)
+    b = None if p.b is None else _relay(p.b.data, KV, 0, idx, valid)
+    return L.Linear(w, b)
+
+
+def padded_heads(cfg: ArchConfig) -> tuple[int, int]:
+    """(q heads, kv heads) as laid out: padded when `head_pad_multiple`
+    asks for it."""
+    geom = _pad_geom(cfg)
+    if geom is None:
+        return cfg.n_heads, cfg.n_kv_heads
+    return geom[0], geom[1]
+
+
 def _init_attn(g: torch.Generator, cfg: ArchConfig) -> Attention:
+    """The unpadded q, k, v and o drawn in order, then re-laid into the
+    padded head layout when `head_pad_multiple` asks for one."""
     d, hd, dt = cfg.d_model, cfg.head_dim, cfg.dtype
     H, KV = cfg.n_heads, cfg.n_kv_heads
     q = L.linear_init(g, d, H * hd, bias=cfg.qkv_bias, dtype=dt)
     k = L.linear_init(g, d, KV * hd, bias=cfg.qkv_bias, dtype=dt)
     v = L.linear_init(g, d, KV * hd, bias=cfg.qkv_bias, dtype=dt)
     o = L.linear_init(g, H * hd, d, dtype=dt)
+    if _pad_geom(cfg) is not None:
+        q, k, v, o = (pad_q(q, cfg, 1), pad_kv(k, cfg), pad_kv(v, cfg),
+                      pad_q(o, cfg, 0))
     if not cfg.qk_norm:
         return Attention(q, k, v, o)
     return Attention(q, k, v, o, L.rmsnorm_init(hd, device=g.device),
@@ -287,10 +383,12 @@ def init_params(key: int | torch.Generator, cfg: ArchConfig, *,
     ``din ** -0.5``, the embedding normal times 0.02, the SSD's conv
     normal times 0.1), drawn in order from ``key`` (a seed, or a generator
     on the target device) on ``device`` (the card unless the caller asks
-    for the CPU)."""
-    check_supported(cfg)
+    for the CPU). ``device="meta"`` draws nothing: the model's shapes and
+    dtypes alone, at any width."""
     if isinstance(key, torch.Generator):
         g = key
+    elif resolve(device).type == "meta":
+        g = L.MetaDraws()
     else:
         g = torch.Generator(device=resolve(device)).manual_seed(int(key))
     embed = None
@@ -325,9 +423,10 @@ def _rope_tables(cfg: ArchConfig, positions):
 
 def _attn_qkv(p: Attention, cfg: ArchConfig, h, positions, tables=None):
     b, s, _ = h.shape
-    q = L.linear(p.q, h).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = L.linear(p.k, h).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = L.linear(p.v, h).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    H, KV = padded_heads(cfg)
+    q = L.linear(p.q, h).reshape(b, s, H, cfg.head_dim)
+    k = L.linear(p.k, h).reshape(b, s, KV, cfg.head_dim)
+    v = L.linear(p.v, h).reshape(b, s, KV, cfg.head_dim)
     if cfg.qk_norm:
         q = L.rmsnorm(p.q_norm, q)
         k = L.rmsnorm(p.k_norm, k)
@@ -408,13 +507,17 @@ def _hybrid(p: Layer, att, ssm_y):
                   + L.rmsnorm(p.ssm_out_norm, ssm_y))
 
 
-def _ffn(p: Layer, cfg: ArchConfig, h):
-    """``h`` plus the layer's MLP or MoE on ``ln2(h)`` -> (h, aux)."""
+def _ffn(p: Layer, cfg: ArchConfig, h, *, decode: bool = False):
+    """``h`` plus the layer's MLP or MoE on ``ln2(h)`` -> (h, aux). The
+    expert-parallel `layers.moe_shardmap` where ``cfg.moe_impl`` asks for
+    it, except in a decode step (as in the JAX package)."""
     x = L.rmsnorm(p.ln2, h)
     if p.moe is not None:
-        y, aux = L.moe(p.moe, x, top_k=cfg.top_k,
-                       router_type=cfg.router_type,
-                       capacity_factor=cfg.capacity_factor)
+        moe_fn = L.moe_shardmap if (cfg.moe_impl == "shard_map"
+                                    and not decode) else L.moe
+        y, aux = moe_fn(p.moe, x, top_k=cfg.top_k,
+                        router_type=cfg.router_type,
+                        capacity_factor=cfg.capacity_factor)
         return h + y, aux
     return h + L.mlp(p.mlp, x), None
 
@@ -422,6 +525,7 @@ def _ffn(p: Layer, cfg: ArchConfig, h):
 def _layer_full(p: Layer, cfg: ArchConfig, h, positions, tables):
     """One layer over a whole sequence -> (h, aux or None, the layer's
     cache tensors: k / v, c_kv / k_rope, conv / ssm)."""
+    p = mesh_ctx.constrain_layer(p)  # ZeRO-3 gather-at-use
     x = L.rmsnorm(p.ln1, h)
     new = {}
     if cfg.ssm:
@@ -451,7 +555,21 @@ def _layer_train(p: Layer, cfg: ArchConfig, h, positions, tables):
     return h, aux
 
 
-def _embed_in(params: LM, cfg: ArchConfig, inputs) -> torch.Tensor:
+class Head(NamedTuple):
+    """The leaves outside the layers, as JAX's ``_head_params`` picks
+    them (``embed`` None for embedding inputs)."""
+
+    embed: torch.Tensor | None
+    unembed: L.Linear
+    final_norm: L.RMSNorm
+
+
+def _head_params(params: LM) -> Head:
+    return mesh_ctx.constrain_head(
+        Head(params.embed, params.unembed, params.final_norm))
+
+
+def _embed_in(params: LM | Head, cfg: ArchConfig, inputs) -> torch.Tensor:
     if cfg.input_mode == "tokens":
         idx = torch.as_tensor(inputs, device=params.embed.device)
         return params.embed[idx.to(torch.int64)]
@@ -476,8 +594,8 @@ def forward(params: LM, cfg: ArchConfig, inputs, positions=None
     losses summed over the layers, 0 without MoE. Under grad mode each
     layer is recomputed in the backward when ``cfg.remat`` is set; the
     numbers are the same either way."""
-    check_supported(cfg)
-    h = _embed_in(params, cfg, inputs)
+    head = _head_params(params)
+    h = _embed_in(head, cfg, inputs)
     b, s = h.shape[:2]
     if positions is None:
         positions = _default_positions(cfg, b, s, device=h.device)
@@ -494,7 +612,7 @@ def forward(params: LM, cfg: ArchConfig, inputs, positions=None
             h, a = _layer_train(layer, cfg, h, positions, tables)
         if a is not None:
             aux = aux + a
-    logits = L.linear(params.unembed, L.rmsnorm(params.final_norm, h))
+    logits = L.linear(head.unembed, L.rmsnorm(head.final_norm, h))
     return logits, aux
 
 
@@ -563,7 +681,6 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
     """A zero cache on ``device`` (the card unless the caller asks for the
     CPU); a sliding window keeps a ring of ``min(max_len, window)`` slots.
     The SSM conv state has 3 slots, as in the JAX package."""
-    check_supported(cfg)
     dt, dev = dtype or cfg.dtype, resolve(device)
     n, b = cfg.n_layers, batch
     k = v = c_kv = k_rope = conv = ssm = None
@@ -581,7 +698,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
     elif cfg.uses_attention:
         attn_len = min(max_len, cfg.sliding_window) if cfg.sliding_window \
             else max_len
-        k = torch.zeros((n, b, attn_len, cfg.n_kv_heads, cfg.head_dim),
+        k = torch.zeros((n, b, attn_len, padded_heads(cfg)[1], cfg.head_dim),
                         dtype=dt, device=dev)
         v = torch.zeros_like(k)
     return Cache(k, v, c_kv, k_rope, conv, ssm, 0)
@@ -596,11 +713,13 @@ def prefill(params: LM, cfg: ArchConfig, inputs, positions=None,
     Returns (last-position logits (B, V), cache ready for `decode_step`).
     A sliding window lays the last ``w`` keys out on their ring slots
     ``p % w``; an SSM layer leaves its conv and ssm states."""
-    check_supported(cfg)
-    h = _embed_in(params, cfg, inputs)
+    head = _head_params(params)
+    h = _embed_in(head, cfg, inputs)
     b, s = h.shape[:2]
     if positions is None:
         positions = _default_positions(cfg, b, s, device=h.device)
+    else:
+        positions = torch.as_tensor(positions, device=h.device)
     max_len = max_len or s
     tables = _rope_tables(cfg, positions)
     # a prompt longer than max_len keeps all its keys (as the JAX pad)
@@ -622,8 +741,8 @@ def prefill(params: LM, cfg: ArchConfig, inputs, positions=None,
         for f in ("conv", "ssm"):
             if f in new:
                 getattr(cache, f)[i] = new[f]
-    h = L.rmsnorm(params.final_norm, h)
-    logits = L.linear(params.unembed, h[:, -1])
+    h = L.rmsnorm(head.final_norm, h)
+    logits = L.linear(head.unembed, h[:, -1])
     return logits, cache._replace(length=s)
 
 
@@ -634,8 +753,8 @@ def decode_step(params: LM, cfg: ArchConfig, tokens, cache: Cache
     """One decode step. tokens: (B, 1) ids (or (B, 1, d) embeds).
     Returns (logits (B, 1, V), the cache with ``length + 1``; its tensors
     are updated in place)."""
-    check_supported(cfg)
-    h = _embed_in(params, cfg, tokens)
+    head = _head_params(params)
+    h = _embed_in(head, cfg, tokens)
     b = h.shape[0]
     length = int(cache.length)
     positions = _default_positions(cfg, b, 1, offset=length,
@@ -648,6 +767,7 @@ def decode_step(params: LM, cfg: ArchConfig, tokens, cache: Cache
         idx = length % smax if cfg.sliding_window else min(length, smax - 1)
         cur = min(length + 1, smax) if cfg.sliding_window else length + 1
     for i, layer in enumerate(params.layers):
+        layer = mesh_ctx.constrain_layer(layer)  # ZeRO-3 gather-at-use
         x = L.rmsnorm(layer.ln1, h)
         ssm_y = None
         if layer.ssd is not None:
@@ -670,6 +790,6 @@ def decode_step(params: LM, cfg: ArchConfig, tokens, cache: Cache
             att = L.linear(layer.attn.o, out.reshape(b, 1, -1))
         if cfg.hybrid:
             att = _hybrid(layer, att, ssm_y)
-        h, _ = _ffn(layer, cfg, h + att)
-    logits = L.linear(params.unembed, L.rmsnorm(params.final_norm, h))
+        h, _ = _ffn(layer, cfg, h + att, decode=True)
+    logits = L.linear(head.unembed, L.rmsnorm(head.final_norm, h))
     return logits, cache._replace(length=length + 1)

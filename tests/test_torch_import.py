@@ -62,6 +62,25 @@ slice10 = {"repro_torch.distributed", "repro_torch.distributed.context",
            "repro_torch.distributed.forcemesh", "repro_torch.launch.mesh",
            "repro_torch.match.plan", "repro_torch.fleet.reshard"}
 assert slice10 <= set(names), sorted(slice10 - set(names))
+slice11 = {"repro_torch.distributed.sharding", "repro_torch.ft.elastic",
+           "repro_torch.launch.steps", "repro_torch.launch.mesh"}
+assert slice11 <= set(names), sorted(slice11 - set(names))
+from repro_torch.distributed import sharding
+from repro_torch.ft import elastic
+from repro_torch.launch import mesh, steps
+from repro_torch.core import quant
+from repro_torch.models import layers, lm
+assert all(hasattr(sharding, n) for n in (
+    "P", "dp_axes", "param_spec", "fit_spec", "fit_tree", "param_specs",
+    "opt_state_specs", "batch_specs", "cache_specs", "to_shardings",
+    "register_zero3_constraints", "validate_divisibility"))
+assert all(hasattr(steps, n) for n in (
+    "build_train_step", "build_prefill_step", "build_decode_step"))
+assert all(hasattr(elastic, n) for n in (
+    "remesh_restore", "rescale_schedule", "Heartbeat", "StragglerMonitor"))
+assert hasattr(mesh, "make_production_mesh")
+assert hasattr(quant, "binarize_with_stats")
+assert hasattr(layers, "moe_shardmap") and hasattr(lm, "padded_heads")
 import chip_smoke
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
@@ -75,7 +94,7 @@ def test_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", BLOCKED_IMPORT], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 107  # every module of the ten slices
+    assert int(out.stdout.strip()) >= 108  # every module of the slices
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -392,13 +392,6 @@ def test_every_config_builds_and_decodes(arch):
     assert bool(torch.isfinite(logits).all() and torch.isfinite(step).all())
 
 
-def test_head_padding_waits_for_the_multi_gpu_slice():
-    cfg = dataclasses.replace(tconfigs.get("qwen2.5-14b", smoke=True),
-                              head_pad_multiple=4)
-    with pytest.raises(NotImplementedError, match="A.3"):
-        tlm.init_params(0, cfg, device="cpu")
-
-
 def test_init_params_draws_the_jax_distributions():
     """Normal weights times din**-0.5, the embedding times 0.02, zero
     biases, unit norms; a function of the seed."""
