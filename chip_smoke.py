@@ -182,8 +182,9 @@ JAX:
               against forward within 2^-5 (phi3.5-moe) or the JAX
               package's 0.08 of the scale, the step's bound counting the
               experts it reads and the MLA / SSM caches. All six cut to 2
-              layers in f32 (TF32 off; deepseek-v3 with 16 experts),
-              weights made on the CPU: prefill, every cache field and 8
+              layers in f32 (TF32 off; phi3.5-moe and deepseek-v3 to 1,
+              deepseek-v3 with 16 experts: `cpu_cut`), weights drawn on
+              the card and copied to the CPU: prefill, every cache field and 8
               teacher-forced greedy steps card against CPU within rtol /
               atol 1e-5, routing ids identical (smallest k / k+1 gap
               printed), tokens identical but at a near tie (printed).
@@ -201,10 +202,13 @@ JAX:
               (`train_bound`: bytes against products). One config a family
               (`TRAIN_FAMILIES`: tinyllama-1.1b, qwen2-vl-72b,
               hubert-xlarge, phi3.5-moe, deepseek-v3 with 16 experts,
-              mamba2-2.7b, hymba-1.5b) cut to 2 layers in f32, TF32 off,
-              weights made on the CPU from a seed, card against CPU: the loss within 1e-5, every gradient within
-              relative L2 1e-4 per JAX leaf, the MoE routing ids identical
-              in the forward and the recompute, one AdamW step from the
+              mamba2-2.7b, hymba-1.5b) cut to 2 layers in f32 (1 for
+              qwen2-vl-72b, phi3.5-moe and deepseek-v3: `cpu_cut`), TF32
+              off, weights drawn on the card from a seed and copied to the
+              CPU, card against CPU: the loss within 1e-5, every gradient
+              within relative L2 1e-4 per JAX leaf, the MoE routing ids
+              identical in the forward and the recompute, one AdamW step
+              from the
               same gradients within 1e-5 of each tensor's scale, the int8
               compression of each JAX leaf (the layers' tensors stacked,
               as the trainer compresses) bit-identical (batch 8 x 64, or
@@ -266,6 +270,28 @@ JAX:
               against unpadded within 2^-5; `ft.elastic.remesh_restore`
               of a SMOKE 2x2 checkpoint onto 1x2, bit for bit, and a step
               there.
+11. dryrun   the dry run (after lm_mesh; plain PyTorch on the meta device,
+              no kernel of the port). `launch.dryrun` on qwen3-1.7b
+              train_4k on the two-pod mesh (512 meta coordinates),
+              tinyllama-1.1b at its three applicable shapes (long_500k
+              skipped with JAX's reason), mamba2-2.7b long_500k,
+              phi3.5-moe train_4k (the meta MoE) and deepseek-v3
+              decode_32k (MLA) on one pod: "all dry-run cells passed",
+              each cell's trace seconds and the report's table (analysis,
+              not measurements). The census against the card:
+              tinyllama-1.1b's layer probe (train with grad, 1 x 4096;
+              decode at decode_32k's coordinate shapes, 8 x 32768) and
+              its embed-and-head probe (train with grad, 1 x 4096) on a
+              1x1 mesh of the card under `FlopCounterMode` and on meta
+              under the census: product FLOPs equal, the card's peak
+              memory over the call within 10% or 64 MiB of the census's
+              peak live bytes, each probe's time (CUDA events) against its
+              roofline bound. The memory record against the card:
+              tinyllama-1.1b train at 8 x 1024 on forced 1x1 and 2x2
+              meshes, `argument_bytes` equal to each coordinate's resident
+              blocks plus its batch rows, `temp_bytes` (times the data
+              coordinates the one card runs) within 15% of the card's
+              peak less its resident bytes over a step.
  8. report    the card's name and power limit, metrics and the energy
               split, the training step's time, device time and idle share,
               the paper's tables and the tuning winners, the control
@@ -283,6 +309,7 @@ or without the repository beside it, it exits non-zero before any result.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import statistics
@@ -299,6 +326,11 @@ import numpy as np
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+try:  # the card's rates; alone in a directory, main() says what is missing
+    from repro_torch.analysis.roofline import FLOPS_BY_DTYPE, HBM_BW
+except ImportError:
+    FLOPS_BY_DTYPE = HBM_BW = None
 CSRC = "src/repro_torch/csrc"
 MATCH_SRC = f"{CSRC}/acam_match.cu"
 SIM_SRC = f"{CSRC}/acam_similarity.cu"
@@ -323,7 +355,7 @@ KERNELS = {
     "kd_loss": (KD_SRC, f"{KD_TPU}:112"),  # B8
     "flash_attention": (FA_SRC, f"{FA_TPU}:90"),  # B9
 }
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+HBM_BYTES_PER_S = HBM_BW  # H100 SXM (repro_torch.analysis.roofline)
 INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor rate
 # FP32 / int instructions per second outside the tensor cores: 132 SMs x
 # 128 lanes x 1.98 GHz, the 67 TFLOP/s FP32 peak with an FMA counted once
@@ -333,8 +365,7 @@ SIM_INSTR_PER_CELL = 10  # Eq. 9-11 per (query, template row, feature)
 # windows count hits with two popc per 32 (query, row, feature) cells)
 POPC_PER_S = 4.18e12
 # dense tensor-core rates for 16-bit operands, and FP32 outside them
-FLOPS_PER_S = {"torch.bfloat16": 989e12, "torch.float16": 989e12,
-               "torch.float32": 67e12}
+FLOPS_PER_S = FLOPS_BY_DTYPE
 # special-function (exp) rate: 132 SMs x 16 per clock x 1.98 GHz
 SFU_PER_S = 4.18e12
 KD_RTOL, KD_ATOL = 1e-4, 1e-5  # the JAX package's kd_loss test tolerance
@@ -427,9 +458,10 @@ def profile(fn, reps: int = 1, retries: int = 2, cpu: bool = True) -> dict:
     ``retries`` times (two empty sessions in a row have happened on the
     card): each time the calling function and the kernels that launched
     go to `PROFILE_RETRIES` (the report lists them) and the result is
-    marked ``retried``. ``cpu=False`` traces the device alone (a step of
-    tens of thousands of launches takes half a minute to analyse with its
-    host events)."""
+    marked ``retried``. ``cpu=False`` traces the device alone: every
+    number above comes from device events, and a step of thousands of
+    launches takes 7-30 s to analyse with its host events (phase 6's
+    decode profiles took 66 s of its 173 s so)."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -2541,7 +2573,7 @@ def training_repeatability(device) -> dict:
         ctx = (nondeterministic_training if mode == "without"
                else contextlib.nullcontext)
         with ctx():
-            times[mode].append(profile(lambda: student(zt)))
+            times[mode].append(profile(lambda: student(zt), cpu=False))
     for mode, runs in times.items():
         report[mode]["student_device_ms"] = [r["device_ms"] for r in runs]
         report[mode]["student_wall_ms"] = [r["wall_ms"] for r in runs]
@@ -4006,7 +4038,7 @@ def print_sharded(sh: dict, card: str) -> None:
 #: full width on the card: the launcher's default --arch, and qk-norm at
 #: rope theta 1e6 with the 151,936-token vocabulary
 LM_ARCHS = ("tinyllama-1.1b", "qwen3-1.7b")
-#: card vs CPU in f32 at 2 layers: the f32 tolerance of the CPU tests
+#: card vs CPU in f32 (`cpu_cut`): the f32 tolerance of the CPU tests
 #: (tests/test_torch_lm.py)
 LM_RTOL = LM_ATOL = 1e-5
 #: bf16: |diff| <= 2^-5 max|logits|, the CPU tests' bf16 tolerance
@@ -4025,9 +4057,46 @@ LM_FAMILIES = {"phi3.5-moe-42b-a6.6b": (8, LM_BF16_REL),
                "deepseek-v3-671b": (2, 0.08),
                "mamba2-2.7b": (16, 0.08),
                "hymba-1.5b": (8, 0.08)}
-#: card against CPU in f32 at 2 layers: deepseek-v3's 256 routed experts
-#: cut to 16 (with 256, f32 at 2 layers is about 100 GB a device)
-LM_CPU_CUTS = {"deepseek-v3-671b": dict(n_experts=16)}
+#: card against CPU in f32, cuts past `LM_CUT_LAYERS` for the CPU's time:
+#: the three largest configs (2.9-3.7 G parameters at 2 layers, where the
+#: CPU's side of phases 6 and 7 took 46-130 s each) at one layer (their
+#: layers are alike, so one holds every op of the family); deepseek-v3's
+#: 256 routed experts cut to 16 (with 256, f32 at 2 layers is about 100 GB
+#: a device)
+LM_CPU_CUTS = {"deepseek-v3-671b": dict(n_layers=1, n_experts=16),
+               "phi3.5-moe-42b-a6.6b": dict(n_layers=1),
+               "qwen2-vl-72b": dict(n_layers=1)}
+
+
+def cpu_cut(arch: str):
+    """``arch`` at full width in f32 for a card-against-CPU check:
+    `LM_CUT_LAYERS` layers, then `LM_CPU_CUTS`."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get(arch), **(
+        dict(n_layers=LM_CUT_LAYERS, dtype=torch.float32)
+        | LM_CPU_CUTS.get(arch, {})))
+
+
+def card_and_cpu(cfg, device) -> tuple:
+    """The seed-0 model drawn on ``device`` and a copy of it on the CPU:
+    one set of weights on both (the CPU's generator draws about 8 ns a
+    parameter, 25-28 s for each of the three largest cut configs)."""
+    import copy
+
+    import torch
+
+    from repro_torch.models import lm
+
+    card = lm.init_params(0, cfg, device=device)
+    cpu = copy.deepcopy(card, {id(p): torch.nn.Parameter(
+        p.detach().cpu(), requires_grad=p.requires_grad)
+        for p in card.parameters()})
+    return card, cpu
 
 
 @contextlib.contextmanager
@@ -4195,8 +4264,10 @@ def lm_full_width(device, arch: str, *, smoke: bool = False,
         cfg = dataclasses.replace(cfg, n_layers=min(layers, cfg.n_layers))
     torch.zeros((), device=device)  # the allocator exists before its reset
     torch.cuda.reset_peak_memory_stats(device)
+    secs, t0 = {}, time.perf_counter()
     res = serve.run_lm(args, device=device, cfg=cfg)
     peak = torch.cuda.max_memory_allocated(device)
+    secs["run_lm"] = time.perf_counter() - t0
     eng = res["engine"]
     cfg, params = eng.cfg, eng.params
     check(all(r.done and len(r.out) == args.max_new for r in res["requests"]),
@@ -4263,6 +4334,14 @@ def lm_full_width(device, arch: str, *, smoke: bool = False,
     with routes_recorded() as routes:  # the experts the timed step reads
         decode()
     experts = [len(torch.unique(ids)) for ids, _ in routes]
+    secs["checks"] = time.perf_counter() - t0 - secs["run_lm"]
+    t0 = time.perf_counter()
+    timed = dict(prefill_ms=time_ms(prefill, iters=10),
+                 decode_ms=time_ms(decode, iters=30))
+    secs["timed"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decode_profile = profile(decode, reps=10, cpu=False)
+    secs["profile"] = time.perf_counter() - t0
     out = dict(arch=cfg.name, layers=cfg.n_layers, full_layers=full_layers,
                d_model=cfg.d_model, experts_per_layer=experts or None,
                vocab=cfg.vocab, params=cfg.param_count(), tol_rel=rel,
@@ -4272,18 +4351,18 @@ def lm_full_width(device, arch: str, *, smoke: bool = False,
                warm_generate_s=warm_s, warm_tokens_per_s=res["tokens"] / warm_s,
                stats=stats, peak_mem_bytes=peak,
                err_vs_forward=err, routing_flips=flipped,
-               prefill_shape=[LM_GROUP, LM_PLEN],
-               prefill_ms=time_ms(prefill, iters=10),
-               decode_ms=time_ms(decode, iters=30),
-               decode_profile=profile(decode, reps=10),
-               bound=lm_bound(cfg, params, LM_GROUP, cache.length, experts))
+               prefill_shape=[LM_GROUP, LM_PLEN], **timed,
+               decode_profile=decode_profile,
+               bound=lm_bound(cfg, params, LM_GROUP, cache.length, experts),
+               secs=secs)
     return out
 
 
 def lm_card_vs_cpu(device, arch: str, cfg=None) -> dict:
     """The full-width config cut to `LM_CUT_LAYERS` layers (and by
     `LM_CPU_CUTS`; or ``cfg``, a CPU rehearsal's), in f32 with TF32
-    off, weights made on the CPU from a seed and copied to the card: an
+    off, weights drawn on the card from a seed and copied to the CPU
+    (`card_and_cpu`): an
     engine group's prefill (left-padded prompts of 4-31 tokens) and
     `LM_STEPS` decode steps fed the card's greedy tokens, logits and every
     cache field within the CPU tests' f32 tolerance on both devices
@@ -4296,22 +4375,16 @@ def lm_card_vs_cpu(device, arch: str, cfg=None) -> dict:
     identical, except where the CPU's top-2 gap is inside the tolerance
     (printed). Then `Engine.generate` on both (8 requests, max_new 16):
     requests with equal tokens reported."""
-    import copy
-    import dataclasses
-
     import torch
 
-    from repro_torch import configs
     from repro_torch.models import lm
     from repro_torch.serve.engine import Engine, Request
 
-    cfg = cfg or dataclasses.replace(configs.get(arch),
-                                     n_layers=LM_CUT_LAYERS,
-                                     dtype=torch.float32,
-                                     **LM_CPU_CUTS.get(arch, {}))
+    cfg = cfg or cpu_cut(arch)
     of_scale = arch in LM_FAMILIES
-    cpu = lm.init_params(0, cfg, device="cpu")
-    card = copy.deepcopy(cpu).to(device)
+    secs, t0 = {}, time.perf_counter()
+    card, cpu = card_and_cpu(cfg, device)
+    secs["init"] = time.perf_counter() - t0
     rng = np.random.RandomState(2)
     lens = rng.randint(4, 32, size=LM_GROUP)
     prompts = np.zeros((LM_GROUP, lens.max()), np.int64)
@@ -4351,11 +4424,14 @@ def lm_card_vs_cpu(device, arch: str, cfg=None) -> dict:
                 if getattr(cp, f) is not None:
                     close(f"cache {f}", getattr(cc, f), getattr(cp, f))
 
+        t0 = time.perf_counter()
         lc, cc = lm.prefill(card, cfg, torch.as_tensor(prompts,
                                                        device=device),
                             max_len=64)
         lp, cp = lm.prefill(cpu, cfg, torch.as_tensor(prompts), max_len=64)
         same_routes(recorded)
+        secs["prefill"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         threads = torch.get_num_threads()  # the reference against itself
         torch.set_num_threads(1)
         try:
@@ -4363,6 +4439,8 @@ def lm_card_vs_cpu(device, arch: str, cfg=None) -> dict:
                                 max_len=64)
         finally:
             torch.set_num_threads(threads)
+        secs["prefill_1_thread"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         recorded.clear()
         cpu_threads_err = float((lp1 - lp).abs().max())
         close("prefill logits", lc, lp)
@@ -4386,6 +4464,8 @@ def lm_card_vs_cpu(device, arch: str, cfg=None) -> dict:
             close("decode logits", lc, lp)
         caches(cc, cp)
         stack.close()
+        secs["decode"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         reqs = {}
         for dev, params in (("card", card), ("cpu", cpu)):
             r2 = np.random.RandomState(0)
@@ -4393,6 +4473,7 @@ def lm_card_vs_cpu(device, arch: str, cfg=None) -> dict:
                 [Request(prompt=r2.randint(0, cfg.vocab, size=r2.randint(4, 32)),
                          max_new_tokens=16) for _ in range(8)])
         same = sum(a.out == b.out for a, b in zip(reqs["card"], reqs["cpu"]))
+        secs["engine"] = time.perf_counter() - t0
     finally:
         stack.close()
         torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -4404,7 +4485,7 @@ def lm_card_vs_cpu(device, arch: str, cfg=None) -> dict:
                 greedy_tokens=tokens, near_ties=ties,
                 routing_calls=len(gaps),
                 routing_min_gap=min(gaps) if gaps else None,
-                engine_requests_equal=same, engine_requests=8)
+                engine_requests_equal=same, engine_requests=8, secs=secs)
 
 
 def same_match(a, b) -> bool:
@@ -4534,7 +4615,7 @@ def lm_phase(device, *, smoke: bool = False, cut_cfgs=None
              ) -> tuple[dict, dict]:
     """Phase 6: full width (`lm_full_width`) for each of `LM_ARCHS` and,
     cut in depth, of `LM_FAMILIES` (one at a time, each freed before the
-    next), card against CPU at 2 layers (`lm_card_vs_cpu`) for all six,
+    next), card against CPU (`lm_card_vs_cpu`, `cpu_cut`) for all six,
     and `lm_cached` (the
     launcher's full-width tinyllama). ``smoke`` / ``cut_cfgs`` (arch ->
     config) shrink the configs for a CPU rehearsal."""
@@ -4635,11 +4716,10 @@ def print_lm(lmo: dict, card: str) -> None:
 TRAIN_ARCH = "tinyllama-1.1b"
 TRAIN_STEPS = 8
 TRAIN_BATCH, TRAIN_SEQ = 8, 64
-#: card against CPU in f32 at `LM_CUT_LAYERS` layers, one config a family
-#: (dense, vlm, audio, moe, MLA + sigmoid moe, ssm, hybrid): arch ->
-#: (batch, seq), the launcher's 8 x 64 cut to 2 x 32 for the three
-#: largest (2.8-3.7 G parameters at 2 layers), where the CPU's side takes
-#: longest
+#: card against CPU in f32 (`cpu_cut`), one config a family (dense, vlm,
+#: audio, moe, MLA + sigmoid moe, ssm, hybrid): arch -> (batch, seq), the
+#: launcher's 8 x 64 cut to 2 x 32 for the three largest (1.6-2.8 G
+#: parameters at one layer), where the CPU's side takes longest
 TRAIN_FAMILIES = {"tinyllama-1.1b": (8, 64), "qwen2-vl-72b": (2, 32),
                   "hubert-xlarge": (8, 64), "phi3.5-moe-42b-a6.6b": (2, 32),
                   "deepseek-v3-671b": (2, 32), "mamba2-2.7b": (8, 64),
@@ -4739,7 +4819,7 @@ def lm_train_full_width(device, *, smoke: bool = False) -> dict:
                remat=cfg.remat, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                losses=losses, step_s=res["step_s"], main_s=main_s,
                peak_mem_bytes=peak, step_ms=time_ms(one, iters=5),
-               step_profile=profile(one, reps=2),
+               step_profile=profile(one, reps=2, cpu=False),
                bound=train_bound(cfg, model, TRAIN_BATCH * TRAIN_SEQ))
     del model, state
     return out
@@ -4774,10 +4854,10 @@ def row_chunks(x):
     return x.split(ADAMW_CHUNK)
 
 
-def lm_train_card_vs_cpu(device, arch: str, cpu, cfg) -> dict:
-    """The f32 model ``cpu`` (made on the CPU; `LM_CUT_LAYERS` layers at
-    full width) and its copy on the card, TF32 off, on the launcher's
-    synthetic batch at `TRAIN_FAMILIES`' size: the loss within
+def lm_train_card_vs_cpu(device, arch: str, card, cpu, cfg) -> dict:
+    """The f32 model ``card`` (`cpu_cut`'s config, drawn by
+    `card_and_cpu`) and ``cpu``, its copy on the CPU, TF32 off, on the
+    launcher's synthetic batch at `TRAIN_FAMILIES`' size: the loss within
     `LM_RTOL` relative, every gradient within relative L2 `GRAD_RTOL` per
     JAX leaf, the routing ids of every MoE call (forward and recompute)
     identical; one AdamW step (`make_optimizer`, clipped) from the CPU's
@@ -4785,8 +4865,6 @@ def lm_train_card_vs_cpu(device, arch: str, cpu, cfg) -> dict:
     scale (each device's step from its own gradients reported); the int8
     compression of the same gradients bit-identical. The seconds of each
     part are reported."""
-    import copy
-
     import torch
 
     from repro_torch import convert
@@ -4797,12 +4875,6 @@ def lm_train_card_vs_cpu(device, arch: str, cpu, cfg) -> dict:
 
     b, s = TRAIN_FAMILIES[arch]
     secs = {}
-    t0 = time.perf_counter()
-    # the parameters straight to the card, with no CPU copy of the model
-    card = copy.deepcopy(cpu, {id(p): torch.nn.Parameter(
-        p.detach().to(device), requires_grad=False)
-        for p in cpu.parameters()})
-    secs["copy"] = time.perf_counter() - t0
     batch = train.synthetic_batch(cfg, b, s, 0, device="cpu")
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5009,13 +5081,9 @@ def lm_train_phase(device, out_dir: Path, *, smoke: bool = False,
     repeatability (`lm_train_resume`), and the HuBERT example at SMOKE and
     full width (`hubert_example`). Returns (the driven paths, the numbers).
     """
-    import dataclasses
     import gc
 
     import torch
-
-    from repro_torch import configs
-    from repro_torch.models import lm
 
     out = {"card_vs_cpu": {}}
     gc.collect()
@@ -5028,17 +5096,15 @@ def lm_train_phase(device, out_dir: Path, *, smoke: bool = False,
     torch.cuda.empty_cache()
     for arch in TRAIN_FAMILIES:
         t0 = time.perf_counter()
-        cfg = cut_cfgs[arch] if cut_cfgs else dataclasses.replace(
-            configs.get(arch), n_layers=LM_CUT_LAYERS, dtype=torch.float32,
-            **LM_CPU_CUTS.get(arch, {}))
-        cpu = lm.init_params(0, cfg, device="cpu")
-        init_s = time.perf_counter() - t0
+        cfg = cut_cfgs[arch] if cut_cfgs else cpu_cut(arch)
         torch.cuda.reset_peak_memory_stats(device)
-        res = lm_train_card_vs_cpu(device, arch, cpu, cfg)
+        card, cpu = card_and_cpu(cfg, device)
+        init_s = time.perf_counter() - t0
+        res = lm_train_card_vs_cpu(device, arch, card, cpu, cfg)
         res.update(wall_s=time.perf_counter() - t0, init_s=init_s,
                    peak_mem_bytes=torch.cuda.max_memory_allocated(device))
         out["card_vs_cpu"][arch] = res
-        del cpu
+        del card, cpu
         gc.collect()
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -5628,9 +5694,293 @@ def print_lm_mesh(m: dict, card: str) -> None:
           f"{r['leaves']} leaves bit for bit, loss after {r['loss_after']}")
 
 
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", "multi"),
+                *(("tinyllama-1.1b", s, "single") for s in (
+                    "train_4k", "prefill_32k", "decode_32k", "long_500k")),
+                ("mamba2-2.7b", "long_500k", "single"),
+                ("phi3.5-moe-42b-a6.6b", "train_4k", "single"),
+                ("deepseek-v3-671b", "decode_32k", "single"))
+CENSUS_ARCH = "tinyllama-1.1b"
+CENSUS_SEQ = 4096  # the layer and head probes' 1 x 4096
+CENSUS_MEM_RTOL, CENSUS_MEM_ATOL = 0.10, 64 << 20
+RECORD_BATCH, RECORD_SEQ = 8, 1024
+RECORD_TEMP_RTOL = 0.15
+CENSUS_ITERS = 5
+
+
+def dryrun_cells(out_dir: Path, cells=DRYRUN_CELLS) -> dict:
+    """`launch.dryrun.main` on each cell, its output checked for "all
+    dry-run cells passed"; the records and the report's tables."""
+    from repro_torch.analysis import report
+    from repro_torch.launch import dryrun
+
+    walls = {}
+    for arch, shape, mesh in cells:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            dryrun.main(["--arch", arch, "--shape", shape, "--mesh", mesh,
+                         "--out", str(out_dir)])
+        walls[f"{arch} x {shape} x {mesh}"] = time.perf_counter() - t0
+        print(buf.getvalue(), end="")
+        check("all dry-run cells passed" in buf.getvalue(),
+              f"dry run {arch} x {shape} x {mesh}")
+    recs = report.load(str(out_dir))
+    check(any(r["arch"] == "qwen3-1.7b" and r["shape"] == "train_4k"
+              and r["mesh"] == "pod2x16x16" for r in recs),
+          "the two-pod qwen3-1.7b train_4k record")
+    return dict(walls=walls, trace_s={
+        f"{r['arch']} x {r['shape']} x {r['mesh']}": r["trace_s"]
+        for r in recs}, tables={m: report.table(recs, m) for m in (
+            "pod16x16", "pod2x16x16")},
+        candidates=report.candidates(recs, "pod16x16"))
+
+
+def card_operands(args: tuple, model, device) -> tuple:
+    """A probe's meta ``args`` made real on ``device``: the module from
+    ``model`` (its first layer, or the model for the head), random bf16
+    / f32 activations and caches, random tokens and labels."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    vocab = model.unembed.w.shape[1]
+
+    def real(x):
+        if isinstance(x, dict):
+            return {k: real(v) for k, v in x.items()}
+        if not isinstance(x, torch.Tensor):
+            return model.layers[0] if hasattr(x, "ln1") else model
+        if x.dtype.is_floating_point:
+            return torch.randn(x.shape, generator=gen, device=device,
+                               dtype=torch.float32).to(x.dtype)
+        return torch.randint(0, vocab, x.shape, generator=gen,
+                             device=device, dtype=x.dtype)
+    return tuple(real(x) for x in args)
+
+
+def census_vs_card(device, smoke: bool = False) -> dict:
+    """tinyllama-1.1b's probes (`CENSUS_ARCH`, full width; SMOKE for a
+    CPU rehearsal) on a 1x1 mesh of the card under `FlopCounterMode`, and
+    on meta under the census: product FLOPs equal, the card's peak over
+    the call less what was resident before it within `CENSUS_MEM_RTOL` or
+    `CENSUS_MEM_ATOL` of the census's peak live bytes; each probe timed
+    (CUDA events) against its roofline bound."""
+    import dataclasses
+    import gc
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import configs
+    from repro_torch.analysis import census, roofline
+    from repro_torch.distributed import context
+    from repro_torch.launch import dryrun, shapes, steps
+    from repro_torch.models import lm
+
+    cfg = configs.get(CENSUS_ARCH, smoke=smoke)
+    seq = 64 if smoke else CENSUS_SEQ
+    dec = shapes.SHAPES["decode_32k"]
+    dec_batch, dec_seq = (2, 64) if smoke else (dec["batch"] // 16,
+                                                dec["seq"])
+    probes = {"layer_train_grad": (steps.build_layer_probe, dict(
+                  kind="train", seq=seq, batch=1, with_grad=True)),
+              "layer_decode": (steps.build_layer_probe, dict(
+                  kind="decode", seq=dec_seq, batch=dec_batch,
+                  with_grad=False)),
+              "head_train_grad": (steps.build_embed_head_probe, dict(
+                  kind="train", seq=seq, batch=1, with_grad=True))}
+    # the dry run's counting probes: one query chunk, no remat
+    pcfg = dataclasses.replace(cfg, q_chunk=seq, remat=False)
+    model = lm.init_params(0, dataclasses.replace(cfg, n_layers=1),
+                           device=device)
+    out = {}
+    for name, (build, kw) in probes.items():
+        mode = "fsdp_tp" if kw["kind"] == "train" else dryrun.choose_mode(
+            cfg, kw["kind"], dryrun.meta_mesh((1, 1)))
+        mesh = forced_mesh((1, 1), device)
+        try:
+            fn, args, _ = build(pcfg, mesh, mode=mode, **kw)
+            placed = fn.place(*card_operands(args, model, device))
+            fn(*placed)  # warm: cuBLAS's workspace, the allocator's pools
+            gc.collect()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            with FlopCounterMode(display=False) as fc:
+                res = fn(*placed)
+            torch.cuda.synchronize()
+            card_peak = torch.cuda.max_memory_allocated(device) - before
+            del res
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(CENSUS_ITERS):
+                fn(*placed)
+            stop.record()
+            stop.synchronize()
+            ms = start.elapsed_time(stop) / CENSUS_ITERS
+            del placed
+        finally:
+            context.clear()
+        mesh = dryrun.meta_mesh((1, 1))
+        try:
+            fn, args, _ = build(pcfg, mesh, mode=mode, **kw)
+            placed = fn.place(*args)
+            with census.Census() as c:
+                fn(*placed)
+        finally:
+            context.clear()
+        card_flops = fc.get_total_flops()
+        check(card_flops == c.flops(),
+              f"census {name}: FLOPs card {card_flops} vs meta {c.flops()}")
+        gap = abs(card_peak - c.peak_bytes)
+        check(gap <= max(CENSUS_MEM_RTOL * c.peak_bytes, CENSUS_MEM_ATOL),
+              f"census {name}: card peak {card_peak} B vs census "
+              f"{c.peak_bytes} B")
+        bound = roofline.Roofline(c.flops(), c.bytes(), 0.0, 1, 0.0)
+        out[name] = dict(kw, flops=card_flops, census_bytes=c.bytes(),
+                         card_peak_bytes=card_peak,
+                         census_peak_bytes=c.peak_bytes, ms=ms,
+                         bound_ms=bound.t_bound * 1e3,
+                         bound_by=bound.dominant,
+                         share=bound.t_bound * 1e3 / ms)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def record_vs_card(device, smoke: bool = False) -> dict:
+    """`launch.dryrun.cell_record` for tinyllama-1.1b train at
+    `RECORD_BATCH` x `RECORD_SEQ` (full width; SMOKE for a CPU rehearsal)
+    on meta meshes 1x1 and 2x2, against `build_train_step` on forced
+    meshes of the card of the same shapes: ``argument_bytes`` equal to
+    the largest coordinate's resident blocks (parameters, both moments,
+    the step counter) plus its batch rows; ``temp_bytes`` times the data
+    coordinates (the one card runs them all, each holding what one device
+    of a real mesh would) within `RECORD_TEMP_RTOL` of the card's peak
+    over a step less what was resident before it."""
+    import gc
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.distributed import context, sharding
+    from repro_torch.launch import dryrun, shapes, steps, train
+    from repro_torch.models import lm
+
+    cfg = configs.get(CENSUS_ARCH, smoke=smoke)
+    b, s = (4, 32) if smoke else (RECORD_BATCH, RECORD_SEQ)
+    spec = shapes.CellSpecs("train", ({
+        "inputs": torch.empty((b, s), dtype=torch.int32, device="meta"),
+        "labels": torch.empty((b, s), dtype=torch.int32, device="meta")},),
+        s, b)
+    model = lm.init_params(0, cfg, device=device)
+    batch = train.synthetic_batch(cfg, b, s, 0, device=device)
+    out = {}
+    for shape in ((1, 1), (2, 2)):
+        t0 = time.perf_counter()
+        rec, _ = dryrun.cell_record(cfg, spec, dryrun.meta_mesh(shape))
+        record_s = time.perf_counter() - t0
+        mesh = forced_mesh(shape, device)
+        try:
+            fn, in_specs, _, opt = steps.build_train_step(
+                cfg, mesh, example_batch=batch)
+            params = sharding.shard_model(model, in_specs[0], mesh)
+            state = opt.init(params)
+            resident = mesh_resident(
+                [*sharding.sharded_tensors(params).values(),
+                 *state.mu.values(), *state.nu.values(), state.step], mesh)
+            rows = sharding.place(batch, sharding.to_shardings(
+                in_specs[2], mesh))
+            args = dict(resident["got"])
+            for st in rows.values():
+                for c, n in st.nbytes().items():
+                    args[str(list(c))] += n
+            del rows
+            fn(params, state, batch)  # warm: cuBLAS's workspace
+            gc.collect()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            fn(params, state, batch)
+            torch.cuda.synchronize()
+            card_temp = torch.cuda.max_memory_allocated(device) - before
+            del params, state
+        finally:
+            context.clear()
+        mem = rec["memory"]
+        want = shape[0] * mem["temp_bytes"]
+        name = "x".join(map(str, shape))
+        check(max(args.values()) == mem["argument_bytes"],
+              f"record {name}: argument bytes {mem['argument_bytes']} vs "
+              f"the card's {args}")
+        check(abs(card_temp - want) <= RECORD_TEMP_RTOL * want,
+              f"record {name}: temp {want} B vs the card's {card_temp} B")
+        out[name] = dict(argument_bytes=mem["argument_bytes"],
+                         card_argument_bytes=args,
+                         temp_bytes=mem["temp_bytes"],
+                         temp_parts=mem["temp_parts"], temp_want=want,
+                         card_temp_bytes=card_temp,
+                         temp_rel=card_temp / want - 1, record_s=record_s,
+                         trace_s=rec["trace_s"])
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_phase(device, out_dir: Path, *, smoke: bool = False,
+                 cells=DRYRUN_CELLS) -> dict:
+    """Phase 11: the dry run on meta (`dryrun_cells`), the census against
+    the card (`census_vs_card`), the memory record against the card
+    (`record_vs_card`), each part's seconds. ``smoke`` / ``cells`` shrink
+    it for a CPU rehearsal."""
+    out = {}
+    t0 = time.perf_counter()
+    out["cells"] = dryrun_cells(out_dir, cells)
+    out["cells"]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["census"] = census_vs_card(device, smoke=smoke)
+    out["census_wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["record"] = record_vs_card(device, smoke=smoke)
+    out["record_wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def print_dryrun(d: dict, card: str) -> None:
+    cells = d["cells"]
+    print(f"dryrun: {len(cells['walls'])} cells on meta in "
+          f"{cells['wall_s']:.1f} s (wall per cell "
+          f"{json.dumps({k: round(v, 1) for k, v in cells['walls'].items()})}"
+          f"; trace_s {json.dumps(cells['trace_s'])})")
+    for mesh, table in cells["tables"].items():
+        print(f"dryrun report {mesh} (analysis: the H100 roofline's "
+              f"rates, not measurements):\n{table}")
+    print(f"dryrun hillclimb candidates: {json.dumps(cells['candidates'])}")
+    for name, r in d["census"].items():
+        print(f"dryrun census {CENSUS_ARCH} {name} ({r['kind']}, batch "
+              f"{r['batch']} x seq {r['seq']}, 1x1 mesh of {card}): "
+              f"product FLOPs card {r['flops']} = meta; peak over the call "
+              f"card {r['card_peak_bytes']} B vs census "
+              f"{r['census_peak_bytes']} B; {r['ms']:.3f} ms a call (CUDA "
+              f"events) against a {r['bound_by']} bound of "
+              f"{r['bound_ms']:.3f} ms (census bytes {r['census_bytes']}): "
+              f"share {r['share']:.3f}")
+    for name, r in d["record"].items():
+        print(f"dryrun record {CENSUS_ARCH} train {RECORD_BATCH} x "
+              f"{RECORD_SEQ} on {name} ({card}): argument bytes "
+              f"{r['argument_bytes']} = the card's largest coordinate "
+              f"({json.dumps(r['card_argument_bytes'])}); temp "
+              f"{r['temp_bytes']} B a coordinate "
+              f"({json.dumps(r['temp_parts'])}), {r['temp_want']} B for "
+              f"the card vs the card's {r['card_temp_bytes']} B "
+              f"({r['temp_rel']:+.3%}); record {r['record_s']:.1f} s")
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
+    start = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--report", type=Path, default=None,
                         help="also write every measurement as JSON here")
@@ -5649,7 +5999,10 @@ def main(argv: list[str]) -> int:
             print(f"chip_smoke: {source} not found beside this script",
                   file=sys.stderr)
             return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    if HBM_BW is None:
+        print("chip_smoke: src/repro_torch not found beside this script",
+              file=sys.stderr)
+        return 2
     scratch = tempfile.TemporaryDirectory()
     # an empty tuning cache: every launch takes its default design
     os.environ["REPRO_TORCH_TUNING_CACHE"] = str(Path(scratch.name)
@@ -5670,16 +6023,20 @@ def main(argv: list[str]) -> int:
     for name, log in logs.items():
         print(f"nvcc {name}:\n{log.strip()}")
 
+    t0 = time.perf_counter()
     kernels = kernel_phase(device)
     kernels.update(similarity_phase(device))
     kernels.update(kd_phase(device))
     kernels.update(fa_phase(device))
+    kernels_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     report = paths(device)
     check(report["predict"]["features"] == N, "paper width: 784 features")
     trained, training, student = training_paths(device)
     report.update(trained)
     report.update(attention_path(device))
     report["device_physics"] = device_physics(device)
+    paths_s = time.perf_counter() - t0
     out_dir = (report_path.parent / "paper_eval" if report_path
                else Path(scratch.name) / "paper_eval")
     t0 = time.perf_counter()
@@ -5712,6 +6069,11 @@ def main(argv: list[str]) -> int:
     t0 = time.perf_counter()
     lm_mesh = lm_mesh_phase(device, mesh_dir)
     lm_mesh["wall_s"] = time.perf_counter() - t0
+    dry_dir = (report_path.parent / "dryrun" if report_path
+               else Path(scratch.name) / "dryrun")
+    t0 = time.perf_counter()
+    dry = dryrun_phase(device, dry_dir)
+    dry["wall_s"] = time.perf_counter() - t0
     launches = {}
     for path in report.values():
         for k, v in path["launches"].items():
@@ -5798,10 +6160,14 @@ def main(argv: list[str]) -> int:
     print_lm(lm_out, smi)
     print_lm_train(lm_train, smi)
     print_lm_mesh(lm_mesh, smi)
-    print(f"phase walls: paper_eval {paper['wall_s']:.1f} s, control_plane "
+    print_dryrun(dry, smi)
+    print(f"phase walls: build {build_s:.1f} s, kernels {kernels_s:.1f} s, "
+          f"paths {paths_s:.1f} s, paper_eval {paper['wall_s']:.1f} s, "
+          f"control_plane "
           f"{control['wall_s']:.1f} s, sharded {sharded['wall_s']:.1f} s, lm "
           f"{lm_out['wall_s']:.1f} s, lm_train {lm_train['wall_s']:.1f} s, "
-          f"lm_mesh {lm_mesh['wall_s']:.1f} s")
+          f"lm_mesh {lm_mesh['wall_s']:.1f} s, dryrun {dry['wall_s']:.1f} s; "
+          f"all {time.perf_counter() - start:.1f} s")
     check(set(kernels) == set(KERNELS), "every ported kernel measured")
 
     line = {"kernels": [
@@ -5820,12 +6186,13 @@ def main(argv: list[str]) -> int:
     if report_path:
         report_path.parent.mkdir(parents=True, exist_ok=True)
         report_path.write_text(json.dumps(
-            dict(card=smi, build_s=build_s, nvcc=logs,
+            dict(card=smi, build_s=build_s, kernels_s=kernels_s,
+                 paths_s=paths_s, nvcc=logs,
                  kernels=line["kernels"], kernel_phases=kernels,
                  profile_retries=PROFILE_RETRIES,
                  paths=report, training=training, paper_eval=paper,
                  control_plane=control, sharded=sharded, lm=lm_out,
-                 lm_train=lm_train, lm_mesh=lm_mesh),
+                 lm_train=lm_train, lm_mesh=lm_mesh, dryrun=dry),
             indent=1, default=str))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -50,9 +50,19 @@ no two ranks on one card, and a forced mesh repeats one device):
 
 `validate_divisibility` reports what JAX's does; a `NamedSharding` that
 does not divide its tensor raises, as JAX's does.
+
+What crosses between coordinates is counted where it is read, not where
+a device copies it (on a forced mesh every coordinate is one device and
+``.to()`` copies nothing): inside `recording_collectives`, each read of
+a `ShardedTensor` block that another coordinate owns (the ZeRO-3
+gathers, a decode step's cache rows), `layers.moe_shardmap`'s combine
+over "model" and the mesh loss's sums are logged as ``(coordinate,
+kind, bytes)``, the coordinate being the data coordinate that reads
+(`context.data_shard`). `repro_torch.analysis.census` reads the log.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import math
@@ -293,6 +303,7 @@ class NamedSharding:
 
     def __init__(self, mesh: Mesh, spec: P):
         self.mesh, self.spec = mesh, P(*spec)
+        self._maps: dict[tuple, dict] = {}
 
     def __repr__(self) -> str:
         return f"NamedSharding({self.mesh!r}, {self.spec!r})"
@@ -303,31 +314,42 @@ class NamedSharding:
 
     def devices_indices_map(self, shape: tuple) -> dict[tuple, tuple]:
         """Coordinate -> the tuple of slices its block holds; raises where
-        an axis does not divide, as JAX does."""
+        an axis does not divide, as JAX does. Kept per shape (callers
+        read it, never change it)."""
         shape = tuple(shape)
+        if shape not in self._maps:
+            self._maps[shape] = self._indices(shape)
+        return self._maps[shape]
+
+    def _indices(self, shape: tuple) -> dict[tuple, tuple]:
         entries = tuple(self.spec) + (None,) * (len(shape) - len(self.spec))
         if len(entries) > len(shape):
             raise ValueError(f"{self.spec} has more entries than {shape}")
-        names = self.mesh.axis_names
+        names, sizes = self.mesh.axis_names, self.mesh.devices.shape
+        cuts = []  # per tensor axis: None, or (grid axes, block size)
+        for dim, axis in zip(shape, entries):
+            if axis is None:
+                cuts.append(None)
+                continue
+            axes = [names.index(a) for a in (
+                axis if isinstance(axis, tuple) else (axis,))]
+            n = math.prod(sizes[a] for a in axes)
+            if dim % n:
+                raise ValueError(
+                    f"{self!r} cuts axis of size {dim} {n} ways; the "
+                    f"tiling should evenly divide the shape {shape}")
+            cuts.append((axes, dim // n))
         out = {}
         for c in self.coords():
-            at = dict(zip(names, c))
             idx = []
-            for dim, axis in zip(shape, entries):
-                if axis is None:
+            for dim, cut in zip(shape, cuts):
+                if cut is None:
                     idx.append(slice(0, dim))
                     continue
-                axes = axis if isinstance(axis, tuple) else (axis,)
-                n = _axis_size(self.mesh, axes)
-                if dim % n:
-                    raise ValueError(
-                        f"{self!r} cuts axis of size {dim} {n} ways; the "
-                        f"tiling should evenly divide the shape {shape}")
                 k = 0
-                for a in axes:  # the first axis major
-                    k = k * self.mesh.shape[a] + at[a]
-                size = dim // n
-                idx.append(slice(k * size, (k + 1) * size))
+                for a in cut[0]:  # the first axis major
+                    k = k * sizes[a] + c[a]
+                idx.append(slice(k * cut[1], (k + 1) * cut[1]))
             out[c] = tuple(idx)
         return out
 
@@ -340,9 +362,42 @@ class NamedSharding:
         for c, idx in self.devices_indices_map(tuple(x.shape)).items():
             dev = self.mesh.devices[c]
             blk = torch.empty(_extent(idx), dtype=x.dtype, device=dev)
-            blk.copy_(x.detach()[idx])
+            if blk.device.type != "meta":  # a meta block holds no values
+                blk.copy_(x.detach()[idx])
             blocks[c] = blk
         return ShardedTensor(self, tuple(x.shape), x.dtype, blocks, path)
+
+
+# --- what crosses between coordinates ---------------------------------------
+
+_COLLECTIVES: list | None = None
+
+
+@contextlib.contextmanager
+def recording_collectives(log: list):
+    """Log ``(coordinate, kind, bytes)`` into ``log`` for every transfer
+    between coordinates made inside (see the module's docstring)."""
+    global _COLLECTIVES
+    prev, _COLLECTIVES = _COLLECTIVES, log
+    try:
+        yield log
+    finally:
+        _COLLECTIVES = prev
+
+
+def _reading_coordinate(mesh: Mesh):
+    """The grid coordinate of the running data coordinate (its model rank
+    0's), or None outside a mesh step's coordinate."""
+    shard = context.data_shard()
+    return None if shard is None or shard.mesh is not mesh else \
+        shard.ranks[0]
+
+
+def record_collective(kind: str, nbytes: int, coord) -> None:
+    """Log ``nbytes`` moved by a ``kind`` collective ("all-gather",
+    "all-reduce") for the grid coordinate ``coord`` that receives them."""
+    if _COLLECTIVES is not None and nbytes:
+        _COLLECTIVES.append((coord, kind, int(nbytes)))
 
 
 def _extent(idx: tuple) -> tuple:
@@ -421,7 +476,7 @@ class ShardedTensor:
     def nbytes(self) -> dict[tuple, int]:
         """Bytes resident at each coordinate (copies counted where they
         live)."""
-        item = torch.empty((), dtype=self.dtype).element_size()
+        item = self.dtype.itemsize
         return {c: math.prod(_extent(idx)) * item
                 for c, idx in self.index.items()}
 
@@ -439,12 +494,16 @@ class ShardedTensor:
                        for s, n in zip(region, self.shape))
         device = torch.device(device) if device is not None else \
             self.mesh.devices.flat[0]
-        parts = []
+        parts, moved = [], 0
+        reader = _reading_coordinate(self.mesh)
         for c, idx in self.owners().items():
             hit = _intersect(idx, region)
             if hit is not None:
                 parts.append((_shift(hit, region),
                               self._blocks[c][_shift(hit, idx)]))
+                if c != reader:
+                    moved += math.prod(_extent(hit))
+        record_collective("all-gather", moved * self.dtype.itemsize, reader)
         if len(parts) == 1 and _extent(parts[0][0]) == _extent(region):
             return parts[0][1].to(device)
         out = torch.empty(_extent(region), dtype=self.dtype, device=device)
@@ -553,17 +612,27 @@ def _owner(root: torch.nn.Module, name: str):
     return (root.get_submodule(mod) if mod else root), leaf
 
 
-def shard_model(model: lm.LM, specs: dict, mesh: Mesh) -> lm.LM:
-    """The model stored on the mesh: the same module tree with each
+def shard_module(module: torch.nn.Module, specs: dict, mesh: Mesh,
+                 prefix: str = "") -> torch.nn.Module:
+    """``module`` stored on the mesh: the same module tree with each
     parameter a `ShardedTensor` placed by its spec (``specs`` a
-    `param_specs` tree). Each MoE module learns its layer index (its
-    routing statistics are taken over the global batch)."""
-    out = _copy_tree(model)
-    for name, p in list(model.named_parameters()):
+    `param_specs` tree), named ``prefix`` + its name in ``module`` (a
+    layer of the model: ``"layers.0."``)."""
+    out = _copy_tree(module)
+    for name, p in list(module.named_parameters()):
         mod, leaf = _owner(out, name)
         del mod._parameters[leaf]
-        st = NamedSharding(mesh, leaf_spec(specs, name)).place(p.data, name)
+        path = prefix + name
+        st = NamedSharding(mesh, leaf_spec(specs, path)).place(p.data, path)
         object.__setattr__(mod, leaf, st)
+    return out
+
+
+def shard_model(model: lm.LM, specs: dict, mesh: Mesh) -> lm.LM:
+    """The model stored on the mesh (`shard_module`). Each MoE module
+    learns its layer index (its routing statistics are taken over the
+    global batch)."""
+    out = shard_module(model, specs, mesh)
     for i, layer in enumerate(out.layers):
         if getattr(layer, "moe", None) is not None:
             layer.moe.layer = i

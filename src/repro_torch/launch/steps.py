@@ -28,9 +28,18 @@ runs every data coordinate's rows on its device in turn
 (`sharding` says how); the MoE's load-balance loss and capacity are the
 global batch's, as in JAX's global function. A 1x1 mesh gives
 `make_train_step`'s result.
+
+The dry run's probes (`build_layer_probe`, `build_embed_head_probe`) are
+the JAX ones too: one layer, or the embedding, final norm and head, at a
+cell's shapes and shardings, with and without the gradient; each returns
+``(probe, args, in_specs)``, ``args`` meta tensors, and the probe runs as
+well on CPU or CUDA tensors of the same shapes.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
+import dataclasses
 from typing import Callable
 
 import torch
@@ -40,6 +49,7 @@ from repro_torch.distributed import context
 from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import P, ShardedTensor
 from repro_torch.models import cnn, lm
+from repro_torch.models import layers as L
 from repro_torch.optim import compression
 from repro_torch.optim import optimizers as optim
 from repro_torch.train import cnn_trainer
@@ -200,25 +210,18 @@ def mesh_loss(params: lm.LM, cfg: lm.ArchConfig, mesh, batch: dict,
         _add_counts(prefix, shard)
         runs.append((shard, nll, mask.sum()))
     home = runs[0][0].device
+    for shard, nll, c in runs[1:]:  # the sums over the coordinates
+        sharding.record_collective("all-reduce", sum(
+            x.numel() * x.element_size() for x in (
+                nll, c, *(t for m in shard.moe.values() for t in m[:2]))),
+            shard.ranks[0])
     count = torch.clamp_min(sum(c.to(home) for _, _, c in runs), 1)
-    frac = {}  # layer -> (global dispatch fraction, coefficient)
-    for layer in sorted(runs[0][0].moe):
-        counts = sum(sh.moe[layer][0].to(home) for sh, _, _ in runs)
-        frac[layer] = (counts / tokens, runs[0][0].moe[layer][2])
-
-    def aux_of(shard, dev):
-        total = torch.zeros((), dtype=torch.float32, device=dev)
-        for layer, (f, coeff) in frac.items():
-            psum = shard.moe[layer][1]
-            total = total + coeff * f.numel() * (
-                f.to(dev) * (psum / tokens)).sum()
-        return total
-
+    frac = _moe_fractions([sh for sh, _, _ in runs], tokens, home)
     if backward:
         for shard, nll, _ in runs:
             with context.running(shard):
-                part = nll / count.to(shard.device) + aux_of(shard,
-                                                             shard.device)
+                part = nll / count.to(shard.device) + _aux_share(
+                    frac, shard, tokens)
                 part.backward()
     with torch.no_grad():
         loss = sum(nll.detach().to(home) for _, nll, _ in runs) / count
@@ -227,6 +230,29 @@ def mesh_loss(params: lm.LM, cfg: lm.ArchConfig, mesh, batch: dict,
                        for sh, _, _ in runs)
             loss = loss + coeff * f.numel() * (f * (psum / tokens)).sum()
     return loss
+
+
+def _moe_fractions(shards: list, tokens: int, home) -> dict:
+    """Each MoE layer's (dispatch fraction over the global batch,
+    load-balance coefficient), from the coordinates' expert counts."""
+    frac = {}
+    for layer in sorted(shards[0].moe):
+        counts = sum(sh.moe[layer][0].to(home) for sh in shards)
+        frac[layer] = (counts / tokens, shards[0].moe[layer][2])
+    return frac
+
+
+def _aux_share(frac: dict, shard: context.DataShard, tokens: int
+               ) -> torch.Tensor:
+    """``shard``'s differentiable share of the global batch's MoE
+    load-balance loss: the shares of all coordinates sum to it."""
+    dev = shard.device
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    for layer, (f, coeff) in frac.items():
+        psum = shard.moe[layer][1]
+        total = total + coeff * f.numel() * (
+            f.to(dev) * (psum / tokens)).sum()
+    return total
 
 
 def _owned(params: lm.LM) -> dict[str, torch.Tensor]:
@@ -449,3 +475,273 @@ def build_decode_step(cfg: lm.ArchConfig, mesh, *, mode: str = "fsdp_tp",
         return logits, cache._replace(length=cache.length + 1)
 
     return decode_step, in_sp, out_sp
+
+
+# ---------------------------------------------------------------------------
+# per-layer probes (the dry run's roofline terms; see launch/dryrun.py)
+# ---------------------------------------------------------------------------
+
+class Probe:
+    """A probe function: ``probe(*args, only=None)``. Tensors and modules
+    among ``args`` are placed on the mesh by the probe's in-specs first,
+    as jit's in-shardings place them (`place` does only that, so a caller
+    can place outside what it measures); ``only`` restricts the run to
+    those data coordinates (dp indices), the dry run's one coordinate."""
+
+    def __init__(self, place: Callable, run: Callable):
+        self._place, self._run = place, run
+
+    def place(self, *args) -> tuple:
+        return self._place(*args)
+
+    def __call__(self, *args, only=None):
+        return self._run(*self._place(*args), only=only)
+
+
+def _meta_model(cfg: lm.ArchConfig, n_layers: int) -> lm.LM:
+    return lm.init_params(0, dataclasses.replace(cfg, n_layers=n_layers),
+                          device="meta")
+
+
+def _place_module(module, tree: dict, mesh, prefix: str):
+    """A module's parameters placed by the JAX spec ``tree`` (a module
+    already placed passes through); an MoE learns its layer index."""
+    if next(module.parameters(), None) is None:
+        return module
+    out = sharding.shard_module(module, tree, mesh, prefix)
+    if getattr(out, "moe", None) is not None:
+        out.moe.layer = 0
+    return out
+
+
+def _module_specs(module, tree: dict, prefix: str) -> dict:
+    return {name: sharding.leaf_spec(tree, prefix + name)
+            for name, _ in module.named_parameters()}
+
+
+def _grad_of(st: ShardedTensor) -> ShardedTensor:
+    """The gradient accumulated into ``st``'s owner blocks, laid out as
+    ``st`` (copies share their owner's gradient)."""
+    owner = {tuple((sl.start, sl.stop) for sl in idx): c
+             for c, idx in st.owners().items()}
+    blocks = {}
+    for c, idx in st.index.items():
+        blk = st.blocks[owner[tuple((sl.start, sl.stop) for sl in idx)]]
+        blocks[c] = torch.zeros_like(blk) if blk.grad is None else blk.grad
+    return ShardedTensor(st.sharding, st.shape, st.dtype, blocks, st.path)
+
+
+@contextlib.contextmanager
+def _differentiating(tensors: list[ShardedTensor], on: bool):
+    """Grad mode (``on``) with the owner blocks of ``tensors`` requiring
+    grad, their ``.grad`` dropped after."""
+    blocks = [st.blocks[c] for st in tensors for c in st.owners()] \
+        if on else []
+    for blk in blocks:
+        blk.requires_grad_(True)
+    try:
+        with torch.set_grad_enabled(on), L.true_f32():
+            yield
+    finally:
+        for blk in blocks:
+            blk.grad = None
+            blk.requires_grad_(False)
+
+
+def _joined(parts: list) -> torch.Tensor:
+    """The coordinates' outputs, rows in dp order, on the first one's
+    device (one coordinate's output as it is)."""
+    if len(parts) == 1:
+        return parts[0]
+    home = parts[0].device
+    return torch.cat([x.to(home) for x in parts])
+
+
+def build_layer_probe(cfg: lm.ArchConfig, mesh, *, kind: str, seq: int,
+                      batch: int, mode: str = "fsdp_tp", with_grad: bool
+                      ) -> tuple[Probe, tuple, tuple]:
+    """A single layer at a cell's shapes and shardings -> (probe, args,
+    in_specs), ``args`` meta tensors (a meta `lm.Layer` first).
+
+    kind: "train" / "prefill" run the full-sequence layer (with
+    ``with_grad``: ``sum(out) + aux`` differentiated for the layer's
+    parameters and ``h``, as ``jax.grad`` of JAX's probe; returns
+    (parameter name -> gradient, gradient of h), laid out as their
+    operands), else the layer's output; "decode" the single-token layer
+    (`lm._layer_decode`) at ``length = seq - 1`` with this layer's cache
+    slices, updated in place -> (output, cache slices). Each data
+    coordinate runs its rows (batch / dp) on its device with the ZeRO-3
+    hooks installed, as a mesh step does; the MoE's capacity and its
+    load-balance loss are the global batch's. The rope tables are inputs
+    where ``cfg.precompute_rope`` applies (the real model builds them once
+    a step). The census of the probe, times n_layers, is the layers' cost
+    (see `repro_torch.launch.dryrun`)."""
+    sharding.register_zero3_constraints(cfg, mesh, mode)
+    dp = sharding.dp_axes(mesh)
+    tree = sharding.param_specs(cfg, mesh, mode)
+    prefix = "layers.0."
+    layer = _meta_model(cfg, 1).layers[0]
+    layer_sp = _module_specs(layer, tree, prefix)
+    use_tabs = (cfg.precompute_rope and cfg.rope == "standard"
+                and cfg.uses_attention)
+    tab_d = (cfg.qk_rope_dim if cfg.mla else cfg.head_dim) // 2
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if kind in ("train", "prefill"):
+        args: tuple = (layer, meta((batch, seq, cfg.d_model), cfg.dtype))
+        rest: tuple = (P(dp, None, None),)
+        if use_tabs:
+            args += (meta((batch, seq, tab_d), torch.float32),) * 2
+            rest += (P(dp, None, None),) * 2
+        in_sp = (layer_sp,) + sharding.fit_tree(rest, args[1:], mesh)
+
+        def place(layer, h, *tabs):
+            return (_place_module(layer, tree, mesh, prefix),
+                    *(_placed(x, sp, mesh)
+                      for x, sp in zip((h, *tabs), in_sp[1:])))
+
+        def run(layer, h, *tabs, only=None):
+            b, s = h.shape[:2]
+            params = list(sharding.sharded_tensors(layer).values())
+            runs, prefix_counts = [], {}
+            with _differentiating(params + [h], with_grad):
+                for i, rows in _coordinates(h, 0, mesh):
+                    if only is not None and i not in only:
+                        continue
+                    shard = _shard(mesh, i, b * s, prefix_counts)
+                    dev = shard.device
+                    with context.running(shard):
+                        hh = _read(h, rows, 0, dev)
+                        t = tuple(_read(x, rows, 0, dev) for x in tabs)
+                        pos = lm._default_positions(cfg, hh.shape[0], s,
+                                                    device=dev)
+                        out, _ = lm._layer_train(layer, cfg, hh, pos,
+                                                 t or None)
+                    _add_counts(prefix_counts, shard)
+                    runs.append((shard, out))
+                if not with_grad:
+                    return _joined([out for _, out in runs])
+                frac = _moe_fractions([sh for sh, _ in runs], b * s,
+                                      runs[0][0].device)
+                for shard, out in runs:
+                    with context.running(shard):
+                        part = torch.sum(out.to(torch.float32)) + \
+                            _aux_share(frac, shard, b * s)
+                        part.backward()
+                return ({name: _grad_of(st) for name, st in
+                         sharding.sharded_tensors(layer).items()},
+                        _grad_of(h))
+
+        return Probe(place, run), args, in_sp
+
+    # decode: one token against this layer's cache slices
+    cache = lm.init_cache(cfg, batch, seq, device="meta")
+    fields = lm._cache_layer_fields(cfg)
+    cache_l = {f: meta(getattr(cache, f).shape[1:], getattr(cache, f).dtype)
+               for f in fields}
+    full_cache_sp = sharding.cache_specs(cfg, mesh)
+    cache_l_sp = {f: getattr(full_cache_sp, f)[1:] for f in fields}
+    args = (layer, meta((batch, 1, cfg.d_model), cfg.dtype), cache_l)
+    in_sp = (layer_sp,) + sharding.fit_tree(
+        (P(dp, None, None), cache_l_sp), args[1:], mesh)
+
+    def place(layer, h, cache_l):
+        return (_place_module(layer, tree, mesh, prefix),
+                _placed(h, in_sp[1], mesh),
+                {f: _placed(x, in_sp[2][f], mesh)
+                 for f, x in cache_l.items()})
+
+    @torch.no_grad()
+    def run(layer, h, cache_l, only=None):
+        b = h.shape[0]
+        parts, prefix_counts = [], {}
+        with L.true_f32():
+            for i, rows in _coordinates(h, 0, mesh):
+                if only is not None and i not in only:
+                    continue
+                shard = _shard(mesh, i, b, prefix_counts)
+                dev = shard.device
+                with context.running(shard):
+                    local = {f: _read(st, rows, 0, dev)
+                             for f, st in cache_l.items()}
+                    out, local = lm._layer_decode(
+                        layer, cfg, _read(h, rows, 0, dev), local, seq - 1)
+                    for f, st in cache_l.items():
+                        st.write(_full_region(st.shape, rows, 0), local[f])
+                _add_counts(prefix_counts, shard)
+                parts.append(out)
+        return _joined(parts), cache_l
+
+    return Probe(place, run), args, in_sp
+
+
+def build_embed_head_probe(cfg: lm.ArchConfig, mesh, *, kind: str, seq: int,
+                           batch: int, mode: str = "fsdp_tp",
+                           with_grad: bool) -> tuple[Probe, tuple, tuple]:
+    """Embedding + final norm + unembed -> (probe, args, in_specs), args
+    (a meta `lm.LM` without layers, inputs, labels). ``kind="train"``
+    gives ``mean(sharded_ce(logits, labels))`` and, with ``with_grad``,
+    its gradient for the head's parameters (name -> gradient, laid out as
+    the parameter), as ``jax.grad`` of JAX's head; other kinds
+    ``sum(logits)`` in f32. Each data coordinate runs its rows, as in
+    `build_layer_probe`."""
+    sharding.register_zero3_constraints(cfg, mesh, mode)
+    dp = sharding.dp_axes(mesh)
+    tree = sharding.param_specs(cfg, mesh, mode)
+    head = _meta_model(cfg, 0)
+    head_sp = _module_specs(head, tree, "")
+    s = seq if kind != "decode" else 1
+    if cfg.input_mode == "embeds":
+        inp = torch.empty((batch, s, cfg.d_model), dtype=torch.bfloat16,
+                          device="meta")
+        inp_sp = P(dp, None, None)
+    else:
+        inp = torch.empty((batch, s), dtype=torch.int32, device="meta")
+        inp_sp = P(dp, None)
+    lbl = torch.empty((batch, s), dtype=torch.int32, device="meta")
+    in_sp = (head_sp,) + sharding.fit_tree((inp_sp, P(dp, None)),
+                                           (inp, lbl), mesh)
+    grad = with_grad and kind == "train"
+
+    def place(params, inputs, labels):
+        if len(params.layers):  # a whole model: its head's leaves alone
+            params = copy.copy(params)
+            params._modules = dict(params._modules,
+                                   layers=torch.nn.ModuleList())
+        return (_place_module(params, tree, mesh, ""),
+                _placed(inputs, in_sp[1], mesh),
+                _placed(labels, in_sp[2], mesh))
+
+    def run(params, inputs, labels, only=None):
+        b, s_ = inputs.shape[:2]
+        tensors = list(sharding.sharded_tensors(params).values())
+        parts = []
+        with _differentiating(tensors, grad):
+            for i, rows in _coordinates(inputs, 0, mesh):
+                if only is not None and i not in only:
+                    continue
+                shard = _shard(mesh, i, b * s_, {})
+                dev = shard.device
+                with context.running(shard):
+                    p = lm._head_params(params)
+                    h = lm._embed_in(p, cfg, _read(inputs, rows, 0, dev))
+                    h = L.rmsnorm(p.final_norm, h)
+                    logits = L.linear(p.unembed, h)
+                    if kind == "train":
+                        part = lm.sharded_ce(
+                            logits, _read(labels, rows, 0, dev)).sum() / (
+                            b * s_)
+                    else:
+                        part = torch.sum(logits.to(torch.float32))
+                    if grad:
+                        part.backward()
+                parts.append(part.detach())
+            if grad:
+                return {name: _grad_of(st) for name, st in
+                        sharding.sharded_tensors(params).items()}
+        home = parts[0].device
+        return sum(x.to(home) for x in parts)
+
+    return Probe(place, run), (head, inp, lbl), in_sp

@@ -419,21 +419,13 @@ def _experts(gate, up, down, xf, w, ids, slots, cap: int, lo: int = 0,
     hi = lo + gate.shape[0]
     sort_idx, sorted_ids, _, keep, counts = slots
     keep = keep & (sorted_ids >= lo) & (sorted_ids < hi)
-    before = [0] * len(counts) if offset is None else offset.tolist()
     token_of_slot = sort_idx // top_k
     out = torch.zeros((t * top_k, d), dtype=xf.dtype, device=xf.device)
-    # views of the experts: under grad one backward for the whole stack (a
-    # `stack` of the experts' gradients), where each `gate[ex]` would add a
-    # zero-filled copy of the stack
-    gate, up, down = gate.unbind(0), up.unbind(0), down.unbind(0)
-    start = 0
-    for ex, n in enumerate(counts.tolist()):
-        kept = min(n, max(cap - before[ex], 0))
-        if kept and lo <= ex < hi:
-            rows = xf[token_of_slot[start:start + kept]]
-            h = silu(rows @ gate[ex - lo]) * (rows @ up[ex - lo])
-            out[start:start + kept] = h @ down[ex - lo]
-        start += n
+    if xf.device.type == "meta":
+        _modelled_experts(gate, up, down, xf, out, cap, len(counts))
+    else:
+        _routed_experts(gate, up, down, xf, token_of_slot, out, cap, lo,
+                        counts, offset)
     flat_w = w.reshape(-1)[sort_idx].to(xf.dtype)
     contrib = torch.where(keep[:, None], out * flat_w[:, None], 0)
     # back to (token, k) order, each token's slots by ascending expert id
@@ -446,6 +438,48 @@ def _experts(gate, up, down, xf, w, ids, slots, cap: int, lo: int = 0,
     for j in range(top_k):
         y = y + by_slot[:, j]
     return y
+
+
+def _routed_experts(gate, up, down, xf, token_of_slot, out, cap: int,
+                    lo: int, counts, offset) -> None:
+    """`_experts`' products as routed: each occupied segment of experts
+    ``[lo, lo + len(gate))`` through its expert, written into its rows of
+    ``out`` (reads the expert counts, so never on the meta device)."""
+    hi = lo + gate.shape[0]
+    before = [0] * len(counts) if offset is None else offset.tolist()
+    # views of the experts: under grad one backward for the whole stack (a
+    # `stack` of the experts' gradients), where each `gate[ex]` would add a
+    # zero-filled copy of the stack
+    gate, up, down = gate.unbind(0), up.unbind(0), down.unbind(0)
+    start = 0
+    for ex, n in enumerate(counts.tolist()):
+        kept = min(n, max(cap - before[ex], 0))
+        if kept and lo <= ex < hi:
+            rows = xf[token_of_slot[start:start + kept]]
+            h = silu(rows @ gate[ex - lo]) * (rows @ up[ex - lo])
+            out[start:start + kept] = h @ down[ex - lo]
+        start += n
+
+
+def _modelled_experts(gate, up, down, xf, out, cap: int, n_experts: int
+                      ) -> None:
+    """`_experts`' products on the meta device, where the routing has no
+    values to read: a model of routing, not a trace of it. The kept slots
+    are ``min(T * top_k, E * cap)``, spread evenly, so each expert takes
+    ``ceil(kept / E)`` rows, at most ``cap``; the experts here (a slice of
+    the E when expert-parallel) run as one batched product a weight, so
+    each expert's weights are read once. The dry run
+    (`repro_torch.launch.dryrun`) counts its operations and bytes."""
+    n_local, slots = gate.shape[0], out.shape[0]
+    kept = min(slots, n_experts * cap)
+    rows_each = min(-(-kept // n_experts), cap)
+    m = n_local * rows_each
+    n = min(m, slots)
+    # the gather of the kept rows (which rows, the model cannot say)
+    rows = xf[torch.zeros((m,), dtype=torch.int64, device=xf.device)]
+    rows = rows.reshape(n_local, rows_each, -1)
+    h = silu(torch.bmm(rows, gate)) * torch.bmm(rows, up)
+    out[:n] = torch.bmm(h, down).reshape(n_local * rows_each, -1)[:n]
 
 
 def _aux(p: MoE, logits, scores, counts, router_type: str,
@@ -525,7 +559,7 @@ def moe_shardmap(p: MoE, x: torch.Tensor, *, top_k: int,
     Inside a mesh step the tokens here are one data coordinate's block;
     called on a whole batch under an installed mesh, they are cut into
     the dp blocks here."""
-    from repro_torch.distributed import context
+    from repro_torch.distributed import context, sharding
 
     ax, mesh = context.get(), context.get_mesh()
     if ax is None or mesh is None:
@@ -565,6 +599,10 @@ def moe_shardmap(p: MoE, x: torch.Tensor, *, top_k: int,
                            p.down[ex].to(dev), xf[rows].to(dev),
                            w[rows].to(dev), ids_j, dispatch(ids_j, e, cap),
                            cap, lo=j * e_loc).to(home)
+            if j:  # the combine's psum over "model", into rank 0
+                sharding.record_collective(
+                    "all-reduce", y_j.numel() * y_j.element_size(),
+                    ranks[i][0])
             y = y_j if y is None else y + y_j
         parts.append(y)
     y = torch.cat(parts) if len(parts) > 1 else parts[0]

@@ -746,50 +746,73 @@ def prefill(params: LM, cfg: ArchConfig, inputs, positions=None,
     return logits, cache._replace(length=s)
 
 
+def _layer_decode(p: Layer, cfg: ArchConfig, h, cache_l: dict,
+                  length: int):
+    """One layer, one token: ``h`` (B, 1, d) against this layer's cache
+    slices ``cache_l`` (`_cache_layer_fields`: (B, Smax, ...) each), the
+    new token's state written into them in place at ``length`` (a Python
+    int) -> (h, cache_l)."""
+    p = mesh_ctx.constrain_layer(p)  # ZeRO-3 gather-at-use
+    b = h.shape[0]
+    positions = _default_positions(cfg, b, 1, offset=length,
+                                   device=h.device)
+    x = L.rmsnorm(p.ln1, h)
+    ssm_y = None
+    if p.ssd is not None:
+        ssm_y, st = L.ssd_block(
+            p.ssd, x, cfg.ssm_spec,
+            state={"conv": cache_l["conv"], "ssm": cache_l["ssm"]})
+        cache_l["conv"].copy_(st["conv"])
+        cache_l["ssm"].copy_(st["ssm"])
+    if cfg.ssm:
+        return h + ssm_y, cache_l
+    if cfg.mla:
+        att = _mla_decode(p.attn, cfg, x, positions, cache_l["c_kv"],
+                          cache_l["k_rope"], length)
+    else:
+        smax = cache_l["k"].shape[1]
+        # ring buffer for a sliding window: all slots valid once full;
+        # past the end the write lands on the last slot (XLA clamps a
+        # dynamic_update_slice start the same way)
+        idx = length % smax if cfg.sliding_window else min(length, smax - 1)
+        cur = min(length + 1, smax) if cfg.sliding_window else length + 1
+        q, k, v = _attn_qkv(p.attn, cfg, x, positions)
+        cache_l["k"][:, idx] = k[:, 0]
+        cache_l["v"][:, idx] = v[:, 0]
+        out = L.decode_attention(q, cache_l["k"], cache_l["v"], cur)
+        att = L.linear(p.attn.o, out.reshape(b, 1, -1))
+    if cfg.hybrid:
+        att = _hybrid(p, att, ssm_y)
+    h, _ = _ffn(p, cfg, h + att, decode=True)
+    return h, cache_l
+
+
+def _cache_layer_fields(cfg: ArchConfig) -> list[str]:
+    """The cache fields a layer of ``cfg`` holds."""
+    fields = []
+    if cfg.mla:
+        fields += ["c_kv", "k_rope"]
+    elif cfg.uses_attention:
+        fields += ["k", "v"]
+    if cfg.ssm or cfg.hybrid:
+        fields += ["conv", "ssm"]
+    return fields
+
+
 @torch.no_grad()
 @L.true_f32()
 def decode_step(params: LM, cfg: ArchConfig, tokens, cache: Cache
                 ) -> tuple[torch.Tensor, Cache]:
     """One decode step. tokens: (B, 1) ids (or (B, 1, d) embeds).
     Returns (logits (B, 1, V), the cache with ``length + 1``; its tensors
-    are updated in place)."""
+    are updated in place, layer by layer through `_layer_decode`)."""
     head = _head_params(params)
     h = _embed_in(head, cfg, tokens)
-    b = h.shape[0]
     length = int(cache.length)
-    positions = _default_positions(cfg, b, 1, offset=length,
-                                   device=h.device)
-    if cache.k is not None:
-        smax = cache.k.shape[2]
-        # ring buffer for a sliding window: all slots valid once full;
-        # past the end the write lands on the last slot (XLA clamps a
-        # dynamic_update_slice start the same way)
-        idx = length % smax if cfg.sliding_window else min(length, smax - 1)
-        cur = min(length + 1, smax) if cfg.sliding_window else length + 1
+    fields = _cache_layer_fields(cfg)
     for i, layer in enumerate(params.layers):
-        layer = mesh_ctx.constrain_layer(layer)  # ZeRO-3 gather-at-use
-        x = L.rmsnorm(layer.ln1, h)
-        ssm_y = None
-        if layer.ssd is not None:
-            ssm_y, st = L.ssd_block(
-                layer.ssd, x, cfg.ssm_spec,
-                state={"conv": cache.conv[i], "ssm": cache.ssm[i]})
-            cache.conv[i] = st["conv"]
-            cache.ssm[i] = st["ssm"]
-        if cfg.ssm:
-            h = h + ssm_y
-            continue
-        if cfg.mla:
-            att = _mla_decode(layer.attn, cfg, x, positions, cache.c_kv[i],
-                              cache.k_rope[i], length)
-        else:
-            q, k, v = _attn_qkv(layer.attn, cfg, x, positions)
-            cache.k[i, :, idx] = k[:, 0]
-            cache.v[i, :, idx] = v[:, 0]
-            out = L.decode_attention(q, cache.k[i], cache.v[i], cur)
-            att = L.linear(layer.attn.o, out.reshape(b, 1, -1))
-        if cfg.hybrid:
-            att = _hybrid(layer, att, ssm_y)
-        h, _ = _ffn(layer, cfg, h + att, decode=True)
+        h, _ = _layer_decode(layer, cfg, h,
+                             {f: getattr(cache, f)[i] for f in fields},
+                             length)
     logits = L.linear(head.unembed, L.rmsnorm(head.final_norm, h))
     return logits, cache._replace(length=length + 1)

@@ -65,6 +65,10 @@ assert slice10 <= set(names), sorted(slice10 - set(names))
 slice11 = {"repro_torch.distributed.sharding", "repro_torch.ft.elastic",
            "repro_torch.launch.steps", "repro_torch.launch.mesh"}
 assert slice11 <= set(names), sorted(slice11 - set(names))
+slice12 = {"repro_torch.analysis", "repro_torch.analysis.census",
+           "repro_torch.analysis.roofline", "repro_torch.analysis.report",
+           "repro_torch.launch.shapes", "repro_torch.launch.dryrun"}
+assert slice12 <= set(names), sorted(slice12 - set(names))
 from repro_torch.distributed import sharding
 from repro_torch.ft import elastic
 from repro_torch.launch import mesh, steps
@@ -75,7 +79,21 @@ assert all(hasattr(sharding, n) for n in (
     "opt_state_specs", "batch_specs", "cache_specs", "to_shardings",
     "register_zero3_constraints", "validate_divisibility"))
 assert all(hasattr(steps, n) for n in (
-    "build_train_step", "build_prefill_step", "build_decode_step"))
+    "build_train_step", "build_prefill_step", "build_decode_step",
+    "build_layer_probe", "build_embed_head_probe"))
+from repro_torch.analysis import census, report, roofline
+from repro_torch.launch import dryrun, shapes
+assert all(hasattr(census, n) for n in (
+    "Census", "collective_bytes", "total_collective_bytes", "op_census",
+    "bytes_with_trailing_dims", "bytes_with_chunk_pair",
+    "bytes_of_layout_ops"))
+assert all(hasattr(report, n) for n in (
+    "load", "fmt_s", "table", "compare", "candidates", "main"))
+assert hasattr(roofline, "Roofline") and hasattr(roofline, "model_flops")
+assert all(hasattr(shapes, n) for n in (
+    "SHAPES", "SHAPE_IDS", "applicable", "CellSpecs", "input_specs"))
+assert hasattr(dryrun, "run_cell") and hasattr(dryrun, "main")
+assert hasattr(lm, "_layer_decode")
 assert all(hasattr(elastic, n) for n in (
     "remesh_restore", "rescale_schedule", "Heartbeat", "StragglerMonitor"))
 assert hasattr(mesh, "make_production_mesh")
@@ -94,7 +112,7 @@ def test_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", BLOCKED_IMPORT], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 108  # every module of the slices
+    assert int(out.stdout.strip()) >= 114  # every module of the slices
 
 
 @pytest.mark.parametrize("path", sorted(
