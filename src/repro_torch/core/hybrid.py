@@ -17,6 +17,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch import match as match_lib
+from repro_torch import obs
 from repro_torch.core import acam as acam_lib
 from repro_torch.core import energy as energy_lib
 from repro_torch.core import quant, templates
@@ -97,14 +98,18 @@ class HybridClassifier(NamedTuple):
     def predict(self, x) -> torch.Tensor:
         """Images -> (B,) int32 class ids: front end, then one fused
         classify kernel call."""
-        x = torch.as_tensor(x, dtype=torch.float32,
-                            device=resolve(self.device))
-        backend = self.head.backend or match_lib.default_backend()
-        eng = match_lib.engine_for(method=self.head.method,
-                                   alpha=self.head.alpha, backend=backend)
-        with torch.no_grad():
-            pred, _ = eng.classify_features(self.feature_fn(self.params, x),
-                                            self.head.bank)
+        with obs.span("repro_torch.predict"):
+            with obs.span("repro_torch.predict.to_device"):
+                x = torch.as_tensor(x, dtype=torch.float32,
+                                    device=resolve(self.device))
+            backend = self.head.backend or match_lib.default_backend()
+            eng = match_lib.engine_for(method=self.head.method,
+                                       alpha=self.head.alpha,
+                                       backend=backend)
+            with torch.no_grad():
+                with obs.span("repro_torch.predict.frontend"):
+                    features = self.feature_fn(self.params, x)
+                pred, _ = eng.classify_features(features, self.head.bank)
         return pred
 
     def accuracy(self, x, y, *, batch_size: int = 1024) -> float:

@@ -11,10 +11,14 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import layout
 from repro_torch.kernels.acam_match.acam_match import (
     acam_match, acam_match_classify, acam_match_classify_margins,
     acam_match_classify_margins_chunked, acam_match_serve)
+
+#: the span around a call's re-layout of the class-major bank
+LAYOUT_SPAN = "repro_torch.acam.layout"
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -59,9 +63,11 @@ def classify_fused(features, thresholds, templates_ck, valid_ck):
     """Single-launch Eq. 8 + Eq. 12 over a (C, K, N) bank.
     Returns (pred (B,) int32, per_class (B, C))."""
     c = templates_ck.shape[0]
-    return acam_match_classify(_f32(features), _f32(thresholds),
-                               _f32(layout.flatten_kmajor(templates_ck, c)),
-                               layout.valid_kmajor(valid_ck, c), c)
+    with obs.span(LAYOUT_SPAN):
+        templates = _f32(layout.flatten_kmajor(templates_ck, c))
+        valid = layout.valid_kmajor(valid_ck, c)
+    return acam_match_classify(_f32(features), _f32(thresholds), templates,
+                               valid, c)
 
 
 def classify_fused_margins(features, thresholds, templates_ck, valid_ck,
@@ -71,10 +77,11 @@ def classify_fused_margins(features, thresholds, templates_ck, valid_ck,
     c = templates_ck.shape[0]
     lo, hi = _windows(features.shape[0], c, features.device, class_lo,
                       class_hi)
-    return acam_match_classify_margins(
-        _f32(features), _f32(thresholds),
-        _f32(layout.flatten_kmajor(templates_ck, c)),
-        layout.valid_kmajor(valid_ck, c), lo, hi, c)
+    with obs.span(LAYOUT_SPAN):
+        templates = _f32(layout.flatten_kmajor(templates_ck, c))
+        valid = layout.valid_kmajor(valid_ck, c)
+    return acam_match_classify_margins(_f32(features), _f32(thresholds),
+                                       templates, valid, lo, hi, c)
 
 
 def classify_fused_margins_chunked(features, thresholds, templates_ck,
@@ -86,10 +93,12 @@ def classify_fused_margins_chunked(features, thresholds, templates_ck,
     lo, hi = _windows(features.shape[0], c, features.device, class_lo,
                       class_hi)
     chunk = layout.class_chunk(layout.padded_classes(c), k, max_rows)
+    with obs.span(LAYOUT_SPAN):
+        templates = _f32(layout.stack_kcp(templates_ck, c))
+        valid = layout.valid_kcp(valid_ck, c)
     return acam_match_classify_margins_chunked(
-        _f32(features), _f32(thresholds),
-        _f32(layout.stack_kcp(templates_ck, c)),
-        layout.valid_kcp(valid_ck, c), lo, hi, c, chunk=chunk)
+        _f32(features), _f32(thresholds), templates, valid, lo, hi, c,
+        chunk=chunk)
 
 
 def serve_classify(features, thr_table, tenant_slot, templates_ck, valid_ck,
@@ -104,7 +113,9 @@ def serve_classify(features, thr_table, tenant_slot, templates_ck, valid_ck,
     if tau is None:
         tau = torch.full((b,), float("-inf"), device=features.device)
     chunk = layout.class_chunk(layout.padded_classes(c), k, max_rows)
+    with obs.span(LAYOUT_SPAN):
+        templates = _f32(layout.stack_kcp(templates_ck, c))
+        valid = layout.valid_kcp(valid_ck, c)
     return acam_match_serve(
-        _f32(features), _f32(thr_table), _i32(tenant_slot),
-        _f32(layout.stack_kcp(templates_ck, c)),
-        layout.valid_kcp(valid_ck, c), lo, hi, _f32(tau), c, chunk=chunk)
+        _f32(features), _f32(thr_table), _i32(tenant_slot), templates, valid,
+        lo, hi, _f32(tau), c, chunk=chunk)

@@ -15,8 +15,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import layout
-from repro_torch.kernels.acam_match.ops import _f32, _i32, _windows
+from repro_torch.kernels.acam_match.ops import (LAYOUT_SPAN, _f32, _i32,
+                                                _windows)
 from repro_torch.kernels.acam_similarity.acam_similarity import (
     acam_similarity, acam_similarity_classify, acam_similarity_serve)
 
@@ -47,11 +49,13 @@ def classify_fused(features, thresholds, lower_ck, upper_ck, valid_ck, *,
     """Single-launch Eq. 9-12 over a (C, K, N) window bank.
     Returns (pred (B,) int32, per_class (B, C))."""
     c = lower_ck.shape[0]
+    with obs.span(LAYOUT_SPAN):
+        lower = _f32(layout.flatten_kmajor(lower_ck, c))
+        upper = _f32(layout.flatten_kmajor(upper_ck, c))
+        valid = layout.valid_kmajor(valid_ck, c)
     return acam_similarity_classify(
-        _f32(features), _f32(thresholds),
-        _f32(layout.flatten_kmajor(lower_ck, c)),
-        _f32(layout.flatten_kmajor(upper_ck, c)),
-        layout.valid_kmajor(valid_ck, c), c, alpha=alpha, block=block)
+        _f32(features), _f32(thresholds), lower, upper, valid, c,
+        alpha=alpha, block=block)
 
 
 def serve_classify(features, thr_table, tenant_slot, lower_ck, upper_ck,
@@ -68,11 +72,13 @@ def serve_classify(features, thr_table, tenant_slot, lower_ck, upper_ck,
     if tau is None:
         tau = torch.full((b,), float("-inf"), device=features.device)
     chunk = layout.class_chunk(layout.padded_classes(c), k, max_rows)
+    with obs.span(LAYOUT_SPAN):
+        lower = _f32(layout.stack_kcp(lower_ck, c))
+        upper = _f32(layout.stack_kcp(upper_ck, c))
+        valid = layout.valid_kcp(valid_ck, c)
     return acam_similarity_serve(
-        _f32(features), _f32(thr_table), _i32(tenant_slot),
-        _f32(layout.stack_kcp(lower_ck, c)),
-        _f32(layout.stack_kcp(upper_ck, c)), layout.valid_kcp(valid_ck, c),
-        lo, hi, _f32(tau), c, alpha=alpha, chunk=chunk, block=block)
+        _f32(features), _f32(thr_table), _i32(tenant_slot), lower, upper,
+        valid, lo, hi, _f32(tau), c, alpha=alpha, chunk=chunk, block=block)
 
 
 def classify_fused_margins(features, thresholds, lower_ck, upper_ck,

@@ -50,7 +50,8 @@ JAX launcher's `ValueError`:
   REPRO_FORCE_MESH=1x2 python -m repro_torch.launch.serve --workload acam \
       --bank-shards 2
 ``--profile-annotations`` marks each fused dispatch with
-`torch.profiler.record_function`.
+`repro_torch.obs.span`, which records a `torch.profiler.record_function`
+range only while a profiler is recording.
 """
 from __future__ import annotations
 
@@ -382,8 +383,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="fraction of requests carrying a full per-request "
                          "span (deterministic in the request id)")
     ap.add_argument("--profile-annotations", action="store_true",
-                    help="wrap the fused dispatch in a "
-                         "torch.profiler.record_function range")
+                    help="wrap the fused dispatch in repro_torch.obs.span: "
+                         "a torch.profiler.record_function range while a "
+                         "profiler is recording")
     ap.add_argument("--device-noise", default="global",
                     choices=("global", "per_shard"),
                     help="sigma_program noise semantics of the device "

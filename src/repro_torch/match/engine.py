@@ -44,6 +44,7 @@ import os
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import acam as acam_lib
 from repro_torch.core.templates import TemplateBank
 from repro_torch.device import resolve
@@ -317,25 +318,28 @@ class MatchEngine:
 
     def _classify_via(self, shard_method: str, plain_method: str, queries,
                       bank: TemplateBank):
-        be = self.backend(queries, bank)
-        plan, mesh = self.plan(queries.shape[0], bank.templates.shape[0], be)
-        plain = getattr(be, plain_method)
-        if not plan.sharded:
-            return plain(queries, bank)
-        dev = queries.device
-        if not plan.bank_sharded:
-            grid = self._run(lambda q, bk, row0: plain(q, bk), (queries,),
-                             (), (bank,), plan, mesh)
-            return self._batch_outputs(grid, dev)
-        grid = self._run(getattr(be, shard_method), (queries,), (), (bank,),
-                         plan, mesh)
-        preds, per_class = [], []
-        for row in grid:
-            _, pred = _reduce_winner(
-                [(t.to(dev), i.to(dev)) for _, t, i in row], plan.reduce)
-            preds.append(pred)
-            per_class.append(_cat([pc for pc, _, _ in row], 1, dev))
-        return _cat(preds, 0, dev), _cat(per_class, 0, dev)
+        with obs.span("repro_torch.match.classify"):
+            be = self.backend(queries, bank)
+            plan, mesh = self.plan(queries.shape[0], bank.templates.shape[0],
+                                   be)
+            plain = getattr(be, plain_method)
+            if not plan.sharded:
+                return plain(queries, bank)
+            dev = queries.device
+            if not plan.bank_sharded:
+                grid = self._run(lambda q, bk, row0: plain(q, bk),
+                                 (queries,), (), (bank,), plan, mesh)
+                return self._batch_outputs(grid, dev)
+            grid = self._run(getattr(be, shard_method), (queries,), (),
+                             (bank,), plan, mesh)
+            preds, per_class = [], []
+            for row in grid:
+                _, pred = _reduce_winner(
+                    [(t.to(dev), i.to(dev)) for _, t, i in row],
+                    plan.reduce)
+                preds.append(pred)
+                per_class.append(_cat([pc for pc, _, _ in row], 1, dev))
+            return _cat(preds, 0, dev), _cat(per_class, 0, dev)
 
     def classify(self, queries, bank: TemplateBank):
         """Eq. 8/11 + Eq. 12 over *binary* queries -> (pred, per_class)."""

@@ -1,12 +1,14 @@
 """`repro_torch.obs` — the serving stack's flight recorder.
 
 Single source of truth for everything the service observes about
-itself. Four pieces, one facade:
+itself. Five pieces, one facade:
 
   * `MetricsRegistry` (`.registry`) — labeled counters/gauges +
     fixed-bucket latency histograms with exact-from-buckets quantiles.
   * `SpanRecorder` (`.spans`) — per-request flight records across
     admission -> queue -> tick -> dispatch -> cascade -> response.
+  * `span` (`.spans`) — a named range inside a call of the port,
+    recorded only while a `torch.profiler` is recording.
   * `EnergyLedger` (`.energy`) — per-tenant + fleet SS V-D nJ totals
     with the E_backend / E_frontend split, bit-exact with the
     per-response attributions.
@@ -45,13 +47,13 @@ from .export import (EVENT_SCHEMA, JsonlEventLog, read_events,
                      validate_prometheus_text, write_prometheus)
 from .registry import (DEFAULT_LATENCY_BUCKETS_MS, Counter, Gauge,
                        Histogram, MetricsRegistry)
-from .spans import DISPOSITIONS, Span, SpanRecorder
+from .spans import DISPOSITIONS, Span, SpanRecorder, span
 
 __all__ = [
     "FlightRecorder", "MetricsRegistry", "Counter", "Gauge", "Histogram",
-    "SpanRecorder", "Span", "EnergyLedger", "JsonlEventLog", "read_events",
-    "render_prometheus", "validate_prometheus_text", "write_prometheus",
-    "validate_event", "EVENT_SCHEMA", "DISPOSITIONS",
+    "SpanRecorder", "Span", "span", "EnergyLedger", "JsonlEventLog",
+    "read_events", "render_prometheus", "validate_prometheus_text",
+    "write_prometheus", "validate_event", "EVENT_SCHEMA", "DISPOSITIONS",
     "DEFAULT_LATENCY_BUCKETS_MS", "NJ",
 ]
 
@@ -220,12 +222,12 @@ class FlightRecorder:
 
     def profile_span(self, name: str):
         """Context manager annotating the fused dispatch in `torch.profiler`
-        traces (no-op unless `ObsSpec.profile_annotations`)."""
+        traces: `span(name)` under `ObsSpec.profile_annotations` (which,
+        like every span of the port, records only while a profiler is
+        recording), else a no-op."""
         if not self.profile_annotations:
             return contextlib.nullcontext()
-        import torch
-
-        return torch.profiler.record_function(name)
+        return span(name)
 
     # -- cascade / response ------------------------------------------------
 

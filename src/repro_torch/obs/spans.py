@@ -16,9 +16,19 @@ request count by construction, never by sampling luck.
 Sampling (`ObsSpec.span_sample < 1.0`) is deterministic in the request
 id — a Knuth-hash coin, no RNG state — so the same trace replayed twice
 keeps the same spans and bit-identical serving results.
+
+`span(name)` is the other kind: a named range inside a call of the port
+(`HybridClassifier.predict`, the engine, the kernels' bank re-layout, the
+trainer's step) for a `torch.profiler` trace. It records only while a
+profiler is recording, as a `record_function` range that lands beside
+the profiler's device events on the same clock; otherwise it is one
+shared null context. The module imports the standard library alone: it looks
+`torch` up among the loaded modules, so every layer can import it.
 """
 from __future__ import annotations
 
+import contextlib
+import sys
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -27,6 +37,19 @@ from dataclasses import dataclass, field
 DISPOSITIONS = ("ok", "escalated", "shed", "expired", "error", "rejected")
 
 _KNUTH = 2654435761  # golden-ratio multiplicative hash constant
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager naming the code it wraps ``name`` in a
+    `torch.profiler` trace: `torch.profiler.record_function(name)` while a
+    profiler is recording, else one shared null context (no torch call
+    beyond the check)."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 def sampled(request_id: int, rate: float) -> bool:

@@ -168,9 +168,11 @@ class ObsSpec(NamedTuple):
     ``span_sample``         fraction of requests carrying a full span
                             (deterministic in the request id); span
                             *conservation counters* always run.
-    ``profile_annotations`` wrap the fused dispatch in a
-                            `torch.profiler.record_function` so device
-                            traces show serving-tick boundaries."""
+    ``profile_annotations`` wrap the fused dispatch in
+                            `repro_torch.obs.span` (a
+                            `torch.profiler.record_function` range while a
+                            profiler is recording) so device traces
+                            show serving-tick boundaries."""
 
     latency_buckets_ms: tuple = ()  # () -> repro_torch.obs default buckets
     latency_window: int = 256

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.core import distill, prune
 from repro_torch.data import pipeline
 from repro_torch.device import resolve
@@ -116,16 +117,25 @@ def value_and_grad(loss_fn: LossFn, model: nn.Module, batch
 
 
 def _make_step(loss_fn: LossFn, optimizer: optim.Optimizer, masks=None):
+    def body(model, opt_state, batch):
+        with obs.span("repro_torch.train.grad"):
+            loss, grads = value_and_grad(loss_fn, model, batch)
+        with obs.span("repro_torch.train.update"):
+            if masks is not None:
+                grads = prune.mask_gradients(grads, masks)
+            grads, _ = optim.clip_by_global_norm(grads, 1.0)
+            params, opt_state = optimizer.update(grads, opt_state,
+                                                 params_of(model))
+            if masks is not None:
+                params = prune.apply_masks(params, masks)
+            assign(model, params)
+        return opt_state, loss
+
     def step(model, opt_state, batch):
-        loss, grads = value_and_grad(loss_fn, model, batch)
-        if masks is not None:
-            grads = prune.mask_gradients(grads, masks)
-        grads, _ = optim.clip_by_global_norm(grads, 1.0)
-        params, opt_state = optimizer.update(grads, opt_state,
-                                             params_of(model))
-        if masks is not None:
-            params = prune.apply_masks(params, masks)
-        assign(model, params)
+        # the body's gradients and new parameters are freed as it returns,
+        # inside the span, which so holds the step's host time whole
+        with obs.span("repro_torch.train.step"):
+            opt_state, loss = body(model, opt_state, batch)
         return model, opt_state, loss
 
     return step
@@ -135,10 +145,11 @@ def to_device(batch, device: torch.device) -> tuple[torch.Tensor, ...]:
     """A numpy batch (images, labels[, teacher logits]) -> tensors on
     ``device``: images and logits f32, labels int64."""
     x, y, *rest = batch
-    out = [torch.as_tensor(x, dtype=torch.float32, device=device),
-           torch.as_tensor(np.asarray(y), device=device).long()]
-    out += [torch.as_tensor(z, dtype=torch.float32, device=device)
-            for z in rest]
+    with obs.span("repro_torch.train.to_device"):
+        out = [torch.as_tensor(x, dtype=torch.float32, device=device),
+               torch.as_tensor(np.asarray(y), device=device).long()]
+        out += [torch.as_tensor(z, dtype=torch.float32, device=device)
+                for z in rest]
     return tuple(out)
 
 
