@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--report PATH]   # on a machine with a CUDA card
 
-Builds the CUDA kernels from `src/repro_torch/csrc/` (all four sources,
+Builds the CUDA kernels from `src/repro_torch/csrc/` (all five sources,
 one nvcc each, in parallel) and drives the port on one CUDA card, with no
 JAX:
 
@@ -75,10 +75,21 @@ JAX:
               Eq. 1; B8 also times a partial `torch.logsumexp`. Bounds:
               bytes against operations (`bound`, `sim_bound`, `kd_bound`,
               `fa_bound`); B5 and B6 on binary windows against two popc
-              per 32 window cells.
+              per 32 window cells. The student's fused epilogue
+              (`student_epilogue.cu`, no `pallas_call` site: XLA fused
+              these ops) against its plain version at the frames cell's
+              batch 4,096 and at 1, 3 and 97, seeded weights with about
+              half the BatchNorm scales negative: each of the four blocks
+              `torch.equal` with the plain strides, the eval features
+              equal to the plain chain's with four launches a call, a NaN
+              pixel propagated; the four launches at 4,096 timed (CUDA
+              events; device time traced) beside their bytes bound
+              (`epi_bound`, 0.478 ms) and the plain tails on the same
+              convolution outputs.
  2. paths     each main path driven through the entry points a user calls,
               with the launch counts set to 0 just before and read just
-              after: `HybridClassifier.predict` (B1) at paper width (the
+              after: `HybridClassifier.predict` (B1, and the fused
+              epilogue's four launches) at paper width (the
               Fig. 5 student, 32x32x1 -> 784 features, 10 classes), the
               multi-tenant `HybridService` tick (B3; 8 tenants x 10
               classes, 64 slots, tau 8 counts), the same service under
@@ -336,7 +347,9 @@ MATCH_SRC = f"{CSRC}/acam_match.cu"
 SIM_SRC = f"{CSRC}/acam_similarity.cu"
 KD_SRC = f"{CSRC}/kd_loss.cu"
 FA_SRC = f"{CSRC}/flash_attention.cu"
-SOURCES = ("acam_match", "acam_similarity", "kd_loss", "flash_attention")
+EPI_SRC = f"{CSRC}/student_epilogue.cu"
+SOURCES = ("acam_match", "acam_similarity", "kd_loss", "flash_attention",
+           "student_epilogue")
 MATCH_TPU = "src/repro/kernels/acam_match/acam_match.py"
 SIM_TPU = "src/repro/kernels/acam_similarity/acam_similarity.py"
 KD_TPU = "src/repro/kernels/kd_loss/kd_loss.py"
@@ -1842,6 +1855,137 @@ def fa_phase(device) -> dict:
 # 2. the main paths, through the entry points
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# 1d. the student's fused epilogue (`student_epilogue.cu`; no pallas_call
+#     site: the JAX package left these ops to XLA)
+# ---------------------------------------------------------------------------
+
+EPI_BATCH = 4096  # the frames cell's (`bench/workloads/fig5-hybrid.*`)
+
+
+def epi_student(device):
+    """The Fig. 5 student with small conv biases and BatchNorm statistics
+    standing for a trained front end, about half its BatchNorm scales
+    negative (BN does not commute with the pool), in eval mode."""
+    import torch
+
+    from repro_torch.models import cnn
+
+    model = cnn.init_student(torch.Generator().manual_seed(40),
+                             device="cpu")
+    g = torch.Generator().manual_seed(41)
+    with torch.no_grad():
+        for conv in (model.conv1, model.conv2, model.conv3, model.conv4):
+            conv.bias.copy_(0.05 * torch.randn(conv.bias.shape, generator=g))
+        for bn in (model.bn1, model.bn2):
+            c = bn.num_features
+            bn.weight.copy_(0.8 * torch.randn(c, generator=g))
+            bn.bias.copy_(0.1 * torch.randn(c, generator=g))
+            bn.running_mean.copy_(0.1 * torch.randn(c, generator=g))
+            bn.running_var.copy_(0.5 + 1.5 * torch.rand(c, generator=g))
+    return model.to(device)
+
+
+def epi_bound(b: int, filters=(32, 128, 256, 16)):
+    """Least time on an H100 SXM of the four fused launches of a batch of
+    ``b``: each conv output read once and each result written once (30x30
+    -> 15x15, 15x15 -> 7x7, 7x7 -> 7x7 twice), float32, over 3.35 TB/s.
+    Returns (ms, bytes): 1,601,175,552 B at 4,096."""
+    f1, f2, f3, f4 = filters
+    words = (30 * 30 * f1 + 15 * 15 * f1 + 15 * 15 * f2 + 7 * 7 * f2
+             + 2 * 7 * 7 * f3 + 2 * 7 * 7 * f4)
+    nbytes = 4 * b * words
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def epi_same(name: str, got, want) -> None:
+    import torch
+
+    check(got.shape == want.shape and got.stride() == want.stride(),
+          f"{name}: {tuple(got.shape)} {got.stride()} against the plain "
+          f"{tuple(want.shape)} {want.stride()}")
+    check(torch.equal(torch.isnan(got), torch.isnan(want))
+          and torch.equal(torch.nan_to_num(got), torch.nan_to_num(want)),
+          f"{name}: not bit-identical to the plain version")
+
+
+def epilogue_phase(device) -> dict:
+    """The fused epilogue against its plain version (each block and the
+    eval features, bit for bit, four launches a features call) at the
+    frames cell's batch and ragged ones; a NaN pixel; the four launches
+    timed at 4,096 beside their bound and the plain tails."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.student_epilogue import student_epilogue as epi
+    from repro_torch.models import cnn
+
+    model = epi_student(device)
+    convs = (model.conv1, model.conv2, model.conv3, model.conv4)
+    bns = (model.bn1, model.bn2, None, None)
+    g = torch.Generator(device=device).manual_seed(42)
+    cases = 0
+    with torch.no_grad(), cnn.fp32(device):
+        for b in (1, 3, 97, EPI_BATCH):
+            x = torch.randn((b, 32, 32, 1), generator=g, device=device)
+            if b == 97:
+                x[5, 11, 13, 0] = float("nan")
+            h, raws = x.permute(0, 3, 1, 2), []
+            for i, (conv, bn) in enumerate(zip(convs, bns)):
+                args = (h, conv.weight, conv.bias, conv.padding, bn)
+                got = epi.conv_epilogue(*args, flatten=i == 3)
+                want = epi.conv_epilogue_plain(*args, flatten=i == 3)
+                epi_same(f"student_epilogue block {i + 1} at B={b}", got,
+                         want)
+                raws.append(F.conv2d(h, conv.weight, None,
+                                     padding=conv.padding))
+                h, cases = want, cases + 1
+            epi.reset_launches()
+            feats = model.features(x)
+            check(epi.LAUNCHES["student_epilogue"] == 4,
+                  f"student_epilogue: {epi.LAUNCHES} launches for one "
+                  "features call, expected 4")
+            epi_same(f"student_epilogue features at B={b}", feats, h)
+            if b == 97:
+                check(bool(torch.isnan(feats[5]).any())
+                      and not bool(torch.isnan(feats[4]).any()),
+                      "student_epilogue: a NaN pixel must reach its "
+                      "image's features alone")
+        calls = [(raw, conv.bias, bn, i == 3)
+                 for i, (raw, conv, bn) in enumerate(zip(raws, convs, bns))]
+
+        def fused():
+            for raw, bias, bn, flatten in calls:
+                epi.epilogue(raw, bias, bn, flatten=flatten)
+
+        def plain_tails():  # the passes the kernel replaces
+            for raw, bias, bn, _ in calls:
+                v = F.relu(raw + bias[:, None, None])
+                if bn is not None:
+                    F.max_pool2d(cnn.batchnorm(bn, v, train=False), 2)
+
+        ms, nbytes = epi_bound(EPI_BATCH)
+        row = dict(shape=dict(B=EPI_BATCH, filters=[32, 128, 256, 16]),
+                   cases=cases, ms=time_ms(fused),
+                   plain_ms=time_ms(plain_tails), bound_ms=ms,
+                   bound_by="bytes", bound_bytes=nbytes,
+                   host_us=host_us(fused), profile=profile(fused, reps=20))
+    device_ms = row["profile"]["device_ms"]
+    row["roofline"] = ms / device_ms if device_ms else None
+    epi.reset_launches()
+    return row
+
+
+def print_epilogue(row: dict) -> None:
+    print(f"student_epilogue (not a pallas_call site): {row['cases']} "
+          f"blocks bit-identical; four launches at B={row['shape']['B']}: "
+          f"{row['ms']:.4f} ms a call, device "
+          f"{row['profile']['device_ms']} ms against the bytes bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_bytes']} B), plain tails "
+          f"{row['plain_ms']:.4f} ms, host {row['host_us']:.1f} us; "
+          f"profile {json.dumps(row['profile'])}")
+
+
 def class_images(rng, protos: np.ndarray, labels: np.ndarray,
                  noise: float) -> np.ndarray:
     return (protos[labels] + noise * rng.standard_normal(
@@ -1854,8 +1998,9 @@ def launch_modules() -> list:
     from repro_torch.kernels.acam_similarity import acam_similarity as asim
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.kd_loss import kd_loss as kd
+    from repro_torch.kernels.student_epilogue import student_epilogue as epi
 
-    return [am, asim, kd, fa]
+    return [am, asim, kd, fa, epi]
 
 
 def drive(name: str, fn, kernels: list[str]):
@@ -1906,9 +2051,11 @@ def paths(device, cfg=None, per_class: int = 64) -> dict:
     test_y = rng.integers(0, 10, 256)
     test_x = class_images(rng, protos, test_y, 0.5)
     pred, counts, wall = drive("predict", lambda: clf.predict(test_x),
-                               ["acam_match_classify"])
+                               ["acam_match_classify", "student_epilogue"])
     check(pred.shape == (256,) and pred.dtype == torch.int32,
           "predict: 256 int32 class ids")
+    check(counts["student_epilogue"] == 4,
+          "predict: four fused epilogue launches a call")
     feats = student_features(model, test_x)
     check(bool(torch.isfinite(feats).all()) and feats.shape == (256, n),
           f"predict: finite (256, {n}) features")
@@ -5994,7 +6141,7 @@ def main(argv: list[str]) -> int:
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
               file=sys.stderr)
         return 2
-    for source in (MATCH_SRC, SIM_SRC, KD_SRC, FA_SRC):
+    for source in (MATCH_SRC, SIM_SRC, KD_SRC, FA_SRC, EPI_SRC):
         if not (ROOT / source).is_file():
             print(f"chip_smoke: {source} not found beside this script",
                   file=sys.stderr)
@@ -6028,6 +6175,7 @@ def main(argv: list[str]) -> int:
     kernels.update(similarity_phase(device))
     kernels.update(kd_phase(device))
     kernels.update(fa_phase(device))
+    epilogue = epilogue_phase(device)
     kernels_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     report = paths(device)
@@ -6152,6 +6300,7 @@ def main(argv: list[str]) -> int:
     print("acam_similarity_serve big bank on real windows (per call): "
           + json.dumps(kernels["acam_similarity_serve"]["big_bank"]
                        ["real_windows"]))
+    print_epilogue(epilogue)
     print(f"profile sessions retried: {json.dumps(PROFILE_RETRIES)}")
     print_device_physics(report["device_physics"], report["serve_mega"])
     print_paper_eval(paper)
@@ -6189,6 +6338,7 @@ def main(argv: list[str]) -> int:
             dict(card=smi, build_s=build_s, kernels_s=kernels_s,
                  paths_s=paths_s, nvcc=logs,
                  kernels=line["kernels"], kernel_phases=kernels,
+                 student_epilogue=epilogue,
                  profile_retries=PROFILE_RETRIES,
                  paths=report, training=training, paper_eval=paper,
                  control_plane=control, sharded=sharded, lm=lm_out,

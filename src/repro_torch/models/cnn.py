@@ -46,6 +46,7 @@ from torch import nn
 
 from repro_torch.core.quant import fake_quant_int8
 from repro_torch.device import resolve
+from repro_torch.kernels.student_epilogue import student_epilogue as epi
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9
@@ -172,12 +173,23 @@ class Student(nn.Module):
     def features(self, x: torch.Tensor, *, quantize: bool = False,
                  train: bool = False) -> torch.Tensor:
         """NHWC images (B, 32, 32, C) -> (B, num_features) NHWC-flat.
-        ``train``: BatchNorm on batch statistics, running ones updated."""
+        ``train``: BatchNorm on batch statistics, running ones updated.
+        On the card in eval mode with autograd off, each convolution's tail
+        is one fused launch (`kernels.student_epilogue`), bit for bit the
+        chain below."""
+        def weight(m: nn.Conv2d):
+            return fake_quant_int8(m.weight) if quantize else m.weight
+
         def conv(m: nn.Conv2d, h):
-            w = fake_quant_int8(m.weight) if quantize else m.weight
-            return F.relu(F.conv2d(h, w, m.bias, padding=m.padding))
+            return F.relu(F.conv2d(h, weight(m), m.bias, padding=m.padding))
 
         h = x.permute(0, 3, 1, 2)
+        if h.is_cuda and not train and not torch.is_grad_enabled():
+            for m, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2),
+                          (self.conv3, None)):
+                h = epi.conv_epilogue(h, weight(m), m.bias, m.padding, bn)
+            return epi.conv_epilogue(h, weight(self.conv4), self.conv4.bias,
+                                     self.conv4.padding, flatten=True)
         h = F.max_pool2d(batchnorm(self.bn1, conv(self.conv1, h),
                                    train=train), 2)  # 30 -> 15
         h = F.max_pool2d(batchnorm(self.bn2, conv(self.conv2, h),

@@ -20,5 +20,8 @@ _FORCED = forcemesh.apply_xla_flags()
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running (multi-minute) integration tests")
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card (the port's kernels); skipped "
+        "without one")
     if _FORCED:
         forcemesh.install()

@@ -461,7 +461,8 @@ CSRC = Path(am.__file__).resolve().parents[2] / "csrc"
 
 
 @pytest.mark.parametrize("source", ["acam_match", "acam_similarity",
-                                    "kd_loss", "flash_attention"])
+                                    "kd_loss", "flash_attention",
+                                    "student_epilogue"])
 def test_ctypes_signatures_match_the_cuda_entry_points(source):
     """Every C entry of ``csrc/<source>.cu`` has a ctypes signature in its
     wrapper module with the same count and kinds of arguments, the stream
