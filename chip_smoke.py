@@ -4254,8 +4254,8 @@ def routes_recorded():
 
     orig, got = L.route, []
 
-    def rec(p, xf, top_k, router_type):
-        out = orig(p, xf, top_k, router_type)
+    def rec(p, xf, top_k, router_type, **group):
+        out = orig(p, xf, top_k, router_type, **group)
         got.append((out[3].cpu(), out[1].detach().cpu()))
         return out
 
@@ -4278,8 +4278,8 @@ def routes_forced(calls):
 
     orig, pending = L.route, iter(calls)
 
-    def forced(p, xf, top_k, router_type):
-        logits, scores, _, _ = orig(p, xf, top_k, router_type)
+    def forced(p, xf, top_k, router_type, **group):
+        logits, scores, _, _ = orig(p, xf, top_k, router_type, **group)
         ids = next(pending).to(scores.device)
         w = scores.gather(1, ids)
         return logits, scores, w / torch.clamp_min(w.sum(-1, keepdim=True),

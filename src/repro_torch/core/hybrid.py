@@ -66,19 +66,28 @@ class ACAMHead(NamedTuple):
         return energy_lib.backend_energy(rows, self.bank.num_features)
 
 
+def as_input(x, device: torch.device) -> torch.Tensor:
+    """A front end's input on ``device``: integer inputs (token ids) keep
+    their type, anything else becomes float32."""
+    x = torch.as_tensor(x)
+    if x.is_floating_point() or x.dtype == torch.bool:
+        return x.to(device=device, dtype=torch.float32)
+    return x.to(device)
+
+
 def fit_acam_head(feature_fn: Callable[[Any, torch.Tensor], torch.Tensor],
                   params: Any, inputs, labels, num_classes: int, *,
                   k: int = 1, threshold_method: str = "mean",
                   method: str = "feature_count", batch_size: int = 512,
                   device=None) -> ACAMHead:
     """Generate templates from a trained front end over a calibration set,
-    on ``device`` (the card unless the caller asks for the CPU)."""
+    on ``device`` (the card unless the caller asks for the CPU); inputs
+    as `as_input` hands them over."""
     dev = resolve(device)
     feats = []
     with torch.no_grad():
         for i in range(0, len(inputs), batch_size):
-            x = torch.as_tensor(inputs[i:i + batch_size],
-                                dtype=torch.float32, device=dev)
+            x = as_input(inputs[i:i + batch_size], dev)
             feats.append(feature_fn(params, x))
     bank = templates.generate_templates(
         torch.cat(feats), torch.as_tensor(labels, device=dev), num_classes,
@@ -96,12 +105,11 @@ class HybridClassifier(NamedTuple):
     device: str | None = None
 
     def predict(self, x) -> torch.Tensor:
-        """Images -> (B,) int32 class ids: front end, then one fused
-        classify kernel call."""
+        """Images (or token ids, which keep their integer type) -> (B,)
+        int32 class ids: front end, then one fused classify kernel call."""
         with obs.span("repro_torch.predict"):
             with obs.span("repro_torch.predict.to_device"):
-                x = torch.as_tensor(x, dtype=torch.float32,
-                                    device=resolve(self.device))
+                x = as_input(x, resolve(self.device))
             backend = self.head.backend or match_lib.default_backend()
             eng = match_lib.engine_for(method=self.head.method,
                                        alpha=self.head.alpha,

@@ -16,7 +16,8 @@ in f32 and cast back; products with bf16 operands accumulate in f32
 (``preferred_element_type``) from the operands' own values.
 
 The MoE layer (sort-based capacity dispatch, softmax or sigmoid router,
-optional shared expert) and the Mamba2 SSD (`ssd_scan`, `ssd_step`,
+deepseek-v3's group-limited sigmoid router, optional shared expert, one
+chip's share of the experts) and the Mamba2 SSD (`ssd_scan`, `ssd_step`,
 `ssd_block`) follow the JAX package's arithmetic: the router product in
 true f32 with a stable top-k, and the SSD's three-operand products
 written out as the pairs XLA contracts, in f32 on the operands' rounded
@@ -26,11 +27,14 @@ package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import math
 from typing import NamedTuple
 
 import torch
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.device import resolve
 
 
@@ -107,21 +111,71 @@ def layernorm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-5
 # rotary embeddings
 # ---------------------------------------------------------------------------
 
-def rope_freqs(head_dim: int, theta: float, *, device=None) -> torch.Tensor:
+class YaRN(NamedTuple):
+    """YaRN rope scaling as deepseek-v3's config.json states it
+    (``rope_scaling``: type yarn)."""
+
+    factor: float
+    original_max: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 1.0
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """``0.1 * mscale * ln(factor) + 1`` (1 for no extension)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_ramp(head_dim: int, theta: float, y: YaRN) -> tuple[int, int]:
+    """(low, high): the rotary slots whose wavelength lies between
+    ``beta_fast`` and ``beta_slow`` turns over the original context,
+    ``floor`` / ``ceil`` of ``D ln(L / (beta 2 pi)) / (2 ln theta)``,
+    clamped to the slots."""
+    def slot(turns):
+        return head_dim * math.log(y.original_max / (turns * 2 * math.pi)) \
+            / (2 * math.log(theta))
+
+    return (max(math.floor(slot(y.beta_fast)), 0),
+            min(math.ceil(slot(y.beta_slow)), head_dim - 1))
+
+
+def rope_freqs(head_dim: int, theta: float, *, device=None,
+               yarn: YaRN | None = None) -> torch.Tensor:
+    """The D/2 inverse frequencies ``theta ** (-2i / D)``; with ``yarn``,
+    YaRN's blend ``f / factor * (1 - m) + f * m``, where ``m`` falls from
+    1 to 0 linearly over the slots `yarn_ramp` names (interpolated below
+    it, extrapolated above)."""
     device = resolve(device)
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                         device=device), exps)
+    if yarn is None:
+        return freqs
+    low, high = yarn_ramp(head_dim, theta, yarn)
+    span = high - low if high > low else 0.001
+    ramp = torch.clamp((torch.arange(head_dim // 2, dtype=torch.float32,
+                                     device=device) - low) / span, 0, 1)
+    extra = 1.0 - ramp
+    return freqs / yarn.factor * (1 - extra) + freqs * extra
 
 
-def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
+                yarn: YaRN | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(cos, sin) of shape (B, S, D/2), built once per step
-    (`ArchConfig.precompute_rope`)."""
-    freqs = rope_freqs(head_dim, theta, device=positions.device)
+    (`ArchConfig.precompute_rope`); YaRN scales both by ``mscale(factor,
+    mscale) / mscale(factor, mscale_all_dim)`` (1 for deepseek-v3)."""
+    freqs = rope_freqs(head_dim, theta, device=positions.device, yarn=yarn)
     angles = positions[..., None].to(torch.float32) * freqs
-    return torch.cos(angles), torch.sin(angles)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    if yarn is not None:
+        m = (yarn_mscale(yarn.factor, yarn.mscale)
+             / yarn_mscale(yarn.factor, yarn.mscale_all_dim))
+        cos, sin = cos * m, sin * m
+    return cos, sin
 
 
 def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
@@ -133,11 +187,11 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 10000.0,
-               tables: tuple[torch.Tensor, torch.Tensor] | None = None
-               ) -> torch.Tensor:
+               tables: tuple[torch.Tensor, torch.Tensor] | None = None,
+               yarn: YaRN | None = None) -> torch.Tensor:
     """x: (B, S, H, D); positions: (B, S) integers."""
     if tables is None:
-        tables = rope_tables(positions, x.shape[-1], theta)
+        tables = rope_tables(positions, x.shape[-1], theta, yarn)
     return _rotate(x, tables[0][:, :, None, :], tables[1][:, :, None, :])
 
 
@@ -186,8 +240,8 @@ def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, q_chunk: int = 512,
-                      window: int | None = None, q_offset=0
-                      ) -> torch.Tensor:
+                      window: int | None = None, q_offset=0,
+                      scale: float | None = None) -> torch.Tensor:
     """Flash-style attention with O(S_q / chunk) temporaries (plain torch).
 
     q: (B, Sq, H, D); k, v: (B, Sk, KV, D) with H = KV * G; kv heads are
@@ -196,14 +250,15 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     operands' own values (as the JAX package's ``preferred_element_type``);
     the probabilities are cast to v's dtype first and the output is in v's
     dtype. `window` adds sliding-window masking; `q_offset` positions q
-    within the kv stream. Fully masked rows give zeros, not NaN. One device:
+    within the kv stream; ``scale`` multiplies the scores (``D ** -0.5``
+    unless given). Fully masked rows give zeros, not NaN. One device:
     the JAX package's mesh constraint has no counterpart here.
     """
     b, sq, h, d = q.shape
     _, sk, kv, _ = k.shape
     dv = v.shape[-1]  # may differ from d (MLA: qk-dim 192, v-dim 128)
     g = h // kv
-    scale = d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
     if g > 1:
         k = torch.repeat_interleave(k, g, dim=2)
         v = torch.repeat_interleave(v, g, dim=2)
@@ -304,17 +359,44 @@ def true_f32():
 # ---------------------------------------------------------------------------
 
 class MoE(nn.Module):
-    """``router.w`` (d, E) in f32; ``gate`` / ``up`` (E, d, f) and ``down``
-    (E, f, d) in the model's dtype; an optional ``shared`` `MLP`."""
+    """``router.w`` (d, E) in f32 over all E experts; ``gate`` / ``up``
+    (n, d, f) and ``down`` (n, f, d) in the model's dtype for the n
+    experts this layer holds (all E, or one chip's share under expert
+    parallelism: `moe`'s ``expert_offset`` names the first); an optional
+    ``shared`` `MLP`; an optional ``bias`` (E,) f32, the score-correction
+    bias of the group-limited router (``router_type="sigmoid_group"``)."""
 
     def __init__(self, router: Linear, gate: torch.Tensor, up: torch.Tensor,
-                 down: torch.Tensor, shared: MLP | None = None):
+                 down: torch.Tensor, shared: MLP | None = None,
+                 bias: torch.Tensor | None = None):
         super().__init__()
         self.router = router
         self.gate = nn.Parameter(gate, requires_grad=False)
         self.up = nn.Parameter(up, requires_grad=False)
         self.down = nn.Parameter(down, requires_grad=False)
         self.shared = shared
+        self.bias = None if bias is None else nn.Parameter(
+            bias, requires_grad=False)
+
+
+@dataclasses.dataclass
+class MoECounts:
+    """What a caller's MoE layers routed to the experts they hold, read
+    from the expert counts that dispatch copies to the host: rows computed
+    and slots dropped past the capacity, summed over calls, and each
+    call's rows an expert held (``calls``, one list a call)."""
+
+    held_rows: int = 0
+    dropped_slots: int = 0
+    calls: list = dataclasses.field(default_factory=list)
+
+    def add(self, counts: list, cap: int, lo: int, hi: int) -> None:
+        """One call's ``counts`` (slots an expert, all E) at capacity
+        ``cap``, of which experts ``[lo, hi)`` are held."""
+        rows = [min(n, cap) for n in counts[lo:hi]]
+        self.calls.append(rows)
+        self.held_rows += sum(rows)
+        self.dropped_slots += sum(counts[lo:hi]) - sum(rows)
 
 
 def _normal_stack(n: int, shape, scale: float, dtype,
@@ -332,18 +414,25 @@ def _normal_stack(n: int, shape, scale: float, dtype,
 
 def moe_init(generator: torch.Generator, d: int, d_ff_expert: int,
              n_experts: int, n_shared: int, d_ff_shared: int,
-             dtype=torch.bfloat16) -> MoE:
+             dtype=torch.bfloat16, *, n_held: int | None = None,
+             bias: bool = False) -> MoE:
+    """A router over ``n_experts`` and the stacks of the ``n_held`` experts
+    this layer holds (all unless given); ``bias``: a zero score-correction
+    bias."""
     scale_in, scale_out = d ** -0.5, d_ff_expert ** -0.5
+    n_held = n_experts if n_held is None else n_held
     router = Linear(_normal((d, n_experts), generator) * scale_in)  # f32
-    gate = _normal_stack(n_experts, (d, d_ff_expert), scale_in, dtype,
+    gate = _normal_stack(n_held, (d, d_ff_expert), scale_in, dtype,
                          generator)
-    up = _normal_stack(n_experts, (d, d_ff_expert), scale_in, dtype,
+    up = _normal_stack(n_held, (d, d_ff_expert), scale_in, dtype,
                        generator)
-    down = _normal_stack(n_experts, (d_ff_expert, d), scale_out, dtype,
+    down = _normal_stack(n_held, (d_ff_expert, d), scale_out, dtype,
                          generator)
     shared = mlp_init(generator, d, d_ff_shared * n_shared, dtype=dtype) \
         if n_shared > 0 else None
-    return MoE(router, gate, up, down, shared)
+    b = torch.zeros((n_experts,), dtype=torch.float32,
+                    device=generator.device) if bias else None
+    return MoE(router, gate, up, down, shared, b)
 
 
 def _softmax(x: torch.Tensor) -> torch.Tensor:
@@ -353,31 +442,63 @@ def _softmax(x: torch.Tensor) -> torch.Tensor:
 
 
 @true_f32()
-def route(p: MoE, xf: torch.Tensor, top_k: int, router_type: str):
+def route(p: MoE, xf: torch.Tensor, top_k: int, router_type: str, *,
+          n_group: int = 1, topk_group: int = 1, scale: float = 1.0):
     """Router of (T, d) tokens -> (logits (T, E) f32, scores (T, E), the
     renormalised top-k weights (T, K), expert ids (T, K) int64).
 
     The product is taken in true f32 on ``xf`` cast to f32; the top k come
     from a stable descending sort, so a tie goes to the lower expert id as
-    in ``lax.top_k`` (`torch.topk` leaves the order of ties unspecified)."""
+    in ``lax.top_k`` (`torch.topk` leaves the order of ties unspecified).
+    ``"sigmoid_group"`` is deepseek-v3's (``noaux_tc``): the experts are
+    chosen on the sigmoid scores plus ``p.bias`` within the ``topk_group``
+    of ``n_group`` groups whose two best biased scores sum highest
+    (`group_limited_top_k`), and weighted by their unbiased scores. The
+    weights are renormalised, then times ``scale``."""
     logits = xf.to(torch.float32) @ p.router.w
     if router_type == "softmax":
         scores = _softmax(logits)
-    elif router_type == "sigmoid":  # deepseek-v3 style
+    elif router_type in ("sigmoid", "sigmoid_group"):  # deepseek-v3 style
         scores = 1 / (1 + torch.exp(-logits))
     else:
         raise ValueError(router_type)
-    w, ids = torch.sort(scores, dim=-1, descending=True, stable=True)
-    w, ids = w[:, :top_k], ids[:, :top_k]
+    if router_type == "sigmoid_group":
+        choice = scores if p.bias is None else scores + p.bias
+        ids = group_limited_top_k(choice, top_k, n_group, topk_group)
+        w = scores.gather(1, ids)
+    else:
+        w, ids = torch.sort(scores, dim=-1, descending=True, stable=True)
+        w, ids = w[:, :top_k], ids[:, :top_k]
     w = w / torch.clamp_min(w.sum(dim=-1, keepdim=True), 1e-9)
-    return logits, scores, w, ids
+    return logits, scores, w * scale, ids
+
+
+def group_limited_top_k(choice: torch.Tensor, top_k: int, n_group: int,
+                        topk_group: int) -> torch.Tensor:
+    """(T, K) ids of the top k of ``choice`` (T, E) among the experts of
+    the ``topk_group`` groups (of ``n_group`` equal, contiguous groups)
+    whose two highest values sum highest; ties to the lower group and the
+    lower id (stable sorts), the rest of the experts set to -inf."""
+    t, e = choice.shape
+    grouped = choice.reshape(t, n_group, e // n_group)
+    best2 = torch.sort(grouped, dim=-1, descending=True,
+                       stable=True).values[..., :2]
+    group_score = best2[..., 0] + best2[..., 1]
+    kept = torch.sort(group_score, dim=-1, descending=True,
+                      stable=True).indices[:, :topk_group]
+    mask = torch.zeros((t, n_group), dtype=torch.bool, device=choice.device)
+    mask.scatter_(1, kept, True)
+    masked = torch.where(mask.repeat_interleave(e // n_group, dim=1),
+                         choice, float("-inf"))
+    return torch.sort(masked, dim=-1, descending=True,
+                      stable=True).indices[:, :top_k]
 
 
 def capacity(t: int, top_k: int, n_experts: int,
-             capacity_factor: float) -> int:
-    """Slots per expert: ``t`` up to 4096 tokens (no slot can drop), else
-    the capacity-factor rule."""
-    if t <= 4096:
+             capacity_factor: float, dropless: bool = False) -> int:
+    """Slots per expert: ``t`` (no slot can drop) when ``dropless`` or up
+    to 4096 tokens, else the capacity-factor rule."""
+    if dropless or t <= 4096:
         return t
     return max(int(-(-t * top_k // n_experts) * capacity_factor), top_k)
 
@@ -403,11 +524,12 @@ def dispatch(ids: torch.Tensor, n_experts: int, cap: int, offset=None):
 
 
 def _experts(gate, up, down, xf, w, ids, slots, cap: int, lo: int = 0,
-             offset=None) -> torch.Tensor:
+             offset=None, host_counts: list | None = None) -> torch.Tensor:
     """The weighted outputs of experts ``[lo, lo + len(gate))`` for (T, d)
     tokens -> (T, d) in xf's dtype; ``gate`` / ``up`` / ``down`` hold those
     experts alone, ``slots`` is `dispatch` of ``ids`` at ``cap`` (and
-    ``offset``).
+    ``offset``), ``host_counts`` its expert counts already on the host
+    (read here otherwise).
 
     Only experts that received a kept slot are computed, one product per
     occupied segment: each row of the JAX zero-padded (E, C, d) buffer goes
@@ -425,7 +547,8 @@ def _experts(gate, up, down, xf, w, ids, slots, cap: int, lo: int = 0,
         _modelled_experts(gate, up, down, xf, out, cap, len(counts))
     else:
         _routed_experts(gate, up, down, xf, token_of_slot, out, cap, lo,
-                        counts, offset)
+                        counts.tolist() if host_counts is None
+                        else host_counts, offset)
     flat_w = w.reshape(-1)[sort_idx].to(xf.dtype)
     contrib = torch.where(keep[:, None], out * flat_w[:, None], 0)
     # back to (token, k) order, each token's slots by ascending expert id
@@ -441,10 +564,11 @@ def _experts(gate, up, down, xf, w, ids, slots, cap: int, lo: int = 0,
 
 
 def _routed_experts(gate, up, down, xf, token_of_slot, out, cap: int,
-                    lo: int, counts, offset) -> None:
+                    lo: int, counts: list, offset) -> None:
     """`_experts`' products as routed: each occupied segment of experts
     ``[lo, lo + len(gate))`` through its expert, written into its rows of
-    ``out`` (reads the expert counts, so never on the meta device)."""
+    ``out`` (``counts``: the expert counts on the host, so never on the
+    meta device)."""
     hi = lo + gate.shape[0]
     before = [0] * len(counts) if offset is None else offset.tolist()
     # views of the experts: under grad one backward for the whole stack (a
@@ -452,7 +576,7 @@ def _routed_experts(gate, up, down, xf, token_of_slot, out, cap: int,
     # zero-filled copy of the stack
     gate, up, down = gate.unbind(0), up.unbind(0), down.unbind(0)
     start = 0
-    for ex, n in enumerate(counts.tolist()):
+    for ex, n in enumerate(counts):
         kept = min(n, max(cap - before[ex], 0))
         if kept and lo <= ex < hi:
             rows = xf[token_of_slot[start:start + kept]]
@@ -515,38 +639,59 @@ def _global_drops(p: MoE, t: int):
 
 @true_f32()
 def moe(p: MoE, x: torch.Tensor, *, top_k: int, router_type: str = "softmax",
-        capacity_factor: float = 1.25, aux_coeff: float = 0.01
+        capacity_factor: float = 1.25, aux_coeff: float = 0.01,
+        n_group: int = 1, topk_group: int = 1, routed_scale: float = 1.0,
+        expert_offset: int = 0, dropless: bool = False,
+        counts: MoECounts | None = None
         ) -> tuple[torch.Tensor, torch.Tensor]:
     """MoE layer. x: (B, S, d) -> (y, aux_loss), the JAX semantics.
 
-    Slots are sorted by expert id and the first ``cap`` of each expert's
-    segment are kept (`capacity`), then go through their experts
-    (`_experts`: a decode step reads only the experts its tokens chose).
-    ``aux`` uses softmax probabilities for either router. Inside a mesh
-    step the capacity and its drops are the global batch's, as JAX's
-    global function keeps them."""
+    Slots are sorted by expert id over all the router's experts and the
+    first ``cap`` of each expert's segment are kept (`capacity`; every one
+    when ``dropless``), then go through their experts (`_experts`: a
+    decode step reads only the experts its tokens chose). A layer holding
+    one chip's share of the experts (``p.gate`` shorter than the router,
+    the first ``expert_offset``) computes and adds only those: what the
+    others would add is left out, as expert parallelism leaves it to
+    their chips. ``aux`` uses softmax probabilities for either router.
+    Inside a mesh step the capacity and its drops are the global batch's,
+    as JAX's global function keeps them. ``n_group``, ``topk_group`` and
+    ``routed_scale`` configure the ``"sigmoid_group"`` router (`route`).
+    ``counts`` gains this call's held rows and drops (`MoECounts`)."""
     b, s, d = x.shape
-    e = p.gate.shape[0]
+    e = p.router.w.shape[1]
     t = b * s
     xf = x.reshape(t, d)
-    logits, scores, w, ids = route(p, xf, top_k, router_type)
+    group = {} if router_type != "sigmoid_group" else dict(
+        n_group=n_group, topk_group=topk_group, scale=routed_scale)
+    with obs.span("repro_torch.lm.moe.route"):
+        logits, scores, w, ids = route(p, xf, top_k, router_type, **group)
     t_all, offset = _global_drops(p, t)
-    cap = capacity(t_all, top_k, e, capacity_factor)
-    slots = dispatch(ids, e, cap, offset)
-    aux = _aux(p, logits, scores, slots[4], router_type, aux_coeff)
-    y = _experts(p.gate, p.up, p.down, xf, w, ids, slots, cap,
-                 offset=offset)
-    if p.shared is not None:
-        y = y + mlp(p.shared, xf)
+    cap = capacity(t_all, top_k, e, capacity_factor, dropless)
+    with obs.span("repro_torch.lm.moe.dispatch"):
+        slots = dispatch(ids, e, cap, offset)
+        aux = _aux(p, logits, scores, slots[4], router_type, aux_coeff)
+        host = None if xf.device.type == "meta" else slots[4].tolist()
+    if counts is not None and offset is None and host is not None:
+        counts.add(host, cap, expert_offset, expert_offset + p.gate.shape[0])
+    with obs.span("repro_torch.lm.moe.experts"):
+        y = _experts(p.gate, p.up, p.down, xf, w, ids, slots, cap,
+                     lo=expert_offset, offset=offset, host_counts=host)
+        if p.shared is not None:
+            y = y + mlp(p.shared, xf)
     return y.reshape(b, s, d), aux
 
 
 @true_f32()
 def moe_shardmap(p: MoE, x: torch.Tensor, *, top_k: int,
                  router_type: str = "softmax", capacity_factor: float = 1.25,
-                 aux_coeff: float = 0.01
+                 aux_coeff: float = 0.01, n_group: int = 1,
+                 topk_group: int = 1, routed_scale: float = 1.0,
+                 expert_offset: int = 0, dropless: bool = False,
+                 counts: MoECounts | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Expert-parallel MoE, the JAX package's ``shard_map`` form.
+    """Expert-parallel MoE, the JAX package's ``shard_map`` form, with
+    `moe`'s router options.
 
     With no mesh installed it is `moe`. Under one, each (dp, model) rank
     routes its dp-local tokens (activations are replicated over "model",
@@ -558,18 +703,30 @@ def moe_shardmap(p: MoE, x: torch.Tensor, *, top_k: int,
 
     Inside a mesh step the tokens here are one data coordinate's block;
     called on a whole batch under an installed mesh, they are cut into
-    the dp blocks here."""
+    the dp blocks here. A layer that holds one chip's share of the experts
+    has no share left to cut over "model": under a mesh it raises, as do
+    ``counts``, which a mesh's cut rows would not fill as `moe` does."""
     from repro_torch.distributed import context, sharding
 
     ax, mesh = context.get(), context.get_mesh()
     if ax is None or mesh is None:
         return moe(p, x, top_k=top_k, router_type=router_type,
-                   capacity_factor=capacity_factor, aux_coeff=aux_coeff)
+                   capacity_factor=capacity_factor, aux_coeff=aux_coeff,
+                   n_group=n_group, topk_group=topk_group,
+                   routed_scale=routed_scale, expert_offset=expert_offset,
+                   dropless=dropless, counts=counts)
     b, s, d = x.shape
-    e = p.gate.shape[0]
+    e = p.router.w.shape[1]
+    if p.gate.shape[0] != e or counts is not None:
+        raise ValueError("moe_shardmap under a mesh cuts all the router's "
+                         f"{e} experts over 'model': a layer holding "
+                         f"{p.gate.shape[0]} of them, or MoE counters, "
+                         "need `moe`")
     t = b * s
     xf = x.reshape(t, d)
-    logits, scores, w, ids = route(p, xf, top_k, router_type)
+    group = {} if router_type != "sigmoid_group" else dict(
+        n_group=n_group, topk_group=topk_group, scale=routed_scale)
+    logits, scores, w, ids = route(p, xf, top_k, router_type, **group)
     aux = _aux(p, logits, scores, dispatch(ids, e, t)[4], router_type,
                aux_coeff)
     ranks = mesh.ranks(ax.dp, ax.model)
@@ -586,7 +743,7 @@ def moe_shardmap(p: MoE, x: torch.Tensor, *, top_k: int,
                              "data-parallel blocks")
         blocks = [(i, slice(i * t_loc, (i + 1) * t_loc))
                   for i in range(dp_size)]
-    cap = capacity(t_loc, top_k, e, capacity_factor)
+    cap = capacity(t_loc, top_k, e, capacity_factor, dropless)
     parts = []
     for i, rows in blocks:
         home = xf.device

@@ -3,7 +3,9 @@ served and trained.
 
 One config dataclass and one model covering dense GQA transformers (llama /
 qwen, optional QKV bias and qk-norm), MoE (phi3.5 softmax top-2; deepseek-v3
-sigmoid top-8 with a shared expert and MLA), VLM backbones (M-RoPE,
+sigmoid top-8 with a shared expert and MLA, and as published: its leading
+dense layers, group-limited router with a score-correction bias, YaRN, and
+one chip's share of the experts), VLM backbones (M-RoPE,
 embeddings as input), hybrid attention + SSM heads (hymba), encoder-only
 backbones (hubert) and the pure SSM (mamba2's SSD).
 ``head_pad_multiple > 0`` pads the attention heads to a multiple of the
@@ -21,6 +23,7 @@ pytree (layers stacked on axis 0) maps onto it name by name
 Entry points (the JAX package's names):
     init_params(key, cfg, device=None)        -> LM
     forward(params, cfg, tokens/embeds)       -> (logits, aux)
+    features(params, cfg, tokens)             -> (B, d) pooled final-norm
     loss_fn(params, cfg, batch)               -> scalar loss
     prefill(params, cfg, inputs, max_len=...) -> (last logits, Cache)
     decode_step(params, cfg, tokens, cache)   -> (logits (B, 1, V), Cache)
@@ -52,6 +55,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.device import resolve
 from repro_torch.distributed import context as mesh_ctx
 from repro_torch.models import layers as L
@@ -83,8 +87,20 @@ class ArchConfig:
     top_k: int = 0
     n_shared_experts: int = 0
     d_ff_expert: int = 0
-    router_type: str = "softmax"
+    router_type: str = "softmax"  # softmax | sigmoid | sigmoid_group
     capacity_factor: float = 1.25
+    # deepseek-v3 as published (every default leaves a model as it was)
+    first_k_dense: int = 0  # leading layers with a dense MLP of d_ff
+    n_group: int = 1  # sigmoid_group: expert groups, and the groups kept
+    topk_group: int = 1
+    router_bias: bool = False  # sigmoid_group: a score-correction bias
+    routed_scaling_factor: float = 1.0
+    #: the experts this chip holds of each MoE layer (0: all n_experts),
+    #: from ``expert_offset``; the router still spans all of them
+    experts_held: int = 0
+    expert_offset: int = 0
+    dropless: bool = False  # no routed slot dropped at any token count
+    yarn: L.YaRN | None = None  # rope scaling of the (MLA rope) dims
     # MLA (deepseek)
     mla: bool = False
     q_lora_rank: int = 1536
@@ -114,6 +130,25 @@ class ArchConfig:
         return not self.ssm
 
     @property
+    def n_held(self) -> int:
+        """Experts drawn and computed per MoE layer."""
+        return self.experts_held or self.n_experts
+
+    @property
+    def n_moe_layers(self) -> int:
+        return self.n_layers - self.first_k_dense if self.n_experts else 0
+
+    @property
+    def softmax_scale(self) -> float:
+        """MLA's score scale: ``(nope + rope) ** -0.5``, times YaRN's
+        ``mscale(factor, mscale_all_dim) ** 2``."""
+        scale = (self.qk_nope_dim + self.qk_rope_dim) ** -0.5
+        if self.yarn is not None:
+            m = L.yarn_mscale(self.yarn.factor, self.yarn.mscale_all_dim)
+            scale = scale * m * m
+        return scale
+
+    @property
     def ssm_spec(self) -> L.SSMSpec:
         d_inner = self.ssm_expand * self.d_model if self.ssm else self.d_model
         return L.SSMSpec(
@@ -125,7 +160,9 @@ class ArchConfig:
         )
 
     def param_count(self) -> int:
-        """Analytic parameter count (for MODEL_FLOPS and reporting)."""
+        """Analytic parameter count (for MODEL_FLOPS and reporting): the
+        experts held here, the router and its bias over all of them, the
+        leading dense layers' MLPs; norms not counted."""
         d, hd = self.d_model, self.head_dim
         n = 0
         if self.input_mode == "tokens":
@@ -152,24 +189,30 @@ class ArchConfig:
                 per += d * (2 * spec.d_inner + 2 * spec.d_state
                             + spec.n_heads)
                 per += spec.d_inner * d
-        if self.n_experts > 0:
-            per += d * self.n_experts  # router
-            per += self.n_experts * 3 * d * self.d_ff_expert
-            per += self.n_shared_experts * 3 * d * self.d_ff_expert
-        elif self.d_ff > 0:
-            per += 3 * d * self.d_ff
-        return n + self.n_layers * per
+        if self.n_experts == 0:
+            if self.d_ff > 0:
+                per += 3 * d * self.d_ff
+            return n + self.n_layers * per
+        moe = d * self.n_experts  # router
+        moe += self.n_experts if self.router_bias else 0
+        moe += self.n_held * 3 * d * self.d_ff_expert
+        moe += self.n_shared_experts * 3 * d * self.d_ff_expert
+        return (n + self.n_layers * per + self.n_moe_layers * moe
+                + self.first_k_dense * 3 * d * self.d_ff)
 
     def active_param_count(self) -> int:
-        """Activated params per token (MoE top-k), for 6*N_active*D."""
+        """Activated params per token (MoE top-k), for 6*N_active*D: the
+        held experts a token does not reach taken off. A config without
+        leading dense layers, as the JAX package has them all, keeps its
+        count, which takes the shared experts off as well (the registry
+        holds the two packages' counts equal)."""
         if self.n_experts == 0:
             return self.param_count()
-        d = self.d_model
-        per_moe_total = self.n_experts * 3 * d * self.d_ff_expert
-        per_moe_active = (self.top_k + self.n_shared_experts) * 3 * d \
-            * self.d_ff_expert
-        return self.param_count() - self.n_layers * (per_moe_total
-                                                     - per_moe_active)
+        idle = self.n_held - min(self.top_k, self.n_held)
+        if not self.first_k_dense:
+            idle -= self.n_shared_experts
+        return self.param_count() - self.n_moe_layers * idle * 3 \
+            * self.d_model * self.d_ff_expert
 
 
 # ---------------------------------------------------------------------------
@@ -356,7 +399,9 @@ def _init_mla(g: torch.Generator, cfg: ArchConfig) -> MLA:
         L.linear_init(g, cfg.n_heads * cfg.v_head_dim, d, dtype=dt))
 
 
-def _init_layer(g: torch.Generator, cfg: ArchConfig) -> Layer:
+def _init_layer(g: torch.Generator, cfg: ArchConfig, index: int) -> Layer:
+    """Layer ``index``: an MoE layer past the ``first_k_dense`` leading
+    dense ones when the config has experts."""
     d, dev = cfg.d_model, g.device
     ln1 = L.rmsnorm_init(d, device=dev)
     if cfg.ssm:  # mamba2: a pure SSM stack, no separate MLP
@@ -369,10 +414,11 @@ def _init_layer(g: torch.Generator, cfg: ArchConfig) -> Layer:
                       attn_out_norm=L.rmsnorm_init(d, device=dev),
                       ssm_out_norm=L.rmsnorm_init(d, device=dev))
     ln2 = L.rmsnorm_init(d, device=dev)
-    if cfg.n_experts > 0:
+    if cfg.n_experts > 0 and index >= cfg.first_k_dense:
         return Layer(ln1, attn, ln2, None, **hybrid, moe=L.moe_init(
             g, d, cfg.d_ff_expert, cfg.n_experts, cfg.n_shared_experts,
-            cfg.d_ff_expert, dtype=cfg.dtype))
+            cfg.d_ff_expert, dtype=cfg.dtype, n_held=cfg.n_held,
+            bias=cfg.router_bias))
     return Layer(ln1, attn, ln2, L.mlp_init(g, d, cfg.d_ff, dtype=cfg.dtype),
                  **hybrid)
 
@@ -395,7 +441,7 @@ def init_params(key: int | torch.Generator, cfg: ArchConfig, *,
     if cfg.input_mode == "tokens":
         embed = (L._normal((cfg.vocab, cfg.d_model), g) * 0.02).to(cfg.dtype)
     unembed = L.linear_init(g, cfg.d_model, cfg.vocab, dtype=cfg.dtype)
-    layers = [_init_layer(g, cfg) for _ in range(cfg.n_layers)]
+    layers = [_init_layer(g, cfg, i) for i in range(cfg.n_layers)]
     return LM(embed, unembed, L.rmsnorm_init(cfg.d_model, device=g.device),
               layers).eval()
 
@@ -410,7 +456,8 @@ def _rope(cfg: ArchConfig, x, positions, tables=None):
     if cfg.rope == "mrope":
         return L.apply_mrope(x, positions, cfg.rope_theta,
                              cfg.mrope_sections)
-    return L.apply_rope(x, positions, cfg.rope_theta, tables=tables)
+    return L.apply_rope(x, positions, cfg.rope_theta, tables=tables,
+                        yarn=cfg.yarn)
 
 
 def _rope_tables(cfg: ArchConfig, positions):
@@ -418,7 +465,7 @@ def _rope_tables(cfg: ArchConfig, positions):
     if not cfg.precompute_rope or cfg.rope != "standard":
         return None
     d = cfg.qk_rope_dim if cfg.mla else cfg.head_dim
-    return L.rope_tables(positions, d, cfg.rope_theta)
+    return L.rope_tables(positions, d, cfg.rope_theta, cfg.yarn)
 
 
 def _attn_qkv(p: Attention, cfg: ArchConfig, h, positions, tables=None):
@@ -467,7 +514,7 @@ def _mla_train_attention(p: MLA, cfg: ArchConfig, h, positions, tables=None):
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         b, s, cfg.n_heads, cfg.qk_rope_dim)], dim=-1)
     out = L.chunked_attention(q, k, v, causal=cfg.causal,
-                              q_chunk=cfg.q_chunk)
+                              q_chunk=cfg.q_chunk, scale=cfg.softmax_scale)
     return L.linear(p.o, out.reshape(b, s, -1)), c_kv, k_rope
 
 
@@ -489,7 +536,7 @@ def _mla_decode(p: MLA, cfg: ArchConfig, x, positions, c_kv, k_rope,
                            cfg.qk_nope_dim + cfg.v_head_dim)
     w_uk, w_uv = wkv[:, :, :cfg.qk_nope_dim], wkv[:, :, cfg.qk_nope_dim:]
     q_eff = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].to(f32), w_uk.to(f32))
-    scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    scale = cfg.softmax_scale
     ckv = c_kv.to(f32)
     s1 = torch.einsum("bhr,bsr->bhs", q_eff, ckv)
     s2 = torch.einsum("bhd,bsd->bhs", q_rope[:, 0].to(f32), k_rope.to(f32))
@@ -507,22 +554,29 @@ def _hybrid(p: Layer, att, ssm_y):
                   + L.rmsnorm(p.ssm_out_norm, ssm_y))
 
 
-def _ffn(p: Layer, cfg: ArchConfig, h, *, decode: bool = False):
+def _ffn(p: Layer, cfg: ArchConfig, h, *, decode: bool = False,
+         counts: L.MoECounts | None = None):
     """``h`` plus the layer's MLP or MoE on ``ln2(h)`` -> (h, aux). The
     expert-parallel `layers.moe_shardmap` where ``cfg.moe_impl`` asks for
-    it, except in a decode step (as in the JAX package)."""
+    it, except in a decode step (as in the JAX package); ``counts`` gains
+    the MoE's held rows and drops."""
     x = L.rmsnorm(p.ln2, h)
     if p.moe is not None:
-        moe_fn = L.moe_shardmap if (cfg.moe_impl == "shard_map"
-                                    and not decode) else L.moe
-        y, aux = moe_fn(p.moe, x, top_k=cfg.top_k,
-                        router_type=cfg.router_type,
-                        capacity_factor=cfg.capacity_factor)
+        fn = L.moe_shardmap if cfg.moe_impl == "shard_map" and not decode \
+            else L.moe
+        y, aux = fn(p.moe, x, top_k=cfg.top_k, router_type=cfg.router_type,
+                    capacity_factor=cfg.capacity_factor, n_group=cfg.n_group,
+                    topk_group=cfg.topk_group,
+                    routed_scale=cfg.routed_scaling_factor,
+                    expert_offset=cfg.expert_offset, dropless=cfg.dropless,
+                    counts=counts)
         return h + y, aux
-    return h + L.mlp(p.mlp, x), None
+    with obs.span("repro_torch.lm.mlp"):
+        return h + L.mlp(p.mlp, x), None
 
 
-def _layer_full(p: Layer, cfg: ArchConfig, h, positions, tables):
+def _layer_full(p: Layer, cfg: ArchConfig, h, positions, tables,
+                counts: L.MoECounts | None = None):
     """One layer over a whole sequence -> (h, aux or None, the layer's
     cache tensors: k / v, c_kv / k_rope, conv / ssm)."""
     p = mesh_ctx.constrain_layer(p)  # ZeRO-3 gather-at-use
@@ -531,21 +585,22 @@ def _layer_full(p: Layer, cfg: ArchConfig, h, positions, tables):
     if cfg.ssm:
         y, new = L.ssd_block(p.ssd, x, cfg.ssm_spec)
         return h + y, None, new
-    if cfg.mla:
-        att, new["c_kv"], new["k_rope"] = _mla_train_attention(
-            p.attn, cfg, x, positions, tables)
-    else:
-        q, k, v = _attn_qkv(p.attn, cfg, x, positions, tables)
-        out = L.chunked_attention(q, k, v, causal=cfg.causal,
-                                  q_chunk=cfg.q_chunk,
-                                  window=cfg.sliding_window)
-        att = L.linear(p.attn.o, out.reshape(*x.shape[:2], -1))
-        new["k"], new["v"] = k, v
+    with obs.span("repro_torch.lm.attn"):
+        if cfg.mla:
+            att, new["c_kv"], new["k_rope"] = _mla_train_attention(
+                p.attn, cfg, x, positions, tables)
+        else:
+            q, k, v = _attn_qkv(p.attn, cfg, x, positions, tables)
+            out = L.chunked_attention(q, k, v, causal=cfg.causal,
+                                      q_chunk=cfg.q_chunk,
+                                      window=cfg.sliding_window)
+            att = L.linear(p.attn.o, out.reshape(*x.shape[:2], -1))
+            new["k"], new["v"] = k, v
     if cfg.hybrid:
         ssm_y, st = L.ssd_block(p.ssd, x, cfg.ssm_spec)
         new.update(st)
         att = _hybrid(p, att, ssm_y)
-    h, aux = _ffn(p, cfg, h + att)
+    h, aux = _ffn(p, cfg, h + att, counts=counts)
     return h, aux, new
 
 
@@ -614,6 +669,29 @@ def forward(params: LM, cfg: ArchConfig, inputs, positions=None
             aux = aux + a
     logits = L.linear(head.unembed, L.rmsnorm(head.final_norm, h))
     return logits, aux
+
+
+@torch.no_grad()
+@L.true_f32()
+def features(params: LM, cfg: ArchConfig, inputs, positions=None, *,
+             counts: L.MoECounts | None = None) -> torch.Tensor:
+    """Sequence features for a classifier head: ``final_norm`` of the last
+    hidden state, averaged over the positions in f32 -> (B, d) f32. The
+    unembedding is never read. ``counts`` gains every MoE layer's held
+    rows and drops (`layers.MoECounts`)."""
+    with obs.span("repro_torch.lm.features"):
+        head = _head_params(params)
+        h = _embed_in(head, cfg, inputs)
+        b, s = h.shape[:2]
+        if positions is None:
+            positions = _default_positions(cfg, b, s, device=h.device)
+        else:
+            positions = torch.as_tensor(positions, device=h.device)
+        tables = _rope_tables(cfg, positions)
+        for layer in params.layers:
+            h, _, _ = _layer_full(layer, cfg, h, positions, tables, counts)
+        h = L.rmsnorm(head.final_norm, h)
+        return h.to(torch.float32).mean(dim=1)
 
 
 def sharded_ce(logits: torch.Tensor, labels) -> torch.Tensor:
