@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--report PATH]   # on a machine with a CUDA card
 
-Builds the CUDA kernels from `src/repro_torch/csrc/` (all five sources,
+Builds the CUDA kernels from `src/repro_torch/csrc/` (all six sources,
 one nvcc each, in parallel) and drives the port on one CUDA card, with no
 JAX:
 
@@ -85,7 +85,19 @@ JAX:
               pixel propagated; the four launches at 4,096 timed (CUDA
               events; device time traced) beside their bytes bound
               (`epi_bound`, 0.478 ms) and the plain tails on the same
-              convolution outputs.
+              convolution outputs. The MLA prefill kernel
+              (`mla_prefill.cu`, no `pallas_call` site: the JAX package's
+              MLA path runs plain `chunked_attention`) against its plain
+              version within 2^-6 (at unit scale, relative above it) in
+              bf16 at S 1, 127, 128, 129, 300, 1,000 and 4,096 on views of
+              q_b's and kv_b's outputs, and against `chunked_attention` on
+              the concatenated q and k; one launch a layer in
+              `lm.features` at DeepSeek-V3's head widths, none in
+              `lm.forward` under grad, each layer's attention against
+              `chunked_attention`'s; one layer of the LM cell
+              (4, 4,096, 128 heads) timed in turns with SDPA, traced,
+              beside its operations bound (`mla_bound`, 2.78 ms), the
+              plain version and the replaced path.
  2. paths     each main path driven through the entry points a user calls,
               with the launch counts set to 0 just before and read just
               after: `HybridClassifier.predict` (B1, and the fused
@@ -348,8 +360,9 @@ SIM_SRC = f"{CSRC}/acam_similarity.cu"
 KD_SRC = f"{CSRC}/kd_loss.cu"
 FA_SRC = f"{CSRC}/flash_attention.cu"
 EPI_SRC = f"{CSRC}/student_epilogue.cu"
+MLA_SRC = f"{CSRC}/mla_prefill.cu"
 SOURCES = ("acam_match", "acam_similarity", "kd_loss", "flash_attention",
-           "student_epilogue")
+           "student_epilogue", "mla_prefill")
 MATCH_TPU = "src/repro/kernels/acam_match/acam_match.py"
 SIM_TPU = "src/repro/kernels/acam_similarity/acam_similarity.py"
 KD_TPU = "src/repro/kernels/kd_loss/kd_loss.py"
@@ -1986,6 +1999,203 @@ def print_epilogue(row: dict) -> None:
           f"profile {json.dumps(row['profile'])}")
 
 
+# ---------------------------------------------------------------------------
+# 1e. MLA prefill attention (`mla_prefill.cu`; no pallas_call site: the JAX
+#     package's MLA path runs plain `chunked_attention`)
+# ---------------------------------------------------------------------------
+
+#: (B, S, H) of one layer's attention in the LM cell, at qk 128 + 64 and
+#: v 128 (`bench/workloads/deepseek-v3-ep32.doc-chunks-b4x4096.json`)
+MLA_SHAPE = (4, 4096, 128)
+#: the kernel against its plain version in bf16: p is rounded to bf16 at
+#: each tile's running max in one and at the row's in the other, and the
+#: output is rounded to bf16: B9's tolerance
+MLA_TOL = FA_TOL_BF16
+
+
+def mla_scale() -> float:
+    """DeepSeek-V3's softmax scale: 192 ** -0.5 times YaRN's mscale(40, 1)
+    squared (`lm.ArchConfig.softmax_scale`)."""
+    from repro_torch.models import layers as L
+
+    return 192 ** -0.5 * L.yarn_mscale(40.0, 1.0) ** 2
+
+
+def mla_case(seed: int, b: int, s: int, h: int, device) -> tuple:
+    """The kernel's operands as the model hands them over: views of q_b's
+    (B, S, H, 192) and kv_b's (B, S, H, 256) outputs, a contiguous rotated
+    q_rope and k_rope as a (B, S, 1, 64) slice; bf16 standard normal."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device=device).to(
+            torch.bfloat16)
+
+    q, kv = draw(b, s, h, 192), draw(b, s, h, 256)
+    return (q[..., :128], draw(b, s, h, 64), kv[..., :128],
+            draw(b, s, 1, 64)[:, :, 0], kv[..., 128:])
+
+
+def mla_bound(b: int, s: int, h: int):
+    """Least time on an H100 SXM: 2 (192 + 128) flops per live (query,
+    key) pair and head over the dense bf16 rate, against q, k and v read
+    once and the output written once over 3.35 TB/s. Returns (ms,
+    bound_by, flops, bytes)."""
+    pairs = s * (s + 1) // 2
+    flops = 2 * (192 + 128) * pairs * b * h
+    nbytes = 2 * (b * s * h * (192 + 256 + 128) + b * s * 64)
+    t_ops = flops / FLOPS_PER_S["torch.bfloat16"]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def mla_features_launches(device) -> dict:
+    """`lm.features` on DeepSeek-V3's published-smoke config at the
+    published head widths in bf16: one launch a layer, none in `lm.forward`
+    under grad; each layer's attention on one input against the same call
+    with the route closed (`chunked_attention`). The features are not
+    compared: the router after the attention turns a rounding into another
+    expert."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import deepseek_v3
+    from repro_torch.kernels.mla_prefill import mla_prefill as mp
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(deepseek_v3.PUBLISHED_SMOKE, qk_nope_dim=128,
+                              qk_rope_dim=64, v_head_dim=128)
+    params = lm.init_params(0, cfg, device=device)
+    x = torch.as_tensor(np.random.RandomState(3).randint(
+        0, cfg.vocab, (2, 300)), device=device)
+    mp.reset_launches()
+    check(bool(torch.isfinite(lm.features(params, cfg, x)).all()),
+          "mla_prefill: non-finite features")
+    launches = mp.LAUNCHES["mla_prefill"]
+    check(launches == cfg.n_layers, f"mla_prefill: {launches} launches in "
+          f"one features call of {cfg.n_layers} layers")
+    with torch.enable_grad():
+        lm.forward(params, cfg, x)
+    check(mp.LAUNCHES["mla_prefill"] == launches,
+          "mla_prefill: launched under grad")
+    g = torch.Generator(device=device).manual_seed(5)
+    h = torch.randn((2, 300, cfg.d_model), generator=g,
+                    device=device).to(cfg.dtype)
+    pos = lm._default_positions(cfg, 2, 300, device=device)
+    route, gap = lm._mla_prefill_kernel, 0.0
+    with torch.no_grad():
+        for layer in params.layers:
+            got = lm._mla_train_attention(layer.attn, cfg, h, pos)[0]
+            lm._mla_prefill_kernel = lambda *args: False
+            try:
+                want = lm._mla_train_attention(layer.attn, cfg, h, pos)[0]
+            finally:
+                lm._mla_prefill_kernel = route
+            gap = max(gap, float((got.float() - want.float()).norm()
+                                 / want.float().norm()))
+    check(gap <= MLA_TOL, f"mla_prefill: a layer's attention {gap} from "
+          "the chunked_attention path's")
+    return dict(layers=cfg.n_layers, launches=launches, attention_gap=gap)
+
+
+def mla_phase(device) -> dict:
+    """The MLA prefill kernel against its plain version in bf16 (`MLA_TOL`)
+    at S of 1, one either side of a 128-row tile, ragged and 4,096, heads 1
+    to 8, and at `MLA_SHAPE`, every output finite; against `chunked_attention` on the
+    concatenated q and k; one launch a layer in `lm.features`; then one
+    layer of the LM cell (`MLA_SHAPE`) timed in turns with SDPA on copies
+    of q, k and v laid out for it, traced, the plain version and the
+    replaced path (the concatenation and `chunked_attention`) timed beside
+    its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.mla_prefill import mla_prefill as mp
+    from repro_torch.models.layers import chunked_attention
+
+    scale = mla_scale()
+    err, cases = 0.0, 0
+    for seed, (b, s, h) in enumerate([(1, 1, 1), (1, 127, 2), (1, 128, 1),
+                                      (1, 129, 2), (3, 300, 5), (1, 1000, 4),
+                                      (2, 4096, 8)]):
+        ops = mla_case(700 + seed, b, s, h, device)
+        got = mp.mla_prefill(*ops, scale=scale)
+        err = max(err, fa_compare(f"mla_prefill {(b, s, h)}", got,
+                                  mp.mla_prefill_plain(*ops, scale=scale),
+                                  MLA_TOL))
+        cases += 1
+    qn, qr, kn, kr, v = mla_case(720, 1, 1000, 4, device)
+    q = torch.cat([qn, qr], dim=-1)
+    k = torch.cat([kn, kr[:, :, None].expand(-1, -1, 4, -1)], dim=-1)
+    fa_compare("mla_prefill vs chunked_attention (1, 1000, 4)",
+               mp.mla_prefill(qn, qr, kn, kr, v, scale=scale),
+               chunked_attention(q, k, v, causal=True, scale=scale), MLA_TOL)
+    features = mla_features_launches(device)
+
+    b, s, h = MLA_SHAPE
+    ops = mla_case(730, b, s, h, device)
+    qn, qr, kn, kr, v = ops
+
+    def kernel():
+        return mp.mla_prefill(*ops, scale=scale)
+
+    def replaced():  # the path before the kernel
+        q = torch.cat([qn, qr], dim=-1)
+        k = torch.cat([kn, kr[:, :, None].expand(b, s, h, 64)], dim=-1)
+        return chunked_attention(q, k, v, causal=True, scale=scale)
+
+    out = kernel()
+    check(bool(torch.isfinite(out).all()), "mla_prefill: non-finite output")
+    err = max(err, fa_compare(f"mla_prefill {MLA_SHAPE}", out,
+                              mp.mla_prefill_plain(*ops, scale=scale),
+                              MLA_TOL))
+    cases += 1
+    qh = torch.cat([qn, qr], dim=-1).permute(0, 2, 1, 3).contiguous()
+    kh = torch.cat([kn, kr[:, :, None].expand(b, s, h, 64)],
+                   dim=-1).permute(0, 2, 1, 3).contiguous()
+    vh = v.permute(0, 2, 1, 3).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                              scale=scale)
+
+    lib_diff = fa_compare(f"SDPA yardstick at {MLA_SHAPE}",
+                          sdpa().permute(0, 2, 1, 3), out, MLA_TOL)
+    ms, by, flops, nbytes = mla_bound(b, s, h)
+    row = dict(shape=dict(B=b, S=s, H=h, qk=192, v=128, causal=True,
+                          dtype="bfloat16"),
+               cases=cases, max_abs_err=err, features=features,
+               **interleaved(kernel, sdpa, iters=20),
+               library_call="torch.nn.functional.scaled_dot_product_attention"
+                            " on (B, H, S, D) copies, k_rope expanded",
+               library_max_abs_diff=lib_diff,
+               plain_ms=time_ms(lambda: mp.mla_prefill_plain(
+                   *ops, scale=scale), 3),
+               replaced_ms=time_ms(replaced, 3),
+               bound_ms=ms, bound_by=by, bound_flops=flops,
+               bound_bytes=nbytes, profile=profile(kernel, reps=10))
+    device_ms = row["profile"]["device_ms"]
+    row["roofline"] = ms / device_ms if device_ms else None
+    mp.reset_launches()
+    return row
+
+
+def print_mla(row: dict) -> None:
+    print(f"mla_prefill (not a pallas_call site): {row['cases']} cases "
+          f"within {MLA_TOL} (max |diff| {row['max_abs_err']:.3g}); "
+          f"features {json.dumps(row['features'])}; at {MLA_SHAPE}: "
+          f"{row['ms']:.4f} ms a call, device {row['profile']['device_ms']} "
+          f"ms against the {row['bound_by']} bound {row['bound_ms']:.4f} ms "
+          f"({row['roofline']}), SDPA {row['library_ms']:.4f} ms (device "
+          f"{row['library_device_ms']}), plain {row['plain_ms']:.1f} ms, "
+          f"the replaced path {row['replaced_ms']:.1f} ms, host "
+          f"{row['host_us']:.1f} us; profile {json.dumps(row['profile'])}")
+
+
 def class_images(rng, protos: np.ndarray, labels: np.ndarray,
                  noise: float) -> np.ndarray:
     return (protos[labels] + noise * rng.standard_normal(
@@ -1998,9 +2208,10 @@ def launch_modules() -> list:
     from repro_torch.kernels.acam_similarity import acam_similarity as asim
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.kd_loss import kd_loss as kd
+    from repro_torch.kernels.mla_prefill import mla_prefill as mp
     from repro_torch.kernels.student_epilogue import student_epilogue as epi
 
-    return [am, asim, kd, fa, epi]
+    return [am, asim, kd, fa, epi, mp]
 
 
 def drive(name: str, fn, kernels: list[str]):
@@ -4392,8 +4603,10 @@ def lm_full_width(device, arch: str, *, smoke: bool = False,
     temperature 0; seeded random bf16 weights drawn on the card), ``layers``
     deep when given, then on its engine's weights: every logit finite,
     prefill + decode_step against forward within ``rel`` of the logits'
-    scale, and the times of one group prefill, one decode step (call and
-    device time, idle share, kernel events) against its bound."""
+    scale, the MLA prefill kernel's launches in one prefill (one a layer
+    where the route takes it), and the times of one group prefill, one
+    decode step (call and device time, idle share, kernel events) against
+    its bound."""
     import dataclasses
 
     import torch
@@ -4481,6 +4694,19 @@ def lm_full_width(device, arch: str, *, smoke: bool = False,
     with routes_recorded() as routes:  # the experts the timed step reads
         decode()
     experts = [len(torch.unique(ids)) for ids, _ in routes]
+    # the MLA prefill kernel: one launch a layer in the timed prefill
+    # where the route takes it (bf16 at DeepSeek-V2/V3's head widths)
+    from repro_torch.kernels.mla_prefill import mla_prefill as mp
+
+    with torch.no_grad():
+        mla_route = cfg.mla and lm._mla_prefill_kernel(
+            cfg, x.new_empty(0, dtype=cfg.dtype))
+    mp.reset_launches()
+    prefill()
+    mla_launches = mp.LAUNCHES["mla_prefill"]
+    check(mla_launches == (cfg.n_layers if mla_route else 0),
+          f"{arch}: {mla_launches} MLA prefill launches in one prefill of "
+          f"{cfg.n_layers} layers")
     secs["checks"] = time.perf_counter() - t0 - secs["run_lm"]
     t0 = time.perf_counter()
     timed = dict(prefill_ms=time_ms(prefill, iters=10),
@@ -4498,7 +4724,8 @@ def lm_full_width(device, arch: str, *, smoke: bool = False,
                warm_generate_s=warm_s, warm_tokens_per_s=res["tokens"] / warm_s,
                stats=stats, peak_mem_bytes=peak,
                err_vs_forward=err, routing_flips=flipped,
-               prefill_shape=[LM_GROUP, LM_PLEN], **timed,
+               prefill_shape=[LM_GROUP, LM_PLEN],
+               prefill_mla_launches=mla_launches, **timed,
                decode_profile=decode_profile,
                bound=lm_bound(cfg, params, LM_GROUP, cache.length, experts),
                secs=secs)
@@ -4814,7 +5041,8 @@ def print_lm(lmo: dict, card: str) -> None:
               f"stats {json.dumps(r['stats'])}; peak memory "
               f"{r['peak_mem_bytes'] / 2**30:.3f} GiB")
         print(f"lm {r['arch']}: prefill {r['prefill_shape']} "
-              f"{r['prefill_ms']:.3f} ms; decode step (batch {LM_GROUP}) "
+              f"{r['prefill_ms']:.3f} ms ({r['prefill_mla_launches']} MLA "
+              f"prefill launches); decode step (batch {LM_GROUP}) "
               f"{r['decode_ms']:.3f} ms a call, device {p['device_ms']} ms, "
               f"idle share {p['idle_share']}, {p['device_events']} device "
               f"events a step ({launch_us(p)} us of wall time each); "
@@ -6141,7 +6369,7 @@ def main(argv: list[str]) -> int:
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
               file=sys.stderr)
         return 2
-    for source in (MATCH_SRC, SIM_SRC, KD_SRC, FA_SRC, EPI_SRC):
+    for source in (MATCH_SRC, SIM_SRC, KD_SRC, FA_SRC, EPI_SRC, MLA_SRC):
         if not (ROOT / source).is_file():
             print(f"chip_smoke: {source} not found beside this script",
                   file=sys.stderr)
@@ -6176,6 +6404,7 @@ def main(argv: list[str]) -> int:
     kernels.update(kd_phase(device))
     kernels.update(fa_phase(device))
     epilogue = epilogue_phase(device)
+    mla = mla_phase(device)
     kernels_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     report = paths(device)
@@ -6301,6 +6530,7 @@ def main(argv: list[str]) -> int:
           + json.dumps(kernels["acam_similarity_serve"]["big_bank"]
                        ["real_windows"]))
     print_epilogue(epilogue)
+    print_mla(mla)
     print(f"profile sessions retried: {json.dumps(PROFILE_RETRIES)}")
     print_device_physics(report["device_physics"], report["serve_mega"])
     print_paper_eval(paper)
@@ -6338,7 +6568,7 @@ def main(argv: list[str]) -> int:
             dict(card=smi, build_s=build_s, kernels_s=kernels_s,
                  paths_s=paths_s, nvcc=logs,
                  kernels=line["kernels"], kernel_phases=kernels,
-                 student_epilogue=epilogue,
+                 student_epilogue=epilogue, mla_prefill=mla,
                  profile_retries=PROFILE_RETRIES,
                  paths=report, training=training, paper_eval=paper,
                  control_plane=control, sharded=sharded, lm=lm_out,

@@ -34,6 +34,9 @@ one shared ``length`` (a Python int here: the port runs eagerly).
 place and returns the cache with ``length + 1``. MLA prefills with the
 expanded attention and decodes with the weight-absorbed one over the
 compressed cache, as the JAX package does (the two differ by rounding).
+The expanded attention's core is one launch of the MLA prefill kernel
+(`kernels/mla_prefill`) on the card in bf16 without grad at DeepSeek-V2/
+V3's head widths, and `layers.chunked_attention` everywhere else.
 Every f32 product runs in true f32 on the card (`layers.true_f32`).
 
 `forward` and `loss_fn` are differentiable: with grad mode on and the
@@ -58,6 +61,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import obs
 from repro_torch.device import resolve
 from repro_torch.distributed import context as mesh_ctx
+from repro_torch.kernels.mla_prefill import mla_prefill
 from repro_torch.models import layers as L
 
 
@@ -501,6 +505,16 @@ def _mla_kv_compressed(p: MLA, cfg: ArchConfig, h, positions, tables=None):
     return c_kv, k_rope
 
 
+def _mla_prefill_kernel(cfg: ArchConfig, q_nope: torch.Tensor) -> bool:
+    """Whether `_mla_train_attention` takes the MLA prefill kernel: bf16 on
+    the card, no grad (it has no backward), causal, and DeepSeek-V2/V3's
+    published head widths. Else `chunked_attention`."""
+    return (q_nope.is_cuda and q_nope.dtype == torch.bfloat16
+            and not torch.is_grad_enabled() and cfg.causal
+            and (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim)
+            == mla_prefill.WIDTHS)
+
+
 def _mla_train_attention(p: MLA, cfg: ArchConfig, h, positions, tables=None):
     """Expanded MLA attention (forward and prefill) -> (output, c_kv,
     k_rope)."""
@@ -510,11 +524,16 @@ def _mla_train_attention(p: MLA, cfg: ArchConfig, h, positions, tables=None):
     kv = L.linear(p.kv_b, c_kv).reshape(
         b, s, cfg.n_heads, cfg.qk_nope_dim + cfg.v_head_dim)
     k_nope, v = torch.split(kv, [cfg.qk_nope_dim, cfg.v_head_dim], dim=-1)
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-        b, s, cfg.n_heads, cfg.qk_rope_dim)], dim=-1)
-    out = L.chunked_attention(q, k, v, causal=cfg.causal,
-                              q_chunk=cfg.q_chunk, scale=cfg.softmax_scale)
+    if _mla_prefill_kernel(cfg, q_nope):
+        out = mla_prefill.mla_prefill(q_nope, q_rope, k_nope, k_rope, v,
+                                      scale=cfg.softmax_scale)
+    else:
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            b, s, cfg.n_heads, cfg.qk_rope_dim)], dim=-1)
+        out = L.chunked_attention(q, k, v, causal=cfg.causal,
+                                  q_chunk=cfg.q_chunk,
+                                  scale=cfg.softmax_scale)
     return L.linear(p.o, out.reshape(b, s, -1)), c_kv, k_rope
 
 

@@ -41,12 +41,16 @@ TENANTS = 3
 @pytest.fixture(autouse=True)
 def jax_mesh_cleared():
     """Without --spec the JAX launcher installs its serving mesh process-
-    wide; clear it after each test so later test files in this worker (the
-    JAX LM's, `tests/test_lm_decode.py`) see none."""
+    wide, and a spec that installs its mesh installs the port's; clear both
+    after each test so later test files in this worker (the JAX LM's,
+    `tests/test_lm_decode.py`; the port's, `tests/test_torch_deepseek_v3.py`)
+    see none."""
     from repro.distributed import context
+    from repro_torch.distributed import context as port_context
 
     yield
     context.clear()
+    port_context.clear()
 
 
 def _spec(m, backend="kernel", slots=16, tau=6.0, **engine):

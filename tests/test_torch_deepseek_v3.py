@@ -349,6 +349,7 @@ def test_shard_map_impl_routes_as_the_published_router():
     reference's features with its routing; a held share there raises."""
     from repro_torch.distributed import context, forcemesh
 
+    context.clear()  # an earlier test's service may have installed a mesh
     x = tokens(CFG, 2, 24, 3)
     sm = dataclasses.replace(CFG, moe_impl="shard_map")
     model = model_of(CFG, 3)
